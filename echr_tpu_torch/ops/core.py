@@ -1,0 +1,107 @@
+"""Parameter containers and the dense primitive (echr_tpu/ops/core.py).
+
+Weights are stored torch-style (a Linear is weight [out, in]) as f32
+tensors.  ``cast_compute_dtype`` rounds every matrix-shaped weight to the
+compute dtype once; ``dense`` then rounds its activation operand the same
+way and multiplies in f32.  That is JAX's ``preferred_element_type=f32``:
+a product of two bf16 values is exact in f32, so a bf16 x bf16 -> f32
+contraction equals the f32 matmul of the rounded operands up to the order
+of the sum.  ``torch.matmul`` on bf16 tensors would round the result to
+bf16, which is not the reference's semantics.  Biases stay f32.
+"""
+from __future__ import annotations
+
+import copy
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+_DTYPES = {"float32": torch.float32, "fp32": torch.float32, None: torch.float32,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def compute_dtype(name: Optional[str]) -> torch.dtype:
+    """RuntimeConfig.compute_dtype name -> torch dtype."""
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported compute dtype {name!r}")
+    return _DTYPES[name]
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to ``dtype`` precision, returned as f32."""
+    if dtype == torch.float32:
+        return x.float()
+    return x.to(dtype).float()
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """a @ b in f32 for operands already rounded to ``dtype``.
+
+    A bf16 value has 8 significant bits and TF32 keeps 11, so for bf16
+    operands on CUDA the TF32 tensor cores multiply exactly and accumulate
+    in f32: the numbers of bf16 x bf16 -> f32, at tensor-core speed.  f32
+    operands always take full-f32 matmuls."""
+    if dtype != torch.bfloat16 or not a.is_cuda:
+        return torch.matmul(a, b)
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    flags.allow_tf32 = True
+    try:
+        return torch.matmul(a, b)
+    finally:
+        flags.allow_tf32 = prev
+
+
+def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> torch.Tensor:
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=gen)
+
+
+def parameter(*shape) -> nn.Parameter:
+    """A zero parameter; the serving slice needs no gradients (training
+    will turn requires_grad on)."""
+    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """Linear map: weight [out, in], bias [out] (optional)."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+        super().__init__()
+        self.weight = parameter(out_dim, in_dim)
+        self.bias = parameter(out_dim) if bias else None
+
+    def init_uniform(self, gen: torch.Generator, bound: Optional[float] = None):
+        """torch's default Linear init U(-1/sqrt(fan_in), +) (dense_init)."""
+        if bound is None:
+            bound = 1.0 / math.sqrt(self.weight.shape[1])
+        uniform_(self.weight, bound, gen)
+        if self.bias is not None:
+            uniform_(self.bias, bound, gen)
+        return self
+
+
+def dense(p: Dense, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """y = x @ w.T (+ b) with x rounded to ``dtype`` and f32 accumulation.
+    The weight is used as stored: cast_compute_dtype has rounded it."""
+    y = matmul(round_to(x, dtype), p.weight.t(), dtype)
+    if p.bias is not None:
+        y = y + p.bias
+    return y
+
+
+def cast_compute_dtype(module: nn.Module, dtype_name: Optional[str]) -> nn.Module:
+    """A copy of ``module`` whose matrix-shaped (ndim >= 2) parameters are
+    rounded to the compute dtype (kept as f32 storage); 1-D leaves stay
+    exact f32.  The identity for f32."""
+    dt = compute_dtype(dtype_name)
+    if dt == torch.float32:
+        return module
+    out = copy.deepcopy(module)
+    with torch.no_grad():
+        for p in out.parameters():
+            if p.ndim >= 2:
+                p.copy_(round_to(p, dt))
+    return out

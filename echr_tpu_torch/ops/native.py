@@ -1,0 +1,114 @@
+"""Build and load the CUDA kernels of echr_tpu_torch/csrc.
+
+nvcc compiles every ``csrc/*.cu`` for sm_90a into one shared library with
+a plain C interface, at first use, into ``echr_tpu_torch/_build/`` (listed
+in .gitignore).  The library's name carries a hash of the sources and
+flags, so a changed source rebuilds.  It is loaded with ctypes: every
+pointer and the stream are ``c_void_p``, every size ``c_int``, and each
+entry point returns ``cudaGetLastError()`` after its launches.
+
+No fast-math flag: kernel 1's tanhf and kernel 2's expf/logf are the
+accurate ones (an approximate tanh changes greedy tokens).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point -> argtypes (see the extern "C" functions in csrc/*.cu)
+_SIGNATURES = {
+    # pre, q, w, b, mask, out, B, N, T, H, stream
+    "echr_attention_scores": [_P] * 6 + [_I] * 4 + [_P],
+    # out, w, b, bf16, R, C, V1, splits, part_m, part_l, part_a, tok, mx, lse, stream
+    "echr_greedy_head": [_P, _P, _P] + [_I] * 5 + [_P] * 6 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""  # nvcc's output (ptxas register / shared-memory report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "echr_tpu_torch/csrc at first use and need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless a library of the same hash exists."""
+    global build_log
+    so = BUILD_DIR / f"libechr_kernels_{_digest()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def check_arg(fn: str, name: str, x, shape, dtype, device) -> None:
+    """Raise unless x is a contiguous ``dtype`` tensor of ``shape`` on the
+    CUDA ``device``: what a kernel takes, and nothing else."""
+    if x.device.type != "cuda" or x.device != device:
+        raise ValueError(f"{fn}: {name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{fn}: {name} is {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")

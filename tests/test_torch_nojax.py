@@ -1,0 +1,125 @@
+"""echr_tpu_torch runs without jax, and its seeded init builds the same
+param tree as echr_tpu.models.registry.
+
+The subprocess imports every module of the port, serves a tiny CPU slice
+from the port's own init and from a JAX format-v2 checkpoint, and checks
+that jax never entered sys.modules.
+"""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from test_torch_ops import small_cfg
+
+import echr_tpu_torch
+from echr_tpu.models.registry import init_captioner as jax_init_captioner
+from echr_tpu.models.registry import init_tap as jax_init_tap
+
+from echr_tpu_torch.bridge import captioner_to_jax, tap_to_jax
+from echr_tpu_torch.models.registry import init_captioner, init_tap
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "echr_tpu_torch"
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG)], "echr_tpu_torch."))
+
+
+def _shapes(tree):
+    return jax.tree.map(lambda x: tuple(np.shape(x)), tree)
+
+
+@pytest.mark.parametrize("fst_posit", [True, False])
+def test_init_tree_matches_jax_registry(fst_posit):
+    cfg = small_cfg(**{"fusion.use_posit": fst_posit})
+    g = torch.Generator().manual_seed(0)
+    tap, cg = init_tap(g, cfg), init_captioner(g, cfg)
+    k = jax.random.PRNGKey(0)
+    want_tap = jax.eval_shape(lambda: jax_init_tap(k, cfg))
+    want_cg = jax.eval_shape(lambda: jax_init_captioner(k, cfg))
+    assert _shapes(tap_to_jax(tap)) == _shapes(want_tap)
+    assert _shapes(captioner_to_jax(cg, cfg)) == _shapes(want_cg)
+
+
+def test_init_uniform_bounds():
+    """Every leaf lies inside its JAX init bound: 1/sqrt(fan_in) for
+    Linears, 1/sqrt(H) for LSTM cells, 0.1 for embed and logit weight."""
+    cfg = small_cfg()
+    cg = init_captioner(torch.Generator().manual_seed(1), cfg)
+    d = cfg.fusion.d_feats
+    H = cfg.decoder.CG_rnn_size
+    assert cg.decoder.embed.abs().max() <= 0.1
+    assert cg.decoder.logit.weight.abs().max() <= 0.1
+    assert torch.all(cg.decoder.logit.bias == 0)
+    assert cg.decoder.core.layer0.weight_ih.abs().max() <= 1 / np.sqrt(H)
+    assert cg.fusion.out.weight.abs().max() <= 1 / np.sqrt(d)
+    att = cg.decoder.core.attention.ctx2att
+    assert att.weight.abs().max() <= 1 / np.sqrt(att.weight.shape[1])
+    # seeded: the same generator seed gives the same tree
+    again = init_captioner(torch.Generator().manual_seed(1), cfg)
+    assert torch.equal(again.decoder.embed, cg.decoder.embed)
+
+
+def test_port_sources_stay_off_jax_and_library_kernels():
+    banned = re.compile(r"^\s*(import jax|from jax)|scaled_dot_product_attention|"
+                        r"torch\.compile|flash_attn|xformers", re.M)
+    sources = [p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts]
+    assert len(sources) >= 16
+    for path in sources:
+        assert not banned.search(path.read_text()), path
+
+
+_CHILD = textwrap.dedent("""
+    import importlib, sys
+    import numpy as np, torch
+    for name in {modules!r}:
+        importlib.import_module(name)
+    from echr_tpu.config import flagship_config
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.serve import CaptionRequest, CaptionService, from_checkpoint
+    cfg = flagship_config()
+    cfg = cfg.replace_in("data", lda_dim=16, time_buckets=(128,))
+    cfg = cfg.replace_in("tap", video_dim=24, hidden_dim=32, K=32)
+    cfg = cfg.replace_in("fusion", n_head=4, d_feats=32, d_o=32)
+    cfg = cfg.replace_in("decoder", CG_rnn_size=32, CG_input_encoding_size=32,
+                         CG_att_hid_size=128, CG_vocab_size=50, CG_seq_length=8)
+    g = torch.Generator().manual_seed(0)
+    vocab = {{str(i): "w%d" % i for i in range(1, 51)}}
+    r = np.random.RandomState(0)
+    reqs = [CaptionRequest("v%d" % i, r.randn(90 + 9 * i, 24).astype(np.float32), 20.0)
+            for i in range(3)]
+    for svc in (CaptionService(cfg, init_tap(g, cfg), init_captioner(g, cfg), vocab,
+                               device="cpu", batch_videos=2, topN=6),
+                from_checkpoint({ckpt!r}, device="cpu", batch_videos=2, topN=6)):
+        res = svc.caption(reqs)
+        assert sorted(res) == ["v0", "v1", "v2"], res
+        assert all(len(c) == 6 for c in res.values())
+    assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+    print("NOJAX_OK")
+""")
+
+
+def test_port_runs_without_jax(tmp_path):
+    from test_torch_serve import _params, _save_jax_checkpoint, _vocab
+
+    cfg = small_cfg()
+    tap, cg = _params(cfg)
+    ckpt = tmp_path / "m.ckpt"
+    _save_jax_checkpoint(ckpt, cfg, tap, cg, _vocab(cfg))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(modules=_all_modules(), ckpt=str(ckpt))],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NOJAX_OK" in proc.stdout
+    assert len(_all_modules()) >= 16 and echr_tpu_torch.__version__
