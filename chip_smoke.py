@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive echr_tpu_torch's batched greedy serving path once on one NVIDIA GPU.
+"""Drive echr_tpu_torch's batched greedy serving path and its XE training
+path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +20,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      slice with the kernels and under force_plain() gives the same tokens
      and logps within 5e-4;
   6. times: kernel against plain version (CUDA events after warm-up) and
-     the slice's captions/s, each beside the card's name and power limit.
+     the slice's captions/s, each beside the card's name and power limit;
+  7. kernel 3 (differentiable scores, forward) against its plain version
+     at the training shapes and ragged shapes;
+  8. kernel 4 (their backward) against the autograd of the plain forward at
+     the same shapes, and two calls bit-identical;
+  9. the training slice: engine.train.train at the flagship width as
+     bench.py's e2e_train_cfg builds it (B=32 videos of T=256, cotrain /
+     tap_cg, vocab 6000, bf16, dropout on, seeded): 1 warm-up and 5 timed
+     steps; finite losses, moved parameters, and kernel 3 and 4 launches
+     equal to the teacher-forced steps run; time/step, videos/s and peak
+     memory;
+  10. training parity: at f32 with TF32 off and dropout off, one step's
+     loss and gradients with the kernels and under force_plain() agree.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -34,6 +47,7 @@ import torch
 
 TOL = 5e-4
 T_BUCKET, VIDEO_DIM, VOCAB, SEQ_LEN, TOP_N = 256, 500, 6000, 30, 128
+TRAIN_B, TRAIN_N, TRAIN_STEPS = 32, 64, 6  # videos, sampled proposals, steps (1 warm-up)
 
 
 def fail(msg):
@@ -296,12 +310,214 @@ def phase_parity(tap, cg, vocab):
         fail("the slice with the kernels disagrees with its plain version")
 
 
+def _rand(rng, shape, scale, dev):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+
+def _score_inputs(rng, B, N, T, H, dev):
+    return (_rand(rng, (B, T, H), 0.5, dev), _rand(rng, (B, N, H), 0.5, dev),
+            _rand(rng, (H,), 0.05, dev), torch.tensor([0.25], device=dev))
+
+
+TRAIN_SHAPES = {"training": (TRAIN_B, TRAIN_N, T_BUCKET, 512), "ragged": (3, 60, 200, 500)}
+
+
+def phase_scores_dense(card):
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense
+
+    rng = np.random.RandomState(4)
+    dev = torch.device("cuda")
+    worst = 0.0
+    for name, (B, N, T, H) in TRAIN_SHAPES.items():
+        args = _score_inputs(rng, B, N, T, H, dev)
+        got = attention_scores_dense(*args)
+        torch.cuda.synchronize()
+        with force_plain():
+            want = attention_scores_dense(*args)
+        err = float((got - want).abs().max())
+        print(f"[7] dense scores {name} B={B} N={N} T={T} H={H}: max|d| {err:.3e}")
+        if not err <= TOL:
+            fail(f"kernel 3 {name}: max|d| {err:.3e} > {TOL}")
+        worst = max(worst, err)
+        if name == "training":
+            ms = cuda_ms(lambda: attention_scores_dense(*args))
+            with force_plain():
+                plain_ms = cuda_ms(lambda: attention_scores_dense(*args), iters=5)
+            print(f"[7] dense scores kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
+                  f"teacher-forced step [{card}]")
+            record = {"ms": ms, "plain_ms": plain_ms}
+    record["max_abs_err"] = worst
+    return record
+
+
+def phase_scores_bwd(card):
+    """Kernel 4 against the autograd of the plain forward.  d_pre and d_q at
+    atol 2e-4, rtol 1e-4 (the JAX package's gate for its backward kernel);
+    d_w and d_b are each a sum of B*N*T = 524k terms at the training shapes,
+    so they are held to 1e-4 of their largest entry."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_attention import (attention_scores_bwd,
+                                                     attention_scores_dense_plain,
+                                                     attention_scores_diff)
+
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    worst = 0.0
+    for name, (B, N, T, H) in TRAIN_SHAPES.items():
+        args = _score_inputs(rng, B, N, T, H, dev)
+        g = _rand(rng, (B, N, T), 1.0, dev)
+        leaves = [a.clone().requires_grad_() for a in args]
+        attention_scores_diff(*leaves).backward(g)
+        got = [x.grad for x in leaves]
+        torch.cuda.synchronize()
+        ref = [a.clone().requires_grad_() for a in args]
+        attention_scores_dense_plain(*ref).backward(g)
+        want = [x.grad for x in ref]
+        for key, a, b in zip(("d_pre", "d_q", "d_w", "d_b"), got, want):
+            err = float((a - b).abs().max())
+            if key in ("d_pre", "d_q"):
+                ok = bool(((a - b).abs() <= 2e-4 + 1e-4 * b.abs()).all())
+                worst = max(worst, err)
+            else:
+                ok = err <= 1e-4 * float(b.abs().max())
+            print(f"[8] scores backward {name} {key}: max|d| {err:.3e} "
+                  f"(max|ref| {float(b.abs().max()):.3e})")
+            if not ok:
+                fail(f"kernel 4 {name} {key} disagrees with the plain autograd")
+        raw = args[:3] + (g,)
+        first = attention_scores_bwd(*raw)
+        second = attention_scores_bwd(*raw)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            fail(f"kernel 4 {name}: two calls differ")
+        print(f"[8] scores backward {name}: two calls bit-identical")
+        if name == "training":
+            ms = cuda_ms(lambda: attention_scores_bwd(*raw))
+            with force_plain():
+                plain_ms = cuda_ms(lambda: attention_scores_bwd(*raw), iters=5)
+            print(f"[8] scores backward kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
+                  f"teacher-forced step [{card}]")
+            record = {"ms": ms, "plain_ms": plain_ms}
+    record["max_abs_err"] = worst
+    return record
+
+
+def train_cfg(**runtime):
+    """bench.py's e2e_train_cfg (bench.py:290-319): the flagship width on
+    synthetic data, cotrain, batch 32, no eval or checkpoints.  Its 256
+    synthetic videos (192 train) already cover 6 steps of 32: nothing is
+    cut."""
+    from echr_tpu_torch.config import flagship_config
+
+    cfg = flagship_config()
+    cfg = cfg.replace_in("data", synthetic=True, lda_dim=100, time_buckets=(T_BUCKET,),
+                         synthetic_vocab_size=VOCAB, synthetic_seq_length=SEQ_LEN,
+                         synthetic_num_videos=256, synthetic_cache_videos=256,
+                         synthetic_learnable=True)
+    cfg = cfg.replace_in("train", training_mode="cotrain", tap_epochs=0, cg_epochs=0,
+                         tapcg_epochs=10**6, batch_size=TRAIN_B, self_critical_after=-1,
+                         m_batch=1)
+    cfg = cfg.replace_in("save", losses_log_every=10**9, save_checkpoint_every=10**9,
+                         min_epoch_when_save=10**9)
+    if runtime:
+        cfg = cfg.replace_in("runtime", **runtime)
+    return cfg.validate()
+
+
+def phase_train(card):
+    from echr_tpu_torch.engine.train import train
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd, attention_scores_dense
+
+    cfg = train_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    attention_scores_dense.launches = 0
+    attention_scores_bwd.launches = 0
+    timing = {}
+    out = train(cfg, max_iterations=TRAIN_STEPS, device="cuda", timing_out=timing)
+    torch.cuda.synchronize()
+    launches = {"attention_scores_dense": attention_scores_dense.launches,
+                "attention_scores_bwd": attention_scores_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    tf_steps = SEQ_LEN - 1  # caption columns minus the BOS input
+    expect = tf_steps * out["iteration"]
+    if out["iteration"] != TRAIN_STEPS:
+        fail(f"train stopped at iteration {out['iteration']}")
+    if not all(np.isfinite(v) for v in out["losses"].values()):
+        fail(f"non-finite losses {out['losses']}")
+    gen = torch.Generator().manual_seed(cfg.train.seed)  # train()'s init, again
+    tap0, cg0 = init_tap(gen, out["config"]), init_captioner(gen, out["config"])
+    state = out["state"]
+    for name, m0, m in (("tap", tap0, state.tap), ("cg", cg0, state.cg)):
+        for (pn, p0), p in zip(m0.named_parameters(), m.parameters()):
+            if torch.equal(p0, p.detach().cpu()):
+                fail(f"{name}.{pn} did not move in {out['iteration']} steps")
+    if any(n != expect for n in launches.values()):
+        fail(f"kernel launches {launches} do not match {tf_steps} teacher-forced steps x "
+             f"{out['iteration']} train steps = {expect}")
+    t = dict(timing["iters"])
+    dt = (t[TRAIN_STEPS] - t[1]) / (TRAIN_STEPS - 1)
+    print(f"[9] training slice: {out['iteration']} steps of {TRAIN_B} videos (cotrain/tap_cg, "
+          f"vocab {VOCAB}, {tf_steps} teacher-forced steps, T={T_BUCKET}, "
+          f"N={cfg.tap.prop_sample_num}, bf16, "
+          f"dropout on, seed {cfg.train.seed}; synthetic_num_videos 256 as e2e_train_cfg, "
+          f"nothing cut); launches {launches}; last losses "
+          f"{ {k: round(v, 4) for k, v in out['losses'].items()} }")
+    print(f"[9] training {1000 * dt:.1f} ms/step, {TRAIN_B / dt:.2f} videos/s over steps 2-"
+          f"{TRAIN_STEPS}, peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    return launches
+
+
+def phase_train_parity():
+    """f32, TF32 off, dropout off, B=4: one step's loss and gradients with
+    the kernels and under force_plain().  Gates: loss within 1e-5 relative,
+    every gradient leaf within atol 2e-4, rtol 1e-3."""
+    from echr_tpu.data.batcher import make_batch
+    from echr_tpu.data.dataset import SyntheticDataset
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.engine.train import _collate
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.ops import force_plain
+
+    cfg = train_cfg(compute_dtype="float32").replace_in("decoder", CG_vocab_size=VOCAB,
+                                                          CG_seq_length=SEQ_LEN)
+    ds = SyntheticDataset(cfg, num_videos=8, seed=11)
+    batch = steps.batch_to_device(_collate([
+        make_batch(ds.get_example(i), cfg, np.random.RandomState(i), w1=ds.w1)[0]
+        for i in range(4)]), "cuda")
+    gen = torch.Generator().manual_seed(0)
+    state = steps.init_train_state(cfg, init_tap(gen, cfg, "cuda"),
+                                   init_captioner(gen, cfg, "cuda"))
+    (tk, ck), mk = steps.grad_step(state, batch, None, cfg, "tap_cg")
+    with force_plain():
+        (tp, cp), mp = steps.grad_step(state, batch, None, cfg, "tap_cg")
+    rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    names = ([f"tap.{n}" for n, _ in state.tap.named_parameters()]
+             + [f"cg.{n}" for n, _ in state.cg.named_parameters()])
+    worst, bad = 0.0, []
+    for name, a, b in zip(names, tk + ck, tp + cp):
+        worst = max(worst, float((a - b).abs().max()))
+        if not bool(((a - b).abs() <= 2e-4 + 1e-3 * b.abs()).all()):
+            bad.append(name)
+    print(f"[10] f32 training step, kernels vs plain: loss {mk['loss']:.6f} vs "
+          f"{mp['loss']:.6f} (rel {rel:.2e}), {len(names)} gradient leaves, max|d| "
+          f"{worst:.3e}")
+    if not rel <= 1e-5 or bad:
+        fail(f"training step with the kernels disagrees with its plain version: rel {rel:.2e}, "
+             f"leaves {bad[:5]}")
+
+
 def main():
     card = phase_device()
     scores = phase_scores(card)
     head = phase_head(card)
     launches, tap, cg, vocab = phase_slice(card)
     phase_parity(tap, cg, vocab)
+    del tap, cg
+    dense = phase_scores_dense(card)
+    bwd = phase_scores_bwd(card)
+    launches.update(phase_train(card))
+    phase_train_parity()
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_scores.cu",
@@ -311,6 +527,14 @@ def main():
          "source": "echr_tpu_torch/csrc/greedy_head.cu",
          "replaces": "echr_tpu/ops/pallas_head.py:92",
          "launches": launches["greedy_head"], **head},
+        {"name": "attention_scores_dense", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/attention_scores.cu",
+         "replaces": "echr_tpu/ops/pallas_attention.py:31",
+         "launches": launches["attention_scores_dense"], **dense},
+        {"name": "attention_scores_bwd", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/attention_scores_bwd.cu",
+         "replaces": "echr_tpu/ops/pallas_attention.py:310",
+         "launches": launches["attention_scores_bwd"], **bwd},
     ]
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -1,16 +1,21 @@
-// Kernel 1: masked additive-attention scores, for sm_90a.
+// Kernels 1 and 3: additive-attention scores, for sm_90a.
 //
 //   s[b, n, t] = w . tanh(pre[b, t, :] + q[b, n, :]) + bias
 //
-// Replaces the Pallas TPU kernel echr_tpu/ops/pallas_attention.py::_kernel_skip
-// (pallas_call at :153).  Bound on an H100 by the throughput of the accurate
-// tanhf: B*N*T*H = 537M tanh per decode step at serving dims, against ~4 MB of
-// output.  One block per (video b, 16-proposal tile, 32-frame tile) stages the
-// tile's q rows and pre rows in shared memory, HC hidden units at a time, and
-// each of its 256 threads reduces over H for two outputs (proposals ty and
-// ty + 8 at frame tx).  A block whose tile of the window mask holds no 1 writes
-// zeros and computes no tanh.  Ragged N, T and H are masked in the block.
-// Built without fast math: tanhf is the accurate one.
+// Kernel 1 (masked) replaces the Pallas TPU kernel
+// echr_tpu/ops/pallas_attention.py::_kernel_skip (pallas_call at :153), the
+// no-grad decode scores; kernel 3 (dense) replaces ::_kernel (pallas_call at
+// :52), the forward of the differentiable training scores.  Both share one
+// device body, a template on MASKED.  Bound on an H100 by the throughput of
+// the accurate tanhf: B*N*T*H = 537M tanh per decode step at serving dims and
+// 268M per teacher-forced step at training dims, against 2-4 MB of output.
+// One block per (video b, 16-proposal tile, 32-frame tile) stages the tile's q
+// rows and pre rows in shared memory, HC hidden units at a time, and each of
+// its 256 threads reduces over H for two outputs (proposals ty and ty + 8 at
+// frame tx).  Masked: a block whose tile of the window mask holds no 1 writes
+// zeros and computes no tanh.  Dense: every tile is computed.  Ragged N, T and
+// H are masked in the block.  Built without fast math: tanhf is the accurate
+// one.
 #include <cuda_runtime.h>
 
 namespace {
@@ -20,11 +25,12 @@ constexpr int TT = 32;        // frames per block (one per lane)
 constexpr int HC = 64;        // hidden units staged per pass
 constexpr int THREADS = 256;  // 8 warps: warp ty owns proposals ty, ty + 8
 
+template <bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-masked_scores_kernel(const float* __restrict__ pre, const float* __restrict__ q,
-                     const float* __restrict__ w, const float* __restrict__ bias,
-                     const float* __restrict__ mask, float* __restrict__ out,
-                     int N, int T, int H) {
+scores_kernel(const float* __restrict__ pre, const float* __restrict__ q,
+              const float* __restrict__ w, const float* __restrict__ bias,
+              const float* __restrict__ mask, float* __restrict__ out,
+              int N, int T, int H) {
   __shared__ float pre_s[TT][HC + 1];  // +1: lanes read distinct banks
   __shared__ float q_s[TN][HC];        // one row per warp: a broadcast read
   __shared__ float w_s[HC];
@@ -41,17 +47,19 @@ masked_scores_kernel(const float* __restrict__ pre, const float* __restrict__ q,
   const bool tb = t < T && nb < N;
 
   const size_t nt = (size_t)N * T;
-  const float* m = mask + (size_t)b * nt;
   float* o = out + (size_t)b * nt;
-  int any = 0;
-  if (ta) any |= m[(size_t)na * T + t] != 0.f;
-  if (tb) any |= m[(size_t)nb * T + t] != 0.f;
-  if (!__syncthreads_or(any)) {
-    // no proposal of this tile sees any of its frames: the caller's masked
-    // softmax reads none of these scores
-    if (ta) o[(size_t)na * T + t] = 0.f;
-    if (tb) o[(size_t)nb * T + t] = 0.f;
-    return;
+  if constexpr (MASKED) {
+    const float* m = mask + (size_t)b * nt;
+    int any = 0;
+    if (ta) any |= m[(size_t)na * T + t] != 0.f;
+    if (tb) any |= m[(size_t)nb * T + t] != 0.f;
+    if (!__syncthreads_or(any)) {
+      // no proposal of this tile sees any of its frames: the caller's
+      // masked softmax reads none of these scores
+      if (ta) o[(size_t)na * T + t] = 0.f;
+      if (tb) o[(size_t)nb * T + t] = 0.f;
+      return;
+    }
   }
 
   const float* pb = pre + (size_t)b * T * H;
@@ -95,9 +103,23 @@ extern "C" int echr_attention_scores(const void* pre, const void* q, const void*
                                      const void* b, const void* mask, void* out,
                                      int B, int N, int T, int H, void* stream) {
   dim3 grid((T + TT - 1) / TT, (N + TN - 1) / TN, B);
-  masked_scores_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  scores_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pre), static_cast<const float*>(q),
       static_cast<const float*>(w), static_cast<const float*>(b),
       static_cast<const float*>(mask), static_cast<float*>(out), N, T, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 3: the same scores at every (n, t), no mask.
+// pre [B, T, H], q [B, N, H], w [H], b [1] -> out [B, N, T]; all f32,
+// contiguous, on the device of `stream`.
+extern "C" int echr_attention_scores_dense(const void* pre, const void* q, const void* w,
+                                           const void* b, void* out, int B, int N, int T,
+                                           int H, void* stream) {
+  dim3 grid((T + TT - 1) / TT, (N + TN - 1) / TN, B);
+  scores_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pre), static_cast<const float*>(q),
+      static_cast<const float*>(w), static_cast<const float*>(b), nullptr,
+      static_cast<float*>(out), N, T, H);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,194 @@
-"""The batched eval / serving steps (echr_tpu/engine/steps.py), greedy.
+"""The batched training and eval / serving steps (echr_tpu/engine/steps.py).
 
-Each step takes modules already cast once with
+Training: ``train_step`` = ``grad_step`` + ``apply_grads`` over a [B]-video
+batch.  The loss casts the matrix weights to the compute dtype inside the
+graph (``ops.core.call_in_compute_dtype``), so the gradients reach the f32
+masters; each video's losses keep that video's denominators and the step
+takes the mean over videos, as the reference's vmapped step does.  The
+parameters and the two Adam states are updated in place.
+
+Eval / serving: each step takes modules already cast once with
 ``ops.core.cast_compute_dtype(module, cfg.runtime.compute_dtype)`` (the
 reference casts inside every jitted step; here CaptionService casts at
 construction) and runs under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from echr_tpu.config import Config
+from echr_tpu.data.batcher import VideoBatch
 from echr_tpu.data.labels import featstamps_to_times
-from echr_tpu_torch.models.captioner import Captioner, ProposalBatch, make_contexts
+from echr_tpu_torch import losses
+from echr_tpu_torch.models.captioner import (
+    Captioner,
+    ProposalBatch,
+    captioner_train_forward,
+    captioner_train_loss,
+    make_contexts,
+)
 from echr_tpu_torch.models.decoder import decoder_sample_batched
 from echr_tpu_torch.models.sst import SST, sst_forward_batched
-from echr_tpu_torch.ops.core import compute_dtype
+from echr_tpu_torch.ops.core import call_in_compute_dtype, compute_dtype
+
+UPDATES_TAP = ("tap", "tap_cg", "gt_tap_cg")
+UPDATES_CG = ("cg", "gt_tap_cg", "tap_cg", "LP_cg")
+
+
+@dataclass
+class TrainState:
+    """The two models (f32 masters), one Adam each, and the step count."""
+
+    tap: SST
+    cg: Captioner
+    tap_opt: torch.optim.Adam
+    cg_opt: torch.optim.Adam
+    step: int = 0
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
+    """Adam(b1 0.9, b2 0.999, optim_epsilon) with L2 weight decay added to
+    the gradient before the moments, and lr applied last: optax's
+    add_decayed_weights -> scale_by_adam -> scale(-lr) of the reference.
+    torch's Adam has no clip: ``apply_grads`` clamps each gradient element
+    to grad_clip before step(), so the order is clip -> decay -> Adam -> -lr.
+    """
+    t = cfg.train
+    return torch.optim.Adam(params, lr=t.lr, betas=(0.9, 0.999), eps=t.optim_epsilon,
+                            weight_decay=t.weight_decay)
+
+
+def init_train_state(cfg: Config, tap: SST, cg: Captioner) -> TrainState:
+    return TrainState(tap, cg, make_optimizer(cfg, tap.parameters()),
+                      make_optimizer(cfg, cg.parameters()))
+
+
+def set_lr(state: TrainState, lr: float) -> TrainState:
+    """The epoch step-decay learning rate, for both optimizers."""
+    for opt in (state.tap_opt, state.cg_opt):
+        for group in opt.param_groups:
+            group["lr"] = lr
+    return state
+
+
+def batch_to_device(batch: VideoBatch, device) -> VideoBatch:
+    """A numpy VideoBatch stacked over [B] -> tensors on ``device``: integer
+    fields as int64, every other field as f32 (uint8 grids and bf16 features
+    are lifted to f32, as the reference's decompress_batch does)."""
+    def up(x):
+        a = np.asarray(x)
+        if np.issubdtype(a.dtype, np.integer) and a.dtype != np.uint8:
+            return torch.from_numpy(a.astype(np.int64)).to(device)
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return VideoBatch(*(up(x) for x in batch))
+
+
+def _select_props(batch: VideoBatch, phase: str
+                  ) -> Tuple[ProposalBatch, torch.Tensor, torch.Tensor]:
+    """GT proposals for 'cg' / 'gt_tap_cg', the sampled ones otherwise."""
+    if phase in ("cg", "gt_tap_cg"):
+        props = ProposalBatch(batch.gts_ind, batch.gts_soi, batch.gts_mask)
+        return props, batch.gts_cg_labels, batch.gts_cg_masks
+    props = ProposalBatch(batch.ind_select, batch.soi, batch.prop_mask)
+    return props, batch.cg_labels, batch.cg_masks
+
+
+def _one_video_losses(tap: SST, cg: Captioner, cfg: Config, batch: VideoBatch, phase: str,
+                      gen: Optional[torch.Generator], train: bool, ss_prob: float
+                      ) -> Dict[str, torch.Tensor]:
+    """Each video's losses, [B] each: the reference's _one_video_losses over
+    a batch axis.  ``tap`` and ``cg`` hold compute-dtype weights."""
+    dt = compute_dtype(cfg.runtime.compute_dtype)
+    tap_feats, scores = sst_forward_batched(tap, batch.feats, dt, train, gen,
+                                            cfg.tap.rnn_dropout)
+    tap_l = losses.tap_loss(scores, batch.tap_masks, batch.tap_labels, batch.w1,
+                            batch.n_frames)
+    out = {"tap_loss": tap_l}
+    if phase != "tap":
+        props, labels, masks = _select_props(batch, phase)
+        if cfg.runtime.fused_loss_head and ss_prob == 0.0:
+            cg_l = captioner_train_loss(cg, cfg, tap_feats, batch.feats, batch.lda, labels,
+                                        masks, props, batch.frame_mask, dt, train, gen)
+        else:
+            logprobs = captioner_train_forward(cg, cfg, tap_feats, batch.feats, batch.lda,
+                                               labels, props, batch.frame_mask, dt, train,
+                                               gen, ss_prob)
+            cg_l = losses.language_model_loss(logprobs, labels[..., 1:], masks[..., 1:])
+        out["cg_loss"] = cg_l
+        out["total_loss"] = cfg.train.lambda1 * tap_l + cfg.train.lambda2 * cg_l
+    return out
+
+
+def _phase_loss(metrics: Dict[str, torch.Tensor], phase: str) -> torch.Tensor:
+    if phase == "tap":
+        return metrics["tap_loss"]
+    if phase in ("cg", "gt_tap_cg", "LP_cg"):
+        return metrics["cg_loss"]
+    return metrics["total_loss"]
+
+
+def _batch_losses(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: str,
+                  gen: Optional[torch.Generator], ss_prob: float) -> Dict[str, torch.Tensor]:
+    per_video = _one_video_losses(models["tap"], models["cg"], cfg, batch, phase, gen, True,
+                                  ss_prob)
+    return {k: v.mean() for k, v in per_video.items()}
+
+
+def grad_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generator],
+              cfg: Config, phase: str, ss_prob: float = 0.0
+              ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, float]]:
+    """Gradients of the phase loss (the mean over the batch's videos) for
+    every parameter of both models, and the metrics as floats.  Dropout and
+    scheduled sampling draw from ``gen``; ``gen=None`` turns both off."""
+    models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})  # one cast for both
+    params = list(models.parameters())
+    metrics = call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
+                                    _batch_losses, cfg, batch, phase, gen, ss_prob)
+    loss = _phase_loss(metrics, phase)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    # an unused parameter has a zero gradient (Adam still steps it, as optax does)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    n_tap = len(list(state.tap.parameters()))
+    out = {k: float(v.detach()) for k, v in metrics.items()}
+    out["loss"] = float(loss.detach())
+    return (grads[:n_tap], grads[n_tap:]), out
+
+
+@torch.no_grad()
+def _update(opt: torch.optim.Adam, grads: List[torch.Tensor], clip: float) -> None:
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p, g in zip(params, grads):
+        p.grad = g.clamp(-clip, clip)
+    opt.step()
+    for p in params:
+        p.grad = None
+
+
+def apply_grads(state: TrainState, tap_g: List[torch.Tensor], cg_g: List[torch.Tensor],
+                cfg: Config, phase: str) -> TrainState:
+    """Clip each element, then step the phase's optimizers; the other
+    model's parameters and Adam state stay as they are."""
+    if phase in UPDATES_CG:
+        _update(state.cg_opt, cg_g, cfg.train.grad_clip)
+    if phase in UPDATES_TAP:
+        _update(state.tap_opt, tap_g, cfg.train.grad_clip)
+    state.step += 1
+    return state
+
+
+def train_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generator],
+               cfg: Config, phase: str, ss_prob: float = 0.0
+               ) -> Tuple[TrainState, Dict[str, float]]:
+    """One training step over a [B]-video batch of tensors on the models'
+    device (``batch_to_device``)."""
+    (tap_g, cg_g), metrics = grad_step(state, batch, gen, cfg, phase, ss_prob)
+    return apply_grads(state, tap_g, cg_g, cfg, phase), metrics
 
 
 @torch.inference_mode()

@@ -1,5 +1,7 @@
 """Caption generator: hierarchical contexts + decoder
-(echr_tpu/models/captioner.py), eval mode."""
+(echr_tpu/models/captioner.py): contexts, and the teacher-forced training
+forward and fused loss.  Contexts run in f32 (make_contexts' default, as
+in the reference); the decoder in the compute dtype."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -9,7 +11,7 @@ from torch import nn
 
 from echr_tpu.config import Config
 from echr_tpu_torch.models.contexts import Contexts, build_contexts
-from echr_tpu_torch.models.decoder import Decoder
+from echr_tpu_torch.models.decoder import Decoder, decoder_forward, teacher_forced_nll
 from echr_tpu_torch.models.tsrm import TSRM
 
 
@@ -39,7 +41,51 @@ def make_contexts(
     props: ProposalBatch,
     frame_mask: Optional[torch.Tensor] = None,
     dtype: torch.dtype = torch.float32,
+    train: bool = False,
+    gen: Optional[torch.Generator] = None,
 ) -> Contexts:
     return build_contexts(cg.fusion, cfg, tap_feats, c3d_feats, lda_feats,
                           props.ind_select, props.soi, props.prop_mask,
-                          frame_mask=frame_mask, dtype=dtype)
+                          frame_mask=frame_mask, dtype=dtype, train=train, gen=gen)
+
+
+def captioner_train_forward(
+    cg: Captioner,
+    cfg: Config,
+    tap_feats: torch.Tensor,  # [B, T, H]
+    c3d_feats: torch.Tensor,  # [B, T, D]
+    lda_feats: torch.Tensor,  # [B, lda_dim]
+    cg_labels: torch.Tensor,  # [B, N, L+1]
+    props: ProposalBatch,
+    frame_mask: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.float32,  # the decoder's compute dtype
+    train: bool = True,
+    gen: Optional[torch.Generator] = None,
+    ss_prob: float = 0.0,
+) -> torch.Tensor:
+    """Teacher-forced logprobs [B, N, L, V+1] (mode 'train')."""
+    ctxs = make_contexts(cg, cfg, tap_feats, c3d_feats, lda_feats, props, frame_mask,
+                         train=train, gen=gen)
+    return decoder_forward(cg.decoder, cfg, ctxs, cg_labels, dtype, train, gen, ss_prob)
+
+
+def captioner_train_loss(
+    cg: Captioner,
+    cfg: Config,
+    tap_feats: torch.Tensor,
+    c3d_feats: torch.Tensor,
+    lda_feats: torch.Tensor,
+    cg_labels: torch.Tensor,  # [B, N, L+1]
+    cg_masks: torch.Tensor,  # [B, N, L+1]
+    props: ProposalBatch,
+    frame_mask: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.float32,
+    train: bool = True,
+    gen: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Per-video caption NLL [B] with the fused loss head: equals
+    language_model_loss(captioner_train_forward(...), cg_labels[..., 1:],
+    cg_masks[..., 1:]) without the [B, N, L, V+1] logprobs."""
+    ctxs = make_contexts(cg, cfg, tap_feats, c3d_feats, lda_feats, props, frame_mask,
+                         train=train, gen=gen)
+    return teacher_forced_nll(cg.decoder, cfg, ctxs, cg_labels, cg_masks, dtype, train, gen)

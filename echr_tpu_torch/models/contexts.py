@@ -39,6 +39,8 @@ def build_contexts(
     prop_mask: torch.Tensor,  # [B, N]
     frame_mask: Optional[torch.Tensor] = None,  # [B, T]; None = all valid
     dtype: torch.dtype = torch.float32,
+    train: bool = False,
+    gen: Optional[torch.Generator] = None,  # TSRM's train-time dropout
 ) -> Contexts:
     B, T = c3d_feats.shape[:2]
     if frame_mask is None:
@@ -65,11 +67,12 @@ def build_contexts(
         EH = None
 
     if "ER1" in et:
-        event = tsrm_forward(fusion, EC, soi, prop_mask, cfg, dtype)
+        event = tsrm_forward(fusion, EC, soi, prop_mask, cfg, dtype, train, gen)
     elif "ER2" in et:
-        event = tsrm_forward(fusion, EH, soi, prop_mask, cfg, dtype)
+        event = tsrm_forward(fusion, EH, soi, prop_mask, cfg, dtype, train, gen)
     elif "ER3" in et:
-        event = tsrm_forward(fusion, torch.cat([EC, EH], dim=-1), soi, prop_mask, cfg, dtype)
+        event = tsrm_forward(fusion, torch.cat([EC, EH], dim=-1), soi, prop_mask, cfg, dtype,
+                             train, gen)
     elif need_ec and need_eh:
         raise ValueError(
             "event_context_type EC+EH without ER is not a usable reference "

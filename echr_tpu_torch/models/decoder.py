@@ -1,21 +1,29 @@
-"""Caption decoder, three_stream core, batched greedy decode
-(echr_tpu/models/decoder.py).
+"""Caption decoder, three_stream core: teacher forcing and batched greedy
+decode (echr_tpu/models/decoder.py).
 
 The ECHR decoder: an embedding and a logit head around three parallel
 LSTMCells over the event context, the attended clip frames and the video
 context; the core output is concat(h0, h1, h2).  Every tensor carries a
-leading video axis B and a proposal axis N.  Decode carries the core
-output [B*N, 3H] between steps and selects tokens with the streaming
-greedy head (ops/kernel_head): the kernel for CUDA tensors, its plain
-version on the CPU.  The other eleven cores of echr_tpu's CORE_REGISTRY,
+leading video axis B and a proposal axis N.
+
+Decode carries the core output [B*N, 3H] between steps and selects tokens
+with the streaming greedy head (ops/kernel_head): the kernel for CUDA
+tensors, its plain version on the CPU.  Teacher forcing (training) takes
+the fused input projections (``fuse_inputs=True``), the training
+attention route (``remat``: kernels 3 and 4, or the checkpointed plain
+scores) and train-time dropout drawn from a torch.Generator: 0.5 on each
+stream and CG_drop_prob on the output.  torch cannot replay JAX's random
+streams, so ``gen=None`` (no dropout, no scheduled sampling) is the
+parity mode.  The other eleven cores of echr_tpu's CORE_REGISTRY,
 multinomial and beam decode are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from echr_tpu.config import Config
 from echr_tpu_torch.models.contexts import Contexts
@@ -24,10 +32,10 @@ from echr_tpu_torch.ops.attention import (
     additive_attention_precompute,
     additive_attention_step,
 )
-from echr_tpu_torch.ops.core import Dense, dense, parameter, uniform_
+from echr_tpu_torch.ops.core import Dense, dense, dropout, matmul, parameter, round_to, uniform_
 from echr_tpu_torch.ops.kernel_head import greedy_head, prepare_head
 from echr_tpu_torch.ops.masked import window_mean_padded
-from echr_tpu_torch.ops.recurrent import LSTMCell, lstm_cell
+from echr_tpu_torch.ops.recurrent import LSTMCell, lstm_cell, lstm_cell_pre, lstm_input_proj
 
 _NOT_PORTED = ("caption_model {!r} is not ported to echr_tpu_torch yet; only "
                "three_stream is (ROADMAP.md, queue A item 11)")
@@ -36,6 +44,19 @@ _NOT_PORTED = ("caption_model {!r} is not ported to echr_tpu_torch yet; only "
 class DecoderState(NamedTuple):
     h: torch.Tensor  # [3, B, N, H]
     c: torch.Tensor  # [3, B, N, H]
+
+
+class Precomputed(NamedTuple):
+    """Decode-loop invariants (echr_tpu's precompute_attention dict)."""
+
+    att: Optional[torch.Tensor]  # ctx2att(clip_feats) [B, T, Hatt]
+    ts: Optional[Dict[str, torch.Tensor]] = None  # fused three_stream inputs
+
+
+def _use_kernel(cfg: Config, train: bool) -> bool:
+    """The score kernels: runtime.use_pallas for no-grad decode,
+    runtime.use_pallas_train for training (echr_tpu's _use_pallas)."""
+    return bool(cfg.runtime.use_pallas_train if train else cfg.runtime.use_pallas)
 
 
 def _init_feats_dim(cfg: Config) -> int:
@@ -127,49 +148,171 @@ def init_state(dec: Decoder, cfg: Config, ctxs: Contexts, N: int,
     return DecoderState(m, m)
 
 
-def precompute_attention(dec: Decoder, ctxs: Contexts,
-                         dtype: torch.dtype = torch.float32) -> Optional[torch.Tensor]:
-    """ctx2att(clip_feats) [B, T, Hatt], hoisted out of the decode loop
-    (the un-fused inputs decode uses: fuse_inputs=False)."""
-    if ctxs.clip_feats is None:
-        return None
-    return additive_attention_precompute(dec.core.attention, ctxs.clip_feats, dtype)
+def precompute_attention(dec: Decoder, cfg: Config, ctxs: Contexts,
+                         dtype: torch.dtype = torch.float32,
+                         fuse_inputs: bool = False) -> Precomputed:
+    """Hoist decode-loop invariants: ctx2att(clip_feats), and with
+    ``fuse_inputs`` (teacher forcing) the fused three_stream input
+    projections; greedy decode keeps them un-fused (fuse_inputs=False)."""
+    att = None
+    if ctxs.clip_feats is not None:
+        att = additive_attention_precompute(dec.core.attention, ctxs.clip_feats, dtype)
+    ts = _precompute_three_stream(dec.core, cfg, ctxs, dtype) if fuse_inputs else None
+    return Precomputed(att, ts)
+
+
+def _precompute_three_stream(core: ThreeStreamCore, cfg: Config, ctxs: Contexts,
+                             dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The event and video streams' context gate inputs are constant over
+    the steps, and the three word projections fuse into one
+    [E] x [12H] product (_precompute_three_stream)."""
+    E = cfg.decoder.CG_input_encoding_size
+    N = ctxs.event.shape[1]
+    l0, l1, l2 = core.layer0, core.layer1, core.layer2
+    return {
+        "wx": torch.cat([l0.weight_ih[:, :E], l1.weight_ih[:, :E], l2.weight_ih[:, :E]], 0),
+        "const0": lstm_input_proj(l0, ctxs.event, col_start=E, dtype=dtype, with_bias=True),
+        "const2": lstm_input_proj(l2, _video_rows(ctxs, N), col_start=E, dtype=dtype,
+                                  with_bias=True),
+    }
 
 
 def _step_three_stream(core: ThreeStreamCore, cfg: Config, xt: torch.Tensor, ctxs: Contexts,
-                       pre_att: torch.Tensor, state: DecoderState, dtype: torch.dtype,
-                       use_kernel: bool) -> Tuple[torch.Tensor, DecoderState]:
-    """The reference ThreeStream_Core.forward, eval mode; xt [B, N, E]."""
+                       pre: Precomputed, state: DecoderState, dtype: torch.dtype,
+                       use_kernel: bool, train: bool = False,
+                       gen: Optional[torch.Generator] = None
+                       ) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference ThreeStream_Core.forward; xt [B, N, E].  The
+    dropped-out hidden states are what the state carries.  With the fused
+    inputs (pre.ts) the step uses the hoisted projections: the same math up
+    to the order of f32 sums."""
     N = xt.shape[1]
     pre_h1 = state.h[1]
-    h0, c0 = lstm_cell(core.layer0, torch.cat([xt, ctxs.event], -1), state.h[0], state.c[0],
-                       dtype)
-    att, _ = additive_attention_step(core.attention, pre_h1, ctxs.clip_feats, pre_att,
-                                     ctxs.clip_mask, dtype, use_kernel=use_kernel)
-    h1, c1 = lstm_cell(core.layer1, torch.cat([xt, att], -1), state.h[1], state.c[1], dtype)
-    h2, c2 = lstm_cell(core.layer2, torch.cat([xt, _video_rows(ctxs, N)], -1), state.h[2],
-                       state.c[2], dtype)
+    E = cfg.decoder.CG_input_encoding_size
+    ts = pre.ts
+    if ts is not None:
+        xproj = matmul(round_to(xt, dtype), ts["wx"].t(), dtype)  # [B, N, 12H]
+        x0, x1, x2 = xproj.chunk(3, dim=-1)
+        h0, c0 = lstm_cell_pre(core.layer0, x0 + ts["const0"], state.h[0], state.c[0], dtype)
+    else:
+        h0, c0 = lstm_cell(core.layer0, torch.cat([xt, ctxs.event], -1), state.h[0],
+                           state.c[0], dtype)
+    h0 = dropout(h0, 0.5, gen, train)
+    att, _ = additive_attention_step(core.attention, pre_h1, ctxs.clip_feats, pre.att,
+                                     ctxs.clip_mask, dtype, use_kernel=use_kernel, remat=train)
+    if ts is not None:
+        att_proj = lstm_input_proj(core.layer1, att, col_start=E, dtype=dtype, with_bias=True)
+        h1, c1 = lstm_cell_pre(core.layer1, x1 + att_proj, state.h[1], state.c[1], dtype)
+    else:
+        h1, c1 = lstm_cell(core.layer1, torch.cat([xt, att], -1), state.h[1], state.c[1],
+                           dtype)
+    h1 = dropout(h1, 0.5, gen, train)
+    if ts is not None:
+        h2, c2 = lstm_cell_pre(core.layer2, x2 + ts["const2"], state.h[2], state.c[2], dtype)
+    else:
+        h2, c2 = lstm_cell(core.layer2, torch.cat([xt, _video_rows(ctxs, N)], -1),
+                           state.h[2], state.c[2], dtype)
+    h2 = dropout(h2, 0.5, gen, train)
     new_state = DecoderState(torch.stack([h0, h1, h2]), torch.stack([c0, c1, c2]))
     return torch.cat([h0, h1, h2], dim=-1), new_state
 
 
 def step_core_out(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
-                  pre_att: torch.Tensor, state: DecoderState,
-                  dtype: torch.dtype = torch.float32
+                  pre: Precomputed, state: DecoderState,
+                  dtype: torch.dtype = torch.float32, train: bool = False,
+                  gen: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, DecoderState]:
     """One decode step without the logit head: token ids [B, N] -> core
-    output [B, N, 3H]."""
+    output [B, N, 3H] (with the output dropout at train time)."""
     xt = dec.embed[it.long()]
-    return _step_three_stream(dec.core, cfg, xt, ctxs, pre_att, state, dtype,
-                              use_kernel=bool(cfg.runtime.use_pallas))
+    out, state = _step_three_stream(dec.core, cfg, xt, ctxs, pre, state, dtype,
+                                    _use_kernel(cfg, train), train, gen)
+    return dropout(out, cfg.decoder.CG_drop_prob, gen, train), state
 
 
 def step_logits(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
-                pre_att: torch.Tensor, state: DecoderState,
-                dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, DecoderState]:
+                pre: Precomputed, state: DecoderState,
+                dtype: torch.dtype = torch.float32, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
     """One decode step: token ids -> logits [B, N, V+1]."""
-    out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype)
+    out, state = step_core_out(dec, cfg, it, ctxs, pre, state, dtype, train, gen)
     return dense(dec.logit, out, dtype), state
+
+
+def step_logprobs(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
+                  pre: Precomputed, state: DecoderState,
+                  dtype: torch.dtype = torch.float32, train: bool = False,
+                  gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
+    """One decode step: token ids -> log p(next token) [B, N, V+1]."""
+    logits, state = step_logits(dec, cfg, it, ctxs, pre, state, dtype, train, gen)
+    return torch.log_softmax(logits, dim=-1), state
+
+
+def decoder_forward(dec: Decoder, cfg: Config, ctxs: Contexts, seq: torch.Tensor,
+                    dtype: torch.dtype = torch.float32, train: bool = False,
+                    gen: Optional[torch.Generator] = None, ss_prob: float = 0.0
+                    ) -> torch.Tensor:
+    """Teacher-forced logprobs [B, N, L, V+1] for predicting seq[..., 1:]
+    from seq [B, N, L+1] (column 0 = BOS).  Scheduled sampling (train time,
+    with a generator, ss_prob > 0): from step 1 on, each row's input token
+    is replaced w.p. ss_prob by a sample of the previous step's
+    distribution, drawn from ``gen``."""
+    B, N, Lp1 = seq.shape
+    pre = precompute_attention(dec, cfg, ctxs, dtype, fuse_inputs=True)
+    state = init_state(dec, cfg, ctxs, N, dtype)
+    use_ss = train and ss_prob > 0.0 and gen is not None
+    outs = []
+    for i in range(Lp1 - 1):
+        it = seq[:, :, i].long()
+        if use_ss and i >= 1:
+            take = torch.rand(B, N, generator=gen, device=seq.device) < ss_prob
+            probs = outs[-1].detach().exp().reshape(B * N, -1)
+            sampled = torch.multinomial(probs, 1, generator=gen).reshape(B, N)
+            it = torch.where(take, sampled, it)
+        logprobs, state = step_logprobs(dec, cfg, it, ctxs, pre, state, dtype, train, gen)
+        outs.append(logprobs)
+    return torch.stack(outs, dim=2)
+
+
+def decoder_forward_core_outputs(dec: Decoder, cfg: Config, ctxs: Contexts,
+                                 seq: torch.Tensor, dtype: torch.dtype = torch.float32,
+                                 train: bool = False, gen: Optional[torch.Generator] = None
+                                 ) -> torch.Tensor:
+    """Teacher-forced core outputs [B, N, L, 3H]: the decode loop without
+    the logit head (decoder_forward with ss_prob = 0 before its head)."""
+    N = seq.shape[1]
+    pre = precompute_attention(dec, cfg, ctxs, dtype, fuse_inputs=True)
+    state = init_state(dec, cfg, ctxs, N, dtype)
+    outs = []
+    for i in range(seq.shape[2] - 1):
+        out, state = step_core_out(dec, cfg, seq[:, :, i], ctxs, pre, state, dtype, train, gen)
+        outs.append(out)
+    return torch.stack(outs, dim=2)
+
+
+def _nll_head(w: torch.Tensor, b: torch.Tensor, outs: torch.Tensor, targets: torch.Tensor,
+              m: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    logits = matmul(round_to(outs, dtype), w.t(), dtype) + b  # [B, N, L, V+1]
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return -((tgt - lse) * m).sum(dim=(1, 2)) / (m.sum(dim=(1, 2)) + 1e-6)
+
+
+def teacher_forced_nll(dec: Decoder, cfg: Config, ctxs: Contexts, seq: torch.Tensor,
+                       masks: torch.Tensor, dtype: torch.dtype = torch.float32,
+                       train: bool = False, gen: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Fused teacher-forced NLL per video [B]: equals
+    language_model_loss(decoder_forward(...), seq[..., 1:], masks[..., 1:])
+    without storing the [B, N, L, V+1] logits.  The logit head runs once
+    after the loop under torch.utils.checkpoint, so the backward recomputes
+    it and the saved residual is the [B, N, L, 3H] core outputs."""
+    outs = decoder_forward_core_outputs(dec, cfg, ctxs, seq, dtype, train, gen)
+    steps = outs.shape[2]
+    targets = seq[:, :, 1:steps + 1].long()
+    m = masks[:, :, 1:steps + 1].float()
+    return checkpoint(_nll_head, dec.logit.weight, dec.logit.bias, outs, targets, m, dtype,
+                      use_reentrant=False)
 
 
 def sort_gate(cfg: Config, ctxs: Contexts) -> bool:
@@ -219,7 +362,7 @@ def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
     inv = None
     if sort_gate(cfg, ctxs):
         ctxs, inv = sort_ctxs_by_window(ctxs)
-    pre_att = precompute_attention(dec, ctxs, dtype)
+    pre_att = precompute_attention(dec, cfg, ctxs, dtype)
     state = init_state(dec, cfg, ctxs, N, dtype)
     head_w, head_b = prepare_head(dec.logit, dtype)  # once, outside the loop
 

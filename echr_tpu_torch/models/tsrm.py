@@ -9,12 +9,13 @@ event axis N; padded events (prop_mask == 0) are masked out as keys.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from echr_tpu.config import Config
-from echr_tpu_torch.ops.core import Dense, dense, parameter, round_to, uniform_
+from echr_tpu_torch.ops.core import Dense, dense, dropout, parameter, round_to, uniform_
 from echr_tpu_torch.ops.masked import masked_softmax
 
 
@@ -81,9 +82,11 @@ def position_embedding(pos_mat: torch.Tensor, feat_dim: int,
 
 
 def tsrm_forward(p: TSRM, feats: torch.Tensor, soi: torch.Tensor, prop_mask: torch.Tensor,
-                 cfg: Config, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 cfg: Config, dtype: torch.dtype = torch.float32, train: bool = False,
+                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """feats [..., N, in], soi [..., N, 2], prop_mask [..., N] -> [..., N, d_o].
-    Rows with prop_mask == 0 are padding; their outputs are unspecified."""
+    Rows with prop_mask == 0 are padding; their outputs are unspecified.
+    At train time with a generator, dropout 0.3 on the relation weights."""
     f = cfg.fusion
     N = feats.shape[-2]
     lead = feats.shape[:-2]
@@ -116,6 +119,7 @@ def tsrm_forward(p: TSRM, feats: torch.Tensor, soi: torch.Tensor, prop_mask: tor
 
     key_mask = prop_mask[..., None, None, :].expand(weighted.shape)
     att = masked_softmax(weighted, key_mask, dim=-1)
+    att = dropout(att, 0.3, gen, train)
 
     # heads attend over the raw embedded values (no V projection)
     head_out = torch.einsum("...qgk,...kd->...qgd", round_to(att, dtype),

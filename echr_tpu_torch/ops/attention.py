@@ -3,10 +3,19 @@ batched over videos.
 
 All proposals of a video attend over its shared [T, D] frame sequence
 through a per-proposal window mask; ctx2att(feats) is computed once per
-decode.  Two routes for the scores: the eager one (the [B, N, T, Hatt]
-tanh in memory, ``dense`` in the compute dtype) and the kernel one
-(ops/kernel_attention: f32, fully-masked tiles skipped), as in the
-reference.  The grouped and fused routes are not ported.
+decode.  The routes for the scores, as in the reference:
+
+  * plain: the [B, N, T, Hatt] tanh in memory, ``dense`` in the compute
+    dtype; with ``remat`` (training) under torch.utils.checkpoint, so the
+    backward recomputes the tanh instead of saving it (1.07 GB per
+    teacher-forced step at B=32, N=64, T=256, Hatt=512);
+  * kernel, no grad (decode): kernel 1, f32, fully-masked tiles skipped;
+  * kernel with ``remat`` (training): attention_scores_diff, f32, kernel 3
+    forward and kernel 4 backward.
+
+The port's kernels take any N, T and Hatt, so the route does not depend
+on the reference's N % 8, T % 128 and Hatt % 128 gates.  The grouped and
+fused routes are not ported.
 """
 from __future__ import annotations
 
@@ -14,9 +23,10 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from echr_tpu_torch.ops.core import Dense, dense, matmul, round_to
-from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+from echr_tpu_torch.ops.kernel_attention import attention_scores_diff, attention_scores_masked
 from echr_tpu_torch.ops.masked import masked_softmax
 
 
@@ -39,6 +49,13 @@ def additive_attention_precompute(p: AdditiveAttention, feats: torch.Tensor,
     return dense(p.ctx2att, feats, dtype)
 
 
+def _additive_scores(w: torch.Tensor, b: torch.Tensor, pre_att: torch.Tensor,
+                     att_h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dense(alpha_net, tanh(pre + q)) in the compute dtype: [B, N, T]."""
+    y = torch.tanh(pre_att[:, None, :, :] + att_h[:, :, None, :])  # [B, N, T, Hatt]
+    return (matmul(round_to(y, dtype), w.t(), dtype) + b)[..., 0]
+
+
 def additive_attention_step(
     p: AdditiveAttention,
     h: torch.Tensor,  # [B, N, Hq]
@@ -47,17 +64,26 @@ def additive_attention_step(
     frame_mask: torch.Tensor,  # [B, N, T] window mask
     dtype: torch.dtype = torch.float32,
     use_kernel: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One attention step for all proposals: (att_res [B, N, D],
-    weights [B, N, T])."""
+    weights [B, N, T]).  ``remat`` selects the training routes."""
     att_h = dense(p.h2att, h, dtype)  # [B, N, Hatt]
-    if use_kernel:
+    alpha = p.alpha_net
+    if use_kernel and remat:
+        scores = attention_scores_diff(pre_att.contiguous(), att_h.contiguous(),
+                                       alpha.weight.reshape(-1), alpha.bias)
+    elif use_kernel:
         scores = attention_scores_masked(pre_att.contiguous(), att_h.contiguous(),
-                                         p.alpha_net.weight.reshape(-1),
-                                         p.alpha_net.bias, frame_mask.contiguous())
+                                         alpha.weight.reshape(-1), alpha.bias,
+                                         frame_mask.contiguous())
+    elif remat:
+        # the tanh recomputed in the backward (echr_tpu's _additive_scores_remat);
+        # the weights are inputs, so the recompute sees the tensors the forward saw
+        scores = checkpoint(_additive_scores, alpha.weight, alpha.bias, pre_att, att_h, dtype,
+                            use_reentrant=False)
     else:
-        y = torch.tanh(pre_att[:, None, :, :] + att_h[:, :, None, :])  # [B, N, T, Hatt]
-        scores = dense(p.alpha_net, y, dtype)[..., 0]
+        scores = _additive_scores(alpha.weight, alpha.bias, pre_att, att_h, dtype)
     weights = masked_softmax(scores, frame_mask, dim=-1)
     att_res = matmul(round_to(weights, dtype), round_to(feats, dtype), dtype)
     return att_res, weights

@@ -1,9 +1,12 @@
-"""Parameter containers and the dense primitive (echr_tpu/ops/core.py).
+"""Parameter containers, the dense primitive and dropout
+(echr_tpu/ops/core.py).
 
 Weights are stored torch-style (a Linear is weight [out, in]) as f32
-tensors.  ``cast_compute_dtype`` rounds every matrix-shaped weight to the
-compute dtype once; ``dense`` then rounds its activation operand the same
-way and multiplies in f32.  That is JAX's ``preferred_element_type=f32``:
+master tensors.  Serving rounds every matrix-shaped weight to the compute
+dtype once (``cast_compute_dtype``); training rounds them inside the step
+(``call_in_compute_dtype``), so gradients reach the f32 masters.
+``dense`` rounds its activation operand the same way and multiplies in
+f32.  That is JAX's ``preferred_element_type=f32``:
 a product of two bf16 values is exact in f32, so a bf16 x bf16 -> f32
 contraction equals the f32 matmul of the rounded operands up to the order
 of the sum.  ``torch.matmul`` on bf16 tensors would round the result to
@@ -13,7 +16,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -60,9 +63,21 @@ def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> torch.Tenso
 
 
 def parameter(*shape) -> nn.Parameter:
-    """A zero parameter; the serving slice needs no gradients (training
-    will turn requires_grad on)."""
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+    """A zero, trainable parameter (serving runs under inference_mode)."""
+    return nn.Parameter(torch.zeros(*shape))
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1 - rate and scale by
+    1 / (1 - rate).  The identity when not training, at rate 0, or with
+    ``gen=None`` (as JAX's dropout is with rng=None).  The mask is drawn
+    from ``gen`` on x's device."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class Dense(nn.Module):
@@ -85,11 +100,41 @@ class Dense(nn.Module):
 
 def dense(p: Dense, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """y = x @ w.T (+ b) with x rounded to ``dtype`` and f32 accumulation.
-    The weight is used as stored: cast_compute_dtype has rounded it."""
+    The weight is used as stored: cast_compute_dtype (serving) or
+    call_in_compute_dtype (training) has rounded it."""
     y = matmul(round_to(x, dtype), p.weight.t(), dtype)
     if p.bias is not None:
         y = y + p.bias
     return y
+
+
+def call_in_compute_dtype(module: nn.Module, dtype: torch.dtype, fn: Callable, *args, **kw):
+    """fn(module, *args, **kw) with ``module``'s matrix-shaped (ndim >= 2)
+    parameters rounded to ``dtype`` inside the autograd graph, and 1-D
+    leaves exact f32 (echr_tpu/engine/steps.py ``_cast``, which casts inside
+    the loss).  The backward of the rounding rounds the gradient to
+    ``dtype`` on its way to the f32 master, as the transpose of JAX's
+    astype does.  The parameters are swapped only while fn runs: a
+    recompute in the backward (torch.utils.checkpoint) must take the
+    rounded weights as inputs.  The identity for f32."""
+    if dtype == torch.float32:
+        return fn(module, *args, **kw)
+    wrapper = _Apply(module)
+    rounded = {name: round_to(p, dtype) if p.ndim >= 2 else p
+               for name, p in wrapper.named_parameters()}
+    return torch.func.functional_call(wrapper, rounded, (fn, args, kw))
+
+
+class _Apply(nn.Module):
+    """Holds ``inner`` under the name ``inner``, so that functional_call can
+    swap its parameters while a free function of the module runs."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, fn: Callable, args, kw):
+        return fn(self.inner, *args, **kw)
 
 
 def cast_compute_dtype(module: nn.Module, dtype_name: Optional[str]) -> nn.Module:

@@ -1,9 +1,12 @@
-"""Kernel 1: masked additive-attention scores (csrc/attention_scores.cu).
+"""The additive-attention score kernels and their plain PyTorch versions.
 
     s[b, n, t] = w . tanh(pre[b, t, :] + q[b, n, :]) + b_alpha
 
 for every proposal n and frame t of every video b, in one launch per
-decode step.  It replaces the Pallas TPU kernel
+decode step.
+
+Kernel 1, ``attention_scores_masked`` (csrc/attention_scores.cu), serves
+the no-grad decode.  It replaces the Pallas TPU kernel
 echr_tpu/ops/pallas_attention.py::_kernel_skip (pallas_call at :153, via
 attention_scores_masked :179 and tile_any_mask :170), which launched per
 video under vmap on (8, 128) tiles.
@@ -22,10 +25,26 @@ own ragged edges.
 Exactness: equal to the plain version wherever mask == 1 (the sum over H
 runs in another order); masked entries are zero or the score, and the
 caller's masked softmax never reads them.
+
+Kernels 3 and 4 are the training scores, one ``torch.autograd.Function``
+(``attention_scores_diff``).  Kernel 3, ``attention_scores_dense``
+(csrc/attention_scores.cu, kernel 1's device code with every tile live),
+is the forward and replaces echr_tpu/ops/pallas_attention.py::_kernel
+(pallas_call at :52).  Kernel 4, ``attention_scores_bwd``
+(csrc/attention_scores_bwd.cu), is the backward and replaces ::_bwd_kernel
+(pallas_call at :344): it recomputes the tanh per tile, so the
+[B, N, T, H] intermediate is never stored, and it sums across blocks in a
+fixed order, so two runs give identical bits.  Both are bound by tanh
+throughput: 268M tanh per teacher-forced step at training dims
+(B=32, N=64, T=256, H=512).  The route (kernel or plain) is decided in the
+forward and kept for the backward, which autograd may run on another
+thread.
 """
 from __future__ import annotations
 
 import torch
+
+from typing import Tuple
 
 from echr_tpu_torch.ops import native, use_plain
 
@@ -66,3 +85,122 @@ def attention_scores_masked(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
 
 
 attention_scores_masked.launches = 0
+
+
+def attention_scores_dense_plain(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                                 b: torch.Tensor) -> torch.Tensor:
+    """Kernel 3's plain PyTorch version: attention_scores_plain without the
+    mask, in the inputs' dtype.  pre [B, T, H], q [B, N, H], w [H], b [1]
+    -> [B, N, T]."""
+    y = torch.tanh(pre[:, None, :, :] + q[:, :, None, :])
+    return torch.matmul(y, w) + b
+
+
+def attention_scores_dense(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """Kernel 3: scores [B, N, T] at every (n, t).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if use_plain(pre):
+        return attention_scores_dense_plain(pre, q, w, b)
+    fn = "attention_scores_dense"
+    B, T, H = pre.shape
+    N = q.shape[1]
+    f32, dev = torch.float32, pre.device
+    native.check_arg(fn, "pre", pre, (B, T, H), f32, dev)
+    native.check_arg(fn, "q", q, (B, N, H), f32, dev)
+    native.check_arg(fn, "w", w, (H,), f32, dev)
+    native.check_arg(fn, "b", b, (1,), f32, dev)
+    out = torch.empty(B, N, T, device=dev, dtype=f32)
+    if out.numel() == 0:
+        return out
+    rc = native.library().echr_attention_scores_dense(
+        pre.data_ptr(), q.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        B, N, T, H, torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "echr_attention_scores_dense")
+    attention_scores_dense.launches += 1
+    return out
+
+
+attention_scores_dense.launches = 0
+
+_BWD_TILE_T = 64  # frames per block of kernel 4 (csrc/attention_scores_bwd.cu BT)
+
+
+def attention_scores_bwd_plain(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                               g: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 4's plain PyTorch version, the same recompute-tanh formulas
+    (echr_tpu/ops/pallas_attention.py:310-333): with y = tanh(pre + q) and
+    dz = g * w * (1 - y^2), d_pre = sum_n dz, d_q = sum_t dz and
+    d_w = sum g * y, in the inputs' dtype.  It holds the [B, N, T, H]
+    tensors in memory."""
+    y = torch.tanh(pre[:, None, :, :] + q[:, :, None, :])
+    g4 = g[..., None]
+    dz = g4 * w * (1.0 - y * y)
+    return dz.sum(dim=1), dz.sum(dim=2), (g4 * y).sum(dim=(0, 1, 2))
+
+
+def attention_scores_bwd(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                         g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 4: (d_pre [B, T, H], d_q [B, N, H], d_w [H]) for the cotangent
+    g [B, N, T] of kernel 3's scores.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if use_plain(pre):
+        return attention_scores_bwd_plain(pre, q, w, g)
+    fn = "attention_scores_bwd"
+    B, T, H = pre.shape
+    N = q.shape[1]
+    f32, dev = torch.float32, pre.device
+    native.check_arg(fn, "pre", pre, (B, T, H), f32, dev)
+    native.check_arg(fn, "q", q, (B, N, H), f32, dev)
+    native.check_arg(fn, "w", w, (H,), f32, dev)
+    native.check_arg(fn, "g", g, (B, N, T), f32, dev)
+    d_pre = torch.empty(B, T, H, device=dev, dtype=f32)
+    d_q = torch.empty(B, N, H, device=dev, dtype=f32)
+    d_w = torch.empty(H, device=dev, dtype=f32)
+    if min(B, N, T, H) == 0:  # nothing to sum: zero gradients
+        return d_pre.zero_(), d_q.zero_(), d_w.zero_()
+    tiles = -(-T // _BWD_TILE_T)
+    dq_part = torch.empty(B, tiles, N, H, device=dev, dtype=f32)
+    dw_part = torch.empty(B * tiles, H, device=dev, dtype=f32)
+    rc = native.library().echr_attention_scores_bwd(
+        pre.data_ptr(), q.data_ptr(), w.data_ptr(), g.data_ptr(), d_pre.data_ptr(),
+        d_q.data_ptr(), d_w.data_ptr(), dq_part.data_ptr(), dw_part.data_ptr(),
+        B, N, T, H, torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "echr_attention_scores_bwd")
+    attention_scores_bwd.launches += 1
+    return d_pre, d_q, d_w
+
+
+attention_scores_bwd.launches = 0
+
+
+class _ScoresDiff(torch.autograd.Function):
+    """Kernel 3 forward, kernel 4 backward; saves pre, q and w, never the
+    tanh.  ``plain`` is use_plain() as the forward saw it."""
+
+    @staticmethod
+    def forward(ctx, pre, q, w, b):
+        ctx.plain = use_plain(pre)
+        ctx.save_for_backward(pre, q, w)
+        if ctx.plain:
+            return attention_scores_dense_plain(pre, q, w, b)
+        return attention_scores_dense(pre, q, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        pre, q, w = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.plain:
+            d_pre, d_q, d_w = attention_scores_bwd_plain(pre, q, w, g)
+        else:
+            d_pre, d_q, d_w = attention_scores_bwd(pre, q, w, g)
+        return d_pre, d_q, d_w, g.sum().reshape(1)
+
+
+def attention_scores_diff(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Differentiable scores [B, N, T] for training (pre [B, T, H],
+    q [B, N, H], w [H], b [1]; f32 on the kernel route).  Forward kernel 3, backward kernel 4; the
+    gradient of b is sum(g), outside the kernel as in the reference."""
+    return _ScoresDiff.apply(pre, q, w, b)

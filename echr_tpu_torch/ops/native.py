@@ -1,14 +1,15 @@
 """Build and load the CUDA kernels of echr_tpu_torch/csrc.
 
-nvcc compiles every ``csrc/*.cu`` for sm_90a into one shared library with
-a plain C interface, at first use, into ``echr_tpu_torch/_build/`` (listed
+nvcc compiles every ``csrc/*.cu`` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, at first use, into ``echr_tpu_torch/_build/`` (listed
 in .gitignore).  The library's name carries a hash of the sources and
 flags, so a changed source rebuilds.  It is loaded with ctypes: every
 pointer and the stream are ``c_void_p``, every size ``c_int``, and each
 entry point returns ``cudaGetLastError()`` after its launches.
 
-No fast-math flag: kernel 1's tanhf and kernel 2's expf/logf are the
-accurate ones (an approximate tanh changes greedy tokens).
+No fast-math flag: the score kernels' tanhf and kernel 2's expf/logf are
+the accurate ones (an approximate tanh changes greedy tokens).
 """
 from __future__ import annotations
 
@@ -24,14 +25,18 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
     # pre, q, w, b, mask, out, B, N, T, H, stream
     "echr_attention_scores": [_P] * 6 + [_I] * 4 + [_P],
+    # pre, q, w, b, out, B, N, T, H, stream
+    "echr_attention_scores_dense": [_P] * 5 + [_I] * 4 + [_P],
+    # pre, q, w, g, d_pre, d_q, d_w, dq_part, dw_part, B, N, T, H, stream
+    "echr_attention_scores_bwd": [_P] * 9 + [_I] * 4 + [_P],
     # out, w, b, bf16, R, C, V1, splits, part_m, part_l, part_a, tok, mx, lse, stream
     "echr_greedy_head": [_P, _P, _P] + [_I] * 5 + [_P] * 6 + [_P],
 }
@@ -64,22 +69,40 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same hash exists."""
+    """Compile csrc/*.cu unless a library of the same hash exists: one nvcc
+    per source in parallel, then one link."""
     global build_log
     so = BUILD_DIR / f"libechr_kernels_{_digest()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        cu = sorted(CSRC.glob("*.cu"))
+        objs = [work / (src.stem + ".o") for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, o in zip(cu, objs)]
+        logs, failed = [], []
+        for src, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        tmp = work / "lib.so"
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append("link")
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

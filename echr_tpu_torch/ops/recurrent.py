@@ -1,4 +1,4 @@
-"""LSTM primitives, eval only (echr_tpu/ops/recurrent.py).
+"""LSTM primitives (echr_tpu/ops/recurrent.py).
 
 torch LSTMCell layout and math (gate order i, f, g, o; two bias vectors),
 written as a plain loop over T in the JAX form: h and c stay f32, the
@@ -14,7 +14,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from echr_tpu_torch.ops.core import parameter, matmul, round_to, uniform_
+from echr_tpu_torch.ops.core import dropout, parameter, matmul, round_to, uniform_
 
 
 class LSTMCell(nn.Module):
@@ -93,12 +93,16 @@ def lstm_layer(p: LSTMCell, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
 
 
 def lstm_stack(layers: Sequence[LSTMCell], xs: torch.Tensor,
-               dtype: torch.dtype = torch.float32
+               dtype: torch.dtype = torch.float32, train: bool = False,
+               gen: Optional[torch.Generator] = None, dropout_rate: float = 0.0
                ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Stacked LSTM over [T, B, in], eval mode (no inter-layer dropout)."""
+    """Stacked LSTM over [T, B, in] with torch nn.LSTM's inter-layer
+    dropout: every layer's output but the last, at train time only."""
     finals = []
     h = xs
-    for p in layers:
+    for l, p in enumerate(layers):
         h, hc = lstm_layer(p, h, dtype=dtype)
         finals.append(hc)
+        if l < len(layers) - 1:
+            h = dropout(h, dropout_rate, gen, train)
     return h, finals

@@ -28,6 +28,14 @@ from echr_tpu_torch.models import contexts, tsrm
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values; the port's parameters are
+    trainable, so run without recording gradients."""
+    with torch.no_grad():
+        yield
+
+
 def _props(r, B, N, T, n_real):
     s = r.randint(0, T - 8, size=(B, N))
     e = np.minimum(s + r.randint(1, 40, size=(B, N)), T)

@@ -22,6 +22,14 @@ from echr_tpu_torch.ops.kernel_head import greedy_head, greedy_head_plain, prepa
 TOL = 5e-4
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values; the port's parameters are
+    trainable, so run without recording gradients."""
+    with torch.no_grad():
+        yield
+
+
 def _sorted_windows(r, N, T, lo=4, hi=48):
     starts = np.sort(r.randint(0, T - 8, size=N))
     lens = r.randint(lo, hi, size=N)

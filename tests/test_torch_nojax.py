@@ -2,8 +2,8 @@
 param tree as echr_tpu.models.registry.
 
 The subprocess imports every module of the port, serves a tiny CPU slice
-from the port's own init and from a JAX format-v2 checkpoint, and checks
-that jax never entered sys.modules.
+from the port's own init and from a JAX format-v2 checkpoint, takes one
+tiny training step, and checks that jax never entered sys.modules.
 """
 import os
 import pkgutil
@@ -74,7 +74,7 @@ def test_port_sources_stay_off_jax_and_library_kernels():
     banned = re.compile(r"^\s*(import jax|from jax)|scaled_dot_product_attention|"
                         r"torch\.compile|flash_attn|xformers", re.M)
     sources = [p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts]
-    assert len(sources) >= 16
+    assert len(sources) >= 18
     for path in sources:
         assert not banned.search(path.read_text()), path
 
@@ -104,6 +104,19 @@ _CHILD = textwrap.dedent("""
         res = svc.caption(reqs)
         assert sorted(res) == ["v0", "v1", "v2"], res
         assert all(len(c) == 6 for c in res.values())
+    from echr_tpu.data.batcher import make_batch
+    from echr_tpu.data.dataset import SyntheticDataset
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.engine.train import _collate
+    cfg = cfg.replace_in("tap", prop_sample_num=8).replace_in(
+        "data", synthetic_vocab_size=50, synthetic_seq_length=8)
+    ds = SyntheticDataset(cfg, num_videos=4, seed=3)
+    batch = _collate([make_batch(ds.get_example(i), cfg, np.random.RandomState(i),
+                                 w1=ds.w1)[0] for i in range(2)])
+    st = steps.init_train_state(cfg, init_tap(g, cfg), init_captioner(g, cfg))
+    st, m = steps.train_step(st, steps.batch_to_device(batch, "cpu"),
+                             torch.Generator().manual_seed(0), cfg, "tap_cg")
+    assert st.step == 1 and np.isfinite(m["loss"]), m
     assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
     print("NOJAX_OK")
 """)
@@ -122,4 +135,4 @@ def test_port_runs_without_jax(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX_OK" in proc.stdout
-    assert len(_all_modules()) >= 16 and echr_tpu_torch.__version__
+    assert len(_all_modules()) >= 18 and echr_tpu_torch.__version__

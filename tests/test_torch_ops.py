@@ -30,6 +30,14 @@ ATOL = 1e-5
 ATOL_BF16 = 2e-4
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values; the port's parameters are
+    trainable, so run without recording gradients."""
+    with torch.no_grad():
+        yield
+
+
 def small_cfg(**over):
     """tiny widths, with a 128-wide attention hidden and a 128-frame bucket
     so that the JAX side takes its (interpret-mode) Pallas score kernel."""

@@ -32,6 +32,14 @@ SHARPEN = 100.0  # logit weight scale: margins >> f32 noise
 MIN_MARGIN = 1e-3
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values; the port's parameters are
+    trainable, so run without recording gradients."""
+    with torch.no_grad():
+        yield
+
+
 def _params(cfg, seed=0):
     k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
     tap = to_np(jax_init_tap(k1, cfg))
@@ -105,14 +113,14 @@ def test_step_logits_matches_jax(init_feats):
                                      frame_mask=jnp.asarray(fm[0]))
     N = pm.shape[1]
     it = np.random.RandomState(5).randint(0, cfg.decoder.CG_vocab_size + 1, size=(1, N))
-    pre = decoder.precompute_attention(cg.decoder, ctxs)
+    pre = decoder.precompute_attention(cg.decoder, cfg, ctxs)
     state = decoder.init_state(cg.decoder, cfg, ctxs, N)
     logits, state2 = decoder.step_logits(cg.decoder, cfg, torch.from_numpy(it), ctxs, pre, state)
     jd = cg_np["decoder"]
     jpre = jdec.precompute_attention(jd, cfg, jctxs)
     jstate = jdec.init_state(jd, cfg, jctxs, N)
     jlogits, jstate2 = jdec.step_logits(jd, cfg, jnp.asarray(it[0]), jctxs, jpre, jstate)
-    np.testing.assert_allclose(pre[0].numpy(), np.asarray(jpre["att"]), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(pre.att[0].numpy(), np.asarray(jpre["att"]), atol=1e-4, rtol=0)
     np.testing.assert_allclose(state.h[:, 0].numpy(), np.asarray(jstate.h), atol=1e-4, rtol=0)
     np.testing.assert_allclose(state2.h[:, 0].numpy(), np.asarray(jstate2.h), atol=1e-4, rtol=0)
     np.testing.assert_allclose(state2.c[:, 0].numpy(), np.asarray(jstate2.c), atol=1e-4, rtol=0)

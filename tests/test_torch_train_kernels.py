@@ -1,0 +1,128 @@
+"""Kernels 3 and 4, the differentiable attention scores, against the Pallas
+kernels they replace, on the CPU.
+
+The port's ``attention_scores_diff`` takes its plain forward and backward
+here (CPU tensors); the JAX side runs pallas_attention.attention_scores_diff
+(kernel 3 forward, kernel 4 backward) in interpret mode, as the JAX
+package's own tests do.  Tolerances are those of
+tests/test_pallas_attention.py: atol 2e-4, rtol 1e-4 (f32 sums over H, N
+and T in another order).  The CUDA kernels run only on the card, where
+chip_smoke.py holds them against these plain versions.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from echr_tpu.ops import pallas_attention
+
+from echr_tpu_torch.ops import force_plain
+from echr_tpu_torch.ops.attention import AdditiveAttention, additive_attention_step
+from echr_tpu_torch.ops.kernel_attention import (
+    attention_scores_bwd,
+    attention_scores_bwd_plain,
+    attention_scores_dense,
+    attention_scores_dense_plain,
+    attention_scores_diff,
+)
+
+ATOL, RTOL = 2e-4, 1e-4
+
+
+def _inputs(seed, B, N, T, H):
+    r = np.random.RandomState(seed)
+    pre = r.randn(B, T, H).astype(np.float32)
+    q = r.randn(B, N, H).astype(np.float32)
+    w = (r.randn(H) * 0.1).astype(np.float32)
+    b = (r.randn(1)).astype(np.float32)
+    ct = r.randn(B, N, T).astype(np.float32)
+    return pre, q, w, b, ct
+
+
+def _port_grads(pre, q, w, b, ct):
+    ts = [torch.from_numpy(x).requires_grad_() for x in (pre, q, w, b)]
+    s = attention_scores_diff(*ts)
+    s.backward(torch.from_numpy(ct))
+    return s.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("B,N,T,H", [(1, 8, 128, 128),  # one Pallas block
+                                     (3, 24, 256, 128)])  # several blocks, vmapped
+def test_scores_diff_matches_pallas(B, N, T, H):
+    pre, q, w, b, ct = _inputs(B + N, B, N, T, H)
+    assert pallas_attention.supported(jnp.asarray(pre[0]), jnp.asarray(q[0]),
+                                      differentiable=True)
+
+    def loss(pre_, q_, w_, b_):
+        p = {"w": w_[:, None], "b": b_}
+        s = jax.vmap(lambda a, c: pallas_attention.attention_scores_diff(a, c, p))(pre_, q_)
+        return jnp.sum(s * ct), s
+
+    (_, want), jgrads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(x) for x in (pre, q, w, b)))
+    got, grads = _port_grads(pre, q, w, b, ct)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
+    for name, g, jg in zip(("d_pre", "d_q", "d_w", "d_b"), grads, jgrads):
+        np.testing.assert_allclose(g, np.asarray(jg).reshape(g.shape), atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+
+
+def test_scores_diff_gradcheck_float64():
+    """The Function's plain path (forward and recompute-tanh backward)
+    against finite differences, in float64."""
+    r = np.random.RandomState(0)
+    args = [torch.from_numpy(r.randn(*s)).requires_grad_()
+            for s in ((2, 5, 4), (2, 3, 4), (4,), (1,))]
+    assert torch.autograd.gradcheck(attention_scores_diff, args, eps=1e-6, atol=1e-8)
+
+
+def test_scores_diff_saves_no_tanh():
+    """The forward saves pre, q and w for the backward and never the
+    [B, N, T, H] tanh."""
+    pre, q, w, b, ct = _inputs(1, 2, 8, 16, 12)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t.shape) or t,
+                                                  lambda t: t):
+        ts = [torch.from_numpy(x).requires_grad_() for x in (pre, q, w, b)]
+        attention_scores_diff(*ts)
+    assert sorted(saved) == sorted([(2, 16, 12), (2, 8, 12), (12,)]), saved
+
+
+def test_kernel_wrappers_take_plain_on_cpu_without_counting():
+    pre, q, w, b, ct = (torch.from_numpy(x) for x in _inputs(2, 2, 5, 9, 6))
+    f0, b0 = attention_scores_dense.launches, attention_scores_bwd.launches
+    assert torch.equal(attention_scores_dense(pre, q, w, b),
+                       attention_scores_dense_plain(pre, q, w, b))
+    for got, want in zip(attention_scores_bwd(pre, q, w, ct),
+                         attention_scores_bwd_plain(pre, q, w, ct)):
+        assert torch.equal(got, want)
+    with force_plain():
+        _port_grads(*(x.numpy() for x in (pre, q, w, b, ct)))
+    assert (attention_scores_dense.launches, attention_scores_bwd.launches) == (f0, b0)
+
+
+def test_attention_step_training_routes_agree():
+    """At f32, the three training routes of additive_attention_step give the
+    same values and gradients: the kernel route (attention_scores_diff),
+    the checkpointed plain route, and the plain route without remat (the
+    last two exactly)."""
+    att = AdditiveAttention(20, 16, 24).init_uniform(torch.Generator().manual_seed(0))
+    r = np.random.RandomState(3)
+    h = torch.from_numpy(r.randn(2, 6, 16).astype(np.float32))
+    feats = torch.from_numpy(r.randn(2, 30, 20).astype(np.float32))
+    pre = torch.from_numpy(r.randn(2, 30, 24).astype(np.float32))
+    mask = torch.from_numpy((r.rand(2, 6, 30) > 0.4).astype(np.float32))
+    ct = torch.from_numpy(r.randn(2, 6, 20).astype(np.float32))
+    outs = []
+    for use_kernel, remat in ((True, True), (False, True), (False, False)):
+        hh, pp = h.clone().requires_grad_(), pre.clone().requires_grad_()
+        res, _ = additive_attention_step(att, hh, feats, pp, mask, torch.float32, use_kernel,
+                                         remat)
+        params = list(att.parameters())
+        grads = torch.autograd.grad((res * ct).sum(), [hh, pp] + params, allow_unused=True)
+        outs.append([res] + [torch.zeros(1) if g is None else g for g in grads])
+    for a, o in zip(outs[0], outs[1]):
+        np.testing.assert_allclose(a.detach().numpy(), o.detach().numpy(), atol=1e-5, rtol=1e-5)
+    for a, o in zip(outs[1], outs[2]):  # remat changes nothing
+        assert torch.equal(a, o)
