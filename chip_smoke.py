@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive echr_tpu_torch's batched greedy serving path and its XE training
-path once on one NVIDIA GPU.
+"""Drive echr_tpu_torch's batched greedy and beam serving paths and its XE
+training path once on one NVIDIA GPU, and hold every kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -12,11 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the serving shapes, ragged shapes, all-masked and all-unmasked;
   3. kernel 2 (streaming greedy head) against its plain version at the
      serving shapes in bf16 and f32, ragged shapes, and exact ties;
-  4. the slice: CaptionService at the flagship width (vocab 6000, 30
-     steps) from the port's seeded init captions 64 requests of 256 x 500
-     C3D features (two chunks of 32 videos, top-128 proposals: 4096 decode
-     rows); both kernels' launch counts must equal the decode steps run;
-  5. slice parity: at f32 with TF32 off and sharpened logit weights, the
+  4. the greedy slice: CaptionService at the flagship width (vocab 6000,
+     30 steps) from the port's seeded init captions 64 requests of 256 x
+     500 C3D features (two chunks of 32 videos, top-128 proposals: 4096
+     decode rows); both kernels' launch counts must equal the decode steps;
+  5. greedy parity: at f32 with TF32 off and sharpened logit weights, the
      slice with the kernels and under force_plain() gives the same tokens
      and logps within 5e-4;
   6. times: kernel against plain version (CUDA events after warm-up) and
@@ -32,7 +33,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal to the teacher-forced steps run; time/step, videos/s and peak
      memory;
   10. training parity: at f32 with TF32 off and dropout off, one step's
-     loss and gradients with the kernels and under force_plain() agree.
+     loss and gradients with the kernels and under force_plain() agree;
+  11. kernel 5 (the fused attention step) through
+     additive_attention_step(fused=True) on the beam path's step tensors
+     (32 requests, window-sorted, k=4: N*k=512 rows, T=256, Hatt=512,
+     D=500, bf16), against its plain version within 2e-3, a ragged shape
+     and a fully-masked row; its time beside the kernel-1 route's (kernel 1
+     + masked_softmax + the bf16 AV product), in turns;
+  12. kernel 6 (windowed attention) on the same tensors with the sorted
+     windows and W=64, against its plain version within 5e-4, with
+     zero-length windows, windows that end at T and a ragged shape; its
+     time beside the kernel-1 route's;
+  13. the beam slice: CaptionService(beam_size=4) at the flagship width on
+     64 requests (two chunks of 32 videos, top-128 proposals: 16384 beam
+     rows a chunk) after a warm-up chunk; kernel 1's launches must equal
+     the beam steps run; captions/s, ms per chunk, early-exit syncs, peak
+     memory, and one chunk's decode under torch.profiler;
+  14. beam parity: at f32 with TF32 off and phase 5's weights, beam 4 with
+     the kernels and under force_plain() gives identical tokens for every
+     beam and best logprobs within 5e-4; with the weights sharpened 16x
+     more, beam 1 gives the greedy tokens.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,12 +66,36 @@ import numpy as np
 import torch
 
 TOL = 5e-4
+FUSED_TOL = 2e-3  # kernel 5: bf16 weights from the running max (echr_tpu's gate)
 T_BUCKET, VIDEO_DIM, VOCAB, SEQ_LEN, TOP_N = 256, 500, 6000, 30, 128
 TRAIN_B, TRAIN_N, TRAIN_STEPS = 32, 64, 6  # videos, sampled proposals, steps (1 warm-up)
+BEAM, WINDOW = 4, 64  # beam width; kernel 6's W
+# published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, **ops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate (each input read once, each output written once) and the
+    operations over the peak rate of their type, summed over the types
+    (``ops`` by type: f32=..., bf16=...).  No single PyTorch call
+    computes any of the port's kernels' functions (additive scores are not
+    scaled_dot_product_attention's form; the greedy head is a product with
+    an argmax, max and logsumexp), so library_ms is null for each."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "bytes": n_bytes, "ops": sum(ops.values())}
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -142,9 +186,12 @@ def phase_scores(card):
             with force_plain():
                 plain_ms = cuda_ms(lambda: attention_scores_masked(*args), iters=5)
             live = float(m.float().mean())
+            # per live (n, t, h): add, tanh, multiply, add
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      **bound(nbytes(*args, got), f32=float(m.sum()) * H * 4)}
             print(f"[6] scores kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per decode step "
-                  f"(mask density {live:.3f}) [{card}]")
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                  f"(mask density {live:.3f}), bound {record['bound_ms']:.4f} ms "
+                  f"({record['bound_by']}) [{card}]")
     record["max_abs_err"] = worst
     return record
 
@@ -163,7 +210,7 @@ def phase_head(card):
         return out, w.to(dev).to(dtype).contiguous(), b
 
     def compare(name, args):
-        tok, mx, lse = greedy_head(*args)
+        tok, mx, lse = outs = greedy_head(*args)
         torch.cuda.synchronize()
         with force_plain():
             ptok, pmx, plse = greedy_head(*args)
@@ -176,7 +223,7 @@ def phase_head(card):
               f"rows with top-2 gap > 1e-3; max|d| max/lse {err:.3e}")
         if bad or not err <= TOL:
             fail(f"kernel 2 {name} disagrees with its plain version")
-        return err
+        return err, outs
 
     worst = 0.0
     for name, (R, C, V1, dtype) in {
@@ -188,15 +235,17 @@ def phase_head(card):
         "ragged_unaligned_f32": (33, 30, 70, torch.float32),
     }.items():
         args = inputs(R, C, V1, dtype)
-        err = compare(name, args)
+        err, outs = compare(name, args)
         worst = max(worst, err)
         if name == "serving_bf16":
             ms = cuda_ms(lambda: greedy_head(*args))
             with force_plain():
                 plain_ms = cuda_ms(lambda: greedy_head(*args), iters=10)
+            record = {"ms": ms, "plain_ms": plain_ms,
+                      **bound(nbytes(*args, *outs), bf16=2.0 * R * C * V1)}
             print(f"[6] head kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per decode step "
-                  f"(R={R} C={C} V1={V1} bf16, {2 * R * C * V1 / ms / 1e9:.1f} TFLOP/s) [{card}]")
-            record = {"ms": ms, "plain_ms": plain_ms}
+                  f"(R={R} C={C} V1={V1} bf16, {2 * R * C * V1 / ms / 1e9:.1f} TFLOP/s), bound "
+                  f"{record['bound_ms']:.4f} ms ({record['bound_by']}) [{card}]")
 
     # exact ties from integer-valued sums: within a tile, across tiles and
     # across vocab splits the first index wins
@@ -237,6 +286,24 @@ def requests(n, seed):
             for i in range(n)]
 
 
+def check_captions(res, reqs):
+    """Every request captioned, TOP_N captions each, well-formed timestamps,
+    scores and sentences."""
+    if sorted(res) != sorted(r.vid for r in reqs):
+        fail("not every request was captioned")
+    for r in reqs:
+        caps = res[r.vid]
+        if len(caps) != TOP_N:
+            fail(f"{r.vid}: {len(caps)} captions, expected {TOP_N}")
+        for c in caps:
+            s, e = c.timestamp
+            if not (0.0 <= s < e <= r.duration + 1e-6 and 0.0 <= c.proposal_score <= 1.0
+                    and np.isfinite(c.sentence_confidence) and c.sentence_confidence <= 0.0):
+                fail(f"{r.vid}: malformed caption {c}")
+            if any(not w.startswith("w") for w in c.sentence.split()):
+                fail(f"{r.vid}: sentence outside the vocab: {c.sentence!r}")
+
+
 def phase_slice(card):
     from echr_tpu_torch.models.decoder import decoder_sample_batched
     from echr_tpu_torch.models.registry import init_captioner, init_tap
@@ -266,19 +333,7 @@ def phase_slice(card):
     steps = decoder_sample_batched.steps
 
     n_caps = sum(len(c) for c in res.values())
-    if sorted(res) != sorted(r.vid for r in reqs):
-        fail("not every request was captioned")
-    for r in reqs:
-        caps = res[r.vid]
-        if len(caps) != TOP_N:
-            fail(f"{r.vid}: {len(caps)} captions, expected {TOP_N}")
-        for c in caps:
-            s, e = c.timestamp
-            if not (0.0 <= s < e <= r.duration + 1e-6 and 0.0 <= c.proposal_score <= 1.0
-                    and np.isfinite(c.sentence_confidence) and c.sentence_confidence <= 0.0):
-                fail(f"{r.vid}: malformed caption {c}")
-            if any(not w.startswith("w") for w in c.sentence.split()):
-                fail(f"{r.vid}: sentence outside the vocab: {c.sentence!r}")
+    check_captions(res, reqs)
     if not (steps > 0 and launches["attention_scores_masked"] == steps
             and launches["greedy_head"] == steps):
         fail(f"kernel launches {launches} do not match the {steps} decode steps run")
@@ -291,6 +346,7 @@ def phase_slice(card):
 
 
 def phase_parity(tap, cg, vocab):
+    from echr_tpu_torch.engine.steps import decode_step_batched
     from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.serve import CaptionService
 
@@ -298,10 +354,10 @@ def phase_parity(tap, cg, vocab):
     with torch.no_grad():
         cg.decoder.logit.weight.mul_(8.0)  # sharpen: argmax margins >> f32 noise
     svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=8, topN=TOP_N)
-    chunk = requests(8, seed=3)
-    _, _, seq_k, lp_k = svc.decode_chunk(chunk, T_BUCKET)
+    _, _, args = svc.prepare_chunk(requests(8, seed=3), T_BUCKET)
+    seq_k, lp_k, _ = decode_step_batched(*args)
     with force_plain():
-        _, _, seq_p, lp_p = svc.decode_chunk(chunk, T_BUCKET)
+        seq_p, lp_p, _ = decode_step_batched(*args)
     bad = int((seq_k != seq_p).sum())
     err = float((lp_k - lp_p).abs().max())
     print(f"[5] f32 slice, kernels vs plain: {bad} token mismatches of {seq_k.numel()}, "
@@ -309,6 +365,363 @@ def phase_parity(tap, cg, vocab):
     if bad or not err <= TOL:
         fail("the slice with the kernels disagrees with its plain version")
 
+
+def beam_service():
+    """The beam serving slice at the flagship width, bf16, from the port's
+    seeded init: CaptionService(beam_size=4), 32 videos a chunk."""
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.serve import CaptionService
+
+    cfg = flagship_cfg()
+    gen = torch.Generator().manual_seed(0)
+    tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
+    vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
+    return CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=32, topN=TOP_N,
+                          beam_size=BEAM)
+
+
+@torch.inference_mode()
+def beam_step_tensors(svc):
+    """The beam path's decode-step tensors for 32 requests: make_contexts,
+    the window sort, _expand_ctxs(k=4), precompute_attention and init_state,
+    then the <bos> step, whose hidden state is step 1's query.  B=32,
+    N*k=512 rows, T=256, Hatt=512, D=500, bf16 compute."""
+    from echr_tpu_torch.models.beam import _expand_ctxs
+    from echr_tpu_torch.models.captioner import make_contexts
+    from echr_tpu_torch.models.decoder import (ctxs_soi, init_state, precompute_attention,
+                                               sort_ctxs_by_window, step_core_out)
+    from echr_tpu_torch.ops.core import dense
+
+    bf16 = torch.bfloat16
+    _, nb, (cg, cfg, tap_feats, feats, lda, fm, props) = svc.prepare_chunk(
+        requests(32, seed=5), T_BUCKET)
+    ctxs = make_contexts(cg, cfg, tap_feats, feats, lda, props, frame_mask=fm)
+    ctxs, _ = sort_ctxs_by_window(ctxs)
+    bctx = _expand_ctxs(ctxs, BEAM)
+    dec = cg.decoder
+    pre = precompute_attention(dec, cfg, bctx, bf16)
+    state = init_state(dec, cfg, bctx, nb * BEAM, bf16)
+    bos = torch.zeros(feats.shape[0], nb * BEAM, dtype=torch.int32, device=feats.device)
+    _, state = step_core_out(dec, cfg, bos, bctx, pre, state, bf16)
+    att = dec.core.attention
+    h = state.h[1]
+    return {"att": att, "h": h, "pre": pre.att.contiguous(),
+            "q": dense(att.h2att, h, bf16).contiguous(),
+            "w": att.alpha_net.weight.reshape(-1).contiguous(), "b": att.alpha_net.bias,
+            "mask": bctx.clip_mask.contiguous(), "feats": bctx.clip_feats.contiguous(),
+            "soi": ctxs_soi(bctx).to(torch.int32).contiguous()}
+
+
+def kernel1_route(t):
+    """The route the decode path takes now: kernel 1, masked_softmax and the
+    bf16 AV product."""
+    from echr_tpu_torch.ops.core import matmul, round_to
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.masked import masked_softmax
+
+    bf16 = torch.bfloat16
+    s = attention_scores_masked(t["pre"], t["q"], t["w"], t["b"], t["mask"])
+    return matmul(round_to(masked_softmax(s, t["mask"]), bf16), round_to(t["feats"], bf16), bf16)
+
+
+def short_windows(t):
+    """t with short windows in place of the random-init SST's long ones:
+    sorted starts and 4-47 frames as bench.py draws them (phase 2's mask
+    density, ~0.1), each proposal's window repeated for its k beams."""
+    from echr_tpu_torch.ops.masked import segment_window_mask
+
+    rng = np.random.RandomState(10)
+    B, N = t["soi"].shape[:2]
+    T = t["pre"].shape[1]
+    s = np.sort(rng.randint(0, T - 8, size=(B, N // BEAM)), axis=1)
+    e = np.minimum(s + rng.randint(4, 48, size=s.shape), T)
+    soi = torch.from_numpy(np.stack([s, e], -1).astype(np.int32)).to(t["pre"].device)
+    soi = soi.repeat_interleave(BEAM, dim=1).contiguous()
+    return {**t, "soi": soi, "mask": segment_window_mask(soi, T).contiguous()}
+
+
+def timed_in_turns(kernel, route):
+    """kernel, route, kernel, route: CUDA-event means of each, in one call."""
+    k1, r1 = cuda_ms(kernel), cuda_ms(route)
+    k2, r2 = cuda_ms(kernel), cuda_ms(route)
+    return (k1, k2), (r1, r2)
+
+
+def _random_windows(rng, B, N, T, max_len):
+    s = rng.randint(0, T - 1, size=(B, N))
+    e = np.minimum(s + rng.randint(1, max_len + 1, size=(B, N)), T)
+    return np.stack([s, e], -1).astype(np.int32)
+
+
+@torch.inference_mode()
+def phase_fused(card, t):
+    """Kernel 5 on the beam path's step tensors against its plain version
+    (atol 2e-3), a ragged shape with D > 512 and a fully-masked row, and
+    its time beside the kernel-1 route's."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.attention import additive_attention_step
+    from echr_tpu_torch.ops.kernel_attention_step import attention_fused
+    from echr_tpu_torch.ops.masked import segment_window_mask
+
+    attention_fused.launches = 0
+    res, weights = additive_attention_step(t["att"], t["h"], t["feats"], t["pre"], t["mask"],
+                                           torch.bfloat16, use_kernel=True, fused=True)
+    torch.cuda.synchronize()
+    launches = attention_fused.launches
+    if launches != 1 or weights is not None:
+        fail(f"additive_attention_step(fused=True) launched kernel 5 {launches} times")
+    args = (t["pre"], t["q"], t["w"], t["b"], t["mask"], t["feats"])
+    got = attention_fused(*args)
+    with force_plain():
+        want = attention_fused(*args)
+    err = float((got - want).abs().max())
+    route_err = float((got - kernel1_route(t)).abs().max())
+    B, T, H = t["pre"].shape
+    N, D = t["q"].shape[1], t["feats"].shape[2]
+    live = float(t["mask"].sum())
+    print(f"[11] fused step, beam path B={B} N*k={N} T={T} H={H} D={D} (mask density "
+          f"{live / t['mask'].numel():.3f}): max|d| vs plain {err:.3e} (vs the kernel-1 route, "
+          f"which rounds the normalised weights instead, {route_err:.3e}); entry point "
+          f"launches {launches}")
+    if not err <= FUSED_TOL:
+        fail(f"kernel 5: max|d| {err:.3e} > {FUSED_TOL}")
+    worst = err
+
+    rng = np.random.RandomState(8)
+    dev = t["pre"].device
+    Br, Nr, Tr, Hr, Dr = 3, 77, 200, 500, 700
+    soi = torch.from_numpy(_random_windows(rng, Br, Nr, Tr, 60)).to(dev)
+    mask = segment_window_mask(soi, Tr).contiguous()
+    mask[1, 5] = 0.0  # a fully-masked row
+    rargs = (_rand(rng, (Br, Tr, Hr), 0.5, dev), _rand(rng, (Br, Nr, Hr), 0.5, dev),
+             _rand(rng, (Hr,), 0.05, dev), torch.tensor([0.25], device=dev), mask,
+             _rand(rng, (Br, Tr, Dr), 1.0, dev))
+    rgot = attention_fused(*rargs)
+    with force_plain():
+        rwant = attention_fused(*rargs)
+    rerr = float((rgot - rwant).abs().max())
+    print(f"[11] fused step ragged B={Br} N={Nr} T={Tr} H={Hr} D={Dr}: max|d| {rerr:.3e}; "
+          f"fully-masked row max|out| {float(rgot[1, 5].abs().max()):.1e}")
+    if not rerr <= FUSED_TOL or bool(rgot[1, 5].ne(0).any()):
+        fail(f"kernel 5 ragged: max|d| {rerr:.3e}, or a fully-masked row is not zero")
+    worst = max(worst, rerr)
+
+    (k1, k2), (r1, r2) = timed_in_turns(lambda: attention_fused(*args), lambda: kernel1_route(t))
+    with force_plain():
+        plain_ms = cuda_ms(lambda: attention_fused(*args), iters=3, warmup=1)
+    # per live (n, t, h): add, tanh, multiply, add in f32; per live (n, t, d): a
+    # multiply-add of bf16 operands, which tensor cores take at the bf16 rate
+    record = {"launches": launches, "max_abs_err": worst, "ms": (k1 + k2) / 2,
+              "plain_ms": plain_ms, "kernel1_route_ms": (r1 + r2) / 2,
+              **bound(nbytes(*args, got), f32=live * 4.0 * H, bf16=live * 2.0 * D)}
+    print(f"[11] fused step kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, "
+          f"{r2:.4f} ms (in turns) vs plain {plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms "
+          f"({record['bound_by']}) [{card}]")
+    sw = short_windows(t)
+    sargs = args[:4] + (sw["mask"], t["feats"])
+    with force_plain():
+        swant = attention_fused(*sargs)
+    serr = float((attention_fused(*sargs) - swant).abs().max())
+    if not serr <= FUSED_TOL:
+        fail(f"kernel 5, short windows: max|d| {serr:.3e} > {FUSED_TOL}")
+    record["max_abs_err"] = max(worst, serr)
+    (k1, k2), (r1, r2) = timed_in_turns(lambda: attention_fused(*sargs),
+                                        lambda: kernel1_route(sw))
+    record.update(short_windows_ms=(k1 + k2) / 2, short_windows_route_ms=(r1 + r2) / 2)
+    print(f"[11] fused step, short windows (mask density {float(sw['mask'].mean()):.3f}): "
+          f"max|d| {serr:.3e}; kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, "
+          f"{r2:.4f} ms (in turns) [{card}]")
+    return record
+
+
+@torch.inference_mode()
+def phase_windowed(card, t):
+    """Kernel 6 on the beam path's step tensors with the sorted windows and
+    W=64, against its plain version (atol 5e-4); zero-length windows,
+    windows that end at T and a ragged shape; its time beside the kernel-1
+    route's."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_attention_step import windowed_attention
+
+    def check(name, args, zero_rows=None):
+        got = windowed_attention(*args, W=WINDOW)
+        with force_plain():
+            want = windowed_attention(*args, W=WINDOW)
+        err = float((got - want).abs().max())
+        lens = (args[5][..., 1].clamp(max=args[0].shape[1]) - args[5][..., 0]).clamp(min=0)
+        print(f"[12] windowed {name} B={args[0].shape[0]} N={args[2].shape[1]} "
+              f"T={args[0].shape[1]} H={args[0].shape[2]} D={args[1].shape[2]}: max|d| "
+              f"{err:.3e}; window lengths mean {float(lens.float().mean()):.1f}, max "
+              f"{int(lens.max())}, {float((lens > WINDOW).float().mean()):.3f} longer than W")
+        if not err <= TOL:
+            fail(f"kernel 6 {name}: max|d| {err:.3e} > {TOL}")
+        if zero_rows is not None and bool(got[zero_rows].ne(0).any()):
+            fail(f"kernel 6 {name}: a zero-length window is not zero")
+        return err, got
+
+    args = (t["pre"], t["feats"], t["q"], t["w"], t["b"], t["soi"])
+    windowed_attention.launches = 0
+    windowed_attention(*args, W=WINDOW)
+    torch.cuda.synchronize()
+    launches = windowed_attention.launches
+    if launches != 1:
+        fail(f"windowed_attention launched kernel 6 {launches} times")
+    worst, got = check("beam path", args)
+
+    soi = t["soi"].clone()
+    T = t["pre"].shape[1]
+    zero = torch.zeros_like(soi[..., 0], dtype=torch.bool)
+    zero[:, ::7] = True
+    soi[:, ::7, 1] = soi[:, ::7, 0]  # zero-length windows
+    soi[:, 3::7, 1] = T  # windows that end at T
+    worst = max(worst, check("edges", args[:5] + (soi.contiguous(),), zero)[0])
+
+    rng = np.random.RandomState(9)
+    dev = t["pre"].device
+    Br, Nr, Tr, Hr, Dr = 3, 50, 200, 500, 300
+    rsoi = torch.from_numpy(_random_windows(rng, Br, Nr, Tr, 120)).to(dev)
+    rargs = (_rand(rng, (Br, Tr, Hr), 0.5, dev), _rand(rng, (Br, Tr, Dr), 1.0, dev),
+             _rand(rng, (Br, Nr, Hr), 0.5, dev), _rand(rng, (Hr,), 0.05, dev),
+             torch.tensor([0.25], device=dev), rsoi)
+    worst = max(worst, check("ragged", rargs)[0])
+
+    (k1, k2), (r1, r2) = timed_in_turns(lambda: windowed_attention(*args, W=WINDOW),
+                                        lambda: kernel1_route(t))
+    with force_plain():
+        plain_ms = cuda_ms(lambda: windowed_attention(*args, W=WINDOW), iters=3, warmup=1)
+    B, _, H = t["pre"].shape
+    D = t["feats"].shape[2]
+    frames = float((t["soi"][..., 1] - t["soi"][..., 0]).clamp(min=0).sum())
+    record = {"launches": launches, "max_abs_err": worst, "ms": (k1 + k2) / 2,
+              "plain_ms": plain_ms, "kernel1_route_ms": (r1 + r2) / 2,
+              **bound(nbytes(*args, got), f32=frames * (4.0 * H + 2.0 * D))}
+    print(f"[12] windowed kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, "
+          f"{r2:.4f} ms (in turns) vs plain {plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms "
+          f"({record['bound_by']}) [{card}]")
+    sw = short_windows(t)
+    sargs = args[:5] + (sw["soi"],)
+    worst = max(worst, check("short windows", sargs)[0])
+    record["max_abs_err"] = worst
+    (k1, k2), (r1, r2) = timed_in_turns(lambda: windowed_attention(*sargs, W=WINDOW),
+                                        lambda: kernel1_route(sw))
+    record.update(short_windows_ms=(k1 + k2) / 2, short_windows_route_ms=(r1 + r2) / 2)
+    print(f"[12] windowed, short windows: kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route "
+          f"{r1:.4f}, {r2:.4f} ms (in turns) [{card}]")
+    return record
+
+
+def phase_beam(card, svc):
+    """The beam slice: CaptionService(beam_size=4) captions 64 requests
+    (two chunks of 32 videos, top-128 proposals: 16384 beam rows a chunk)
+    after one warm-up chunk.  Kernel 1's launches must equal the beam steps
+    run, the <bos> steps included."""
+    from echr_tpu_torch.models.beam import beam_search_batched
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+
+    reqs = requests(64, seed=6)
+    svc.caption(reqs[:32])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention_scores_masked.launches = 0
+    beam_search_batched.steps = 0
+    beam_search_batched.host_syncs = 0
+    t0 = time.time()
+    res = svc.caption(reqs)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = attention_scores_masked.launches
+    steps, syncs = beam_search_batched.steps, beam_search_batched.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    check_captions(res, reqs)
+    if not (steps > 0 and launches == steps):
+        fail(f"kernel 1 launched {launches} times in {steps} beam steps")
+    n_caps = sum(len(c) for c in res.values())
+    print(f"[13] beam slice: {len(res)} videos, {n_caps} captions, beam {BEAM}, {steps} beam "
+          f"steps (the <bos> steps included), {syncs} early-exit syncs, kernel 1 launches "
+          f"{launches}; e.g. {res['v0'][0]}")
+    print(f"[13] beam {n_caps / dt:.1f} captions/s, {1000 * dt / 2:.1f} ms per chunk of 32 "
+          f"videos x {TOP_N} proposals x {BEAM} beams, peak device memory {peak / 2**30:.2f} GiB, "
+          f"bf16 compute [{card}]")
+    beam_profile(card, svc, reqs[:32])
+    return {"attention_scores_masked": launches}
+
+
+def beam_profile(card, svc, chunk):
+    """Device kernel time of one chunk's beam decode under torch.profiler,
+    beside its host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from echr_tpu_torch.engine.steps import beam_decode_step_batched
+    from echr_tpu_torch.models.beam import beam_search_batched
+
+    _, _, args = svc.prepare_chunk(chunk, T_BUCKET)
+    torch.cuda.synchronize()
+    steps0 = beam_search_batched.steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        beam_decode_step_batched(*args, BEAM, length_alpha=svc.cfg.eval.beam_length_alpha)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    steps = beam_search_batched.steps - steps0
+    def dev_time(e):  # the name before torch 2.4: self_cuda_time_total
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = sum(dev_time(e) for e in events)
+    if not dev_us:
+        print(f"[13] beam decode profile: device time not measured (no CUDA events) [{card}]")
+        return
+    top = sorted(events, key=lambda e: -dev_time(e))[:10]
+    print(f"[13] beam decode of one chunk under the profiler: wall {1000 * wall:.1f} ms, "
+          f"device kernel time {dev_us / 1000:.1f} ms over {steps} steps "
+          f"({dev_us / 1000 / steps:.3f} ms a step, busy {dev_us / 1e6 / wall:.3f}) [{card}]")
+    for e in top:
+        print(f"     {dev_time(e) / 1000:9.2f} ms {e.count:6d}x {e.key[:90]}")
+
+
+@torch.inference_mode()
+def phase_beam_parity(tap, cg, vocab):
+    """f32, TF32 off, phase 5's 8 requests and sharpened weights: beam 4
+    with the kernels and under force_plain() gives identical tokens for
+    every beam and best logprobs within 5e-4.  Then beam 1 against greedy
+    decode, with the logit weights sharpened 16x more: beam 1 ranks
+    score + logprob, and at phase 5's weights a summed score near -240 has
+    a ulp of 1.5e-5, so candidates closer than that tie and the lower index
+    wins where greedy takes the larger (echr_tpu's beam does the same).
+    Peaked weights keep the scores near 0."""
+    from echr_tpu_torch.engine.steps import beam_decode_step_batched, decode_step_batched
+    from echr_tpu_torch.models.beam import beam_search_batched
+    from echr_tpu_torch.models.captioner import make_contexts
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.serve import CaptionService
+
+    cfg = flagship_cfg(compute_dtype="float32")
+    svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=8, topN=TOP_N,
+                         beam_size=BEAM)
+    _, _, args = svc.prepare_chunk(requests(8, seed=3), T_BUCKET)
+    cgm, cfg, tap_feats, feats, lda, fm, props = args
+    ctxs = make_contexts(cgm, cfg, tap_feats, feats, lda, props, frame_mask=fm)
+    alpha = cfg.eval.beam_length_alpha
+    got = beam_search_batched(cgm.decoder, cfg, ctxs, BEAM, alpha)
+    with force_plain():
+        want = beam_search_batched(cgm.decoder, cfg, ctxs, BEAM, alpha)
+    bad = int((got.all_seqs != want.all_seqs).sum())
+    err = float((got.all_logprobs - want.all_logprobs).abs().max())
+    print(f"[14] f32 beam {BEAM}, kernels vs plain: {bad} token mismatches of "
+          f"{got.all_seqs.numel()} (every beam), max|d| beam logprobs {err:.3e}, "
+          f"{int((got.seq > 0).sum())} non-EOS tokens")
+    if bad or not err <= TOL:
+        fail("f32 beam search with the kernels disagrees with its plain version")
+    cgm.decoder.logit.weight.mul_(16.0)
+    seq1, lp1 = beam_decode_step_batched(*args, 1)
+    seqg, _, _ = decode_step_batched(*args)
+    real = props.prop_mask > 0
+    bad1 = int((seq1 != seqg)[real].sum())
+    print(f"[14] beam 1 vs greedy, weights sharpened 16x more: {bad1} token mismatches on "
+          f"{int(real.sum())} real proposals, {int((seqg > 0)[real].sum())} non-EOS greedy "
+          f"tokens, best-beam logprobs down to {float(lp1[real].min()):.3e}")
+    if bad1:
+        fail("beam 1 does not give the greedy tokens")
 
 def _rand(rng, shape, scale, dev):
     return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
@@ -344,9 +757,11 @@ def phase_scores_dense(card):
             ms = cuda_ms(lambda: attention_scores_dense(*args))
             with force_plain():
                 plain_ms = cuda_ms(lambda: attention_scores_dense(*args), iters=5)
+            record = {"ms": ms, "plain_ms": plain_ms,
+                      **bound(nbytes(*args, got), f32=4.0 * B * N * T * H)}
             print(f"[7] dense scores kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
-                  f"teacher-forced step [{card}]")
-            record = {"ms": ms, "plain_ms": plain_ms}
+                  f"teacher-forced step, bound {record['bound_ms']:.4f} ms "
+                  f"({record['bound_by']}) [{card}]")
     record["max_abs_err"] = worst
     return record
 
@@ -395,9 +810,13 @@ def phase_scores_bwd(card):
             ms = cuda_ms(lambda: attention_scores_bwd(*raw))
             with force_plain():
                 plain_ms = cuda_ms(lambda: attention_scores_bwd(*raw), iters=5)
+            # per (n, t, h): tanh(pre + q) 2, dz = g * w * (1 - y^2) 4, the d_pre,
+            # d_q and d_w sums 4
+            record = {"ms": ms, "plain_ms": plain_ms,
+                      **bound(nbytes(*raw, *first), f32=10.0 * B * N * T * H)}
             print(f"[8] scores backward kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
-                  f"teacher-forced step [{card}]")
-            record = {"ms": ms, "plain_ms": plain_ms}
+                  f"teacher-forced step, bound {record['bound_ms']:.4f} ms "
+                  f"({record['bound_by']}) [{card}]")
     record["max_abs_err"] = worst
     return record
 
@@ -472,8 +891,8 @@ def phase_train_parity():
     """f32, TF32 off, dropout off, B=4: one step's loss and gradients with
     the kernels and under force_plain().  Gates: loss within 1e-5 relative,
     every gradient leaf within atol 2e-4, rtol 1e-3."""
-    from echr_tpu.data.batcher import make_batch
-    from echr_tpu.data.dataset import SyntheticDataset
+    from echr_tpu_torch.data.batcher import make_batch
+    from echr_tpu_torch.data.dataset import SyntheticDataset
     from echr_tpu_torch.engine import steps
     from echr_tpu_torch.engine.train import _collate
     from echr_tpu_torch.models.registry import init_captioner, init_tap
@@ -513,16 +932,25 @@ def main():
     head = phase_head(card)
     launches, tap, cg, vocab = phase_slice(card)
     phase_parity(tap, cg, vocab)
-    del tap, cg
     dense = phase_scores_dense(card)
     bwd = phase_scores_bwd(card)
     launches.update(phase_train(card))
     phase_train_parity()
+    svc = beam_service()
+    step = beam_step_tensors(svc)
+    fused = phase_fused(card, step)
+    windowed = phase_windowed(card, step)
+    del step
+    beam_launches = phase_beam(card, svc)
+    del svc
+    phase_beam_parity(tap, cg, vocab)
+    k1_paths = {"greedy": launches["attention_scores_masked"],
+                "beam": beam_launches["attention_scores_masked"]}
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_scores.cu",
          "replaces": "echr_tpu/ops/pallas_attention.py:119",
-         "launches": launches["attention_scores_masked"], **scores},
+         "launches": sum(k1_paths.values()), "launches_by_path": k1_paths, **scores},
         {"name": "greedy_head", "route": "cuda",
          "source": "echr_tpu_torch/csrc/greedy_head.cu",
          "replaces": "echr_tpu/ops/pallas_head.py:92",
@@ -535,9 +963,18 @@ def main():
          "source": "echr_tpu_torch/csrc/attention_scores_bwd.cu",
          "replaces": "echr_tpu/ops/pallas_attention.py:310",
          "launches": launches["attention_scores_bwd"], **bwd},
+        {"name": "attention_fused", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/attention_fused.cu",
+         "replaces": "echr_tpu/ops/pallas_attention.py:205", **fused},
+        {"name": "windowed_attention", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/windowed_attention.cu",
+         "replaces": "echr_tpu/ops/pallas_windowed_attention.py:37", **windowed},
     ]
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    foreign = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "echr_tpu"
+                     or m.startswith("echr_tpu."))
+    if foreign:
+        fail(f"imported {foreign[:5]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,14 +9,19 @@ port is held against (tests/test_torch_*.py).  Module names mirror
                 kernels 1, 3 and 4; kernel_head: kernel 2) with their build
                 (native) and plain PyTorch versions
   models/     — SST, TSRM, contexts, captioner, three_stream decoder, init
-  engine/     — the batched encode / select / decode steps, the training
-                step, and the XE training loop (train)
+  engine/     — the batched encode / select / decode / beam steps, the
+                training step, the XE training loop (train) and the host
+                proposal selection (proposals)
+  config.py, data/, utils/ — the port's own copies of echr_tpu's host code:
+                the Config tree, the datasets, batcher and loader, and
+                caption rendering
   losses.py   — the training criteria
   bridge.py   — JAX param trees (numpy) <-> port modules
-  serve.py    — CaptionService, the batched greedy serving API
+  serve.py    — CaptionService, batched greedy and beam serving
 
-The port imports torch and never jax.  JAX-free host code of echr_tpu
-(config, data, engine.proposals, utils.text, metrics) is reused by import.
+The port imports torch and nothing of jax or echr_tpu: the host code of
+echr_tpu that it needs is copied into it.  Only the tests import both
+packages.
 """
 
 __version__ = "0.1.0"

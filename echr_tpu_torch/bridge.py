@@ -17,7 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from echr_tpu.config import Config
+from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.captioner import Captioner
 from echr_tpu_torch.models.sst import SST
 from echr_tpu_torch.ops.core import Dense

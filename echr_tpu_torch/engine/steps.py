@@ -7,7 +7,8 @@ masters; each video's losses keep that video's denominators and the step
 takes the mean over videos, as the reference's vmapped step does.  The
 parameters and the two Adam states are updated in place.
 
-Eval / serving: each step takes modules already cast once with
+Eval / serving (greedy ``decode_step_batched`` and
+``beam_decode_step_batched``): each step takes modules already cast once with
 ``ops.core.cast_compute_dtype(module, cfg.runtime.compute_dtype)`` (the
 reference casts inside every jitted step; here CaptionService casts at
 construction) and runs under ``torch.inference_mode``.
@@ -21,9 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from echr_tpu.config import Config
-from echr_tpu.data.batcher import VideoBatch
-from echr_tpu.data.labels import featstamps_to_times
+from echr_tpu_torch.config import Config
+from echr_tpu_torch.data.batcher import VideoBatch
+from echr_tpu_torch.data.labels import featstamps_to_times
 from echr_tpu_torch import losses
 from echr_tpu_torch.models.captioner import (
     Captioner,
@@ -32,6 +33,7 @@ from echr_tpu_torch.models.captioner import (
     captioner_train_loss,
     make_contexts,
 )
+from echr_tpu_torch.models.beam import beam_search_batched
 from echr_tpu_torch.models.decoder import decoder_sample_batched
 from echr_tpu_torch.models.sst import SST, sst_forward_batched
 from echr_tpu_torch.ops.core import call_in_compute_dtype, compute_dtype
@@ -257,3 +259,19 @@ def decode_step_batched(cg: Captioner, cfg: Config, tap_feats: torch.Tensor,
     ctxs = make_contexts(cg, cfg, tap_feats, feats, lda, props, frame_mask=frame_mask)
     return decoder_sample_batched(cg.decoder, cfg, ctxs,
                                   compute_dtype(cfg.runtime.compute_dtype))
+
+
+@torch.inference_mode()
+def beam_decode_step_batched(cg: Captioner, cfg: Config, tap_feats: torch.Tensor,
+                             feats: torch.Tensor, lda: torch.Tensor, frame_mask: torch.Tensor,
+                             props: ProposalBatch, beam_size: int, length_alpha: float = 0.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam decode of B videos' proposals: (seq [B, N, L] of the best beam,
+    its logprob [B, N]).  runtime.decode_early_exit_batched selects the
+    batch-wide early exit, else the fixed-L loop; both return identical
+    tensors."""
+    ctxs = make_contexts(cg, cfg, tap_feats, feats, lda, props, frame_mask=frame_mask)
+    res = beam_search_batched(cg.decoder, cfg, ctxs, beam_size, length_alpha,
+                              early_exit=bool(cfg.runtime.decode_early_exit_batched),
+                              dtype=compute_dtype(cfg.runtime.compute_dtype))
+    return res.seq, res.logprob

@@ -17,17 +17,16 @@ imports jax at the top.
 from __future__ import annotations
 
 import logging
-import math
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from echr_tpu.config import Config
-from echr_tpu.data.batcher import VideoBatch
-from echr_tpu.data.dataset import build_dataset
-from echr_tpu.data.loader import Loader
+from echr_tpu_torch.config import Config
+from echr_tpu_torch.data.batcher import VideoBatch
+from echr_tpu_torch.data.dataset import build_dataset
+from echr_tpu_torch.data.loader import Loader
 from echr_tpu_torch.engine.steps import (
     apply_grads,
     batch_to_device,
@@ -131,8 +130,6 @@ def _not_ported(cfg: Config) -> None:
         why.append("warm start (save.pretrain)")
     if cfg.train.self_critical_after != -1:
         why.append("SCST (train.self_critical_after)")
-    if math.prod(cfg.runtime.mesh_shape) > 1:
-        why.append("meshes (runtime.mesh_shape)")
     if cfg.runtime.transfer_dtype != "float32":
         why.append("transfer compression (runtime.transfer_dtype)")
     if why:

@@ -9,7 +9,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from echr_tpu.config import Config
+from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.contexts import Contexts, build_contexts
 from echr_tpu_torch.models.decoder import Decoder, decoder_forward, teacher_forced_nll
 from echr_tpu_torch.models.tsrm import TSRM

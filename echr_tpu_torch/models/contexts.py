@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from echr_tpu.config import Config
+from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.tsrm import TSRM, tsrm_forward
 from echr_tpu_torch.ops.masked import masked_mean, segment_mean, segment_window_mask
 

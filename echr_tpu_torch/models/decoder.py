@@ -14,8 +14,9 @@ attention route (``remat``: kernels 3 and 4, or the checkpointed plain
 scores) and train-time dropout drawn from a torch.Generator: 0.5 on each
 stream and CG_drop_prob on the output.  torch cannot replay JAX's random
 streams, so ``gen=None`` (no dropout, no scheduled sampling) is the
-parity mode.  The other eleven cores of echr_tpu's CORE_REGISTRY,
-multinomial and beam decode are not ported yet (ROADMAP.md).
+parity mode.  Beam search is models/beam.py.  The other eleven cores of
+echr_tpu's CORE_REGISTRY and multinomial decode are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from echr_tpu.config import Config
+from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.contexts import Contexts
 from echr_tpu_torch.ops.attention import (
     AdditiveAttention,

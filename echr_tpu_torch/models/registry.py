@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from echr_tpu.config import Config
+from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.captioner import Captioner
 from echr_tpu_torch.models.sst import SST
 

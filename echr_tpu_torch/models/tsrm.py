@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from echr_tpu.config import Config
+from echr_tpu_torch.config import Config
 from echr_tpu_torch.ops.core import Dense, dense, dropout, parameter, round_to, uniform_
 from echr_tpu_torch.ops.masked import masked_softmax
 

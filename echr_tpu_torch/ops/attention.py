@@ -11,15 +11,19 @@ decode.  The routes for the scores, as in the reference:
     teacher-forced step at B=32, N=64, T=256, Hatt=512);
   * kernel, no grad (decode): kernel 1, f32, fully-masked tiles skipped;
   * kernel with ``remat`` (training): attention_scores_diff, f32, kernel 3
-    forward and kernel 4 backward.
+    forward and kernel 4 backward;
+  * kernel with ``fused``, no grad, bf16 compute: the whole step in kernel
+    5 (ops/kernel_attention_step.attention_fused), which returns no
+    weights.  As in the reference, no decoder passes ``fused``; an f32
+    caller takes the unfused route, whose AV follows the compute dtype.
 
 The port's kernels take any N, T and Hatt, so the route does not depend
-on the reference's N % 8, T % 128 and Hatt % 128 gates.  The grouped and
-fused routes are not ported.
+on the reference's N % 8, T % 128 and Hatt % 128 gates.  The grouped
+route is not ported.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from echr_tpu_torch.ops.core import Dense, dense, matmul, round_to
 from echr_tpu_torch.ops.kernel_attention import attention_scores_diff, attention_scores_masked
+from echr_tpu_torch.ops.kernel_attention_step import attention_fused
 from echr_tpu_torch.ops.masked import masked_softmax
 
 
@@ -65,11 +70,17 @@ def additive_attention_step(
     dtype: torch.dtype = torch.float32,
     use_kernel: bool = False,
     remat: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    fused: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One attention step for all proposals: (att_res [B, N, D],
-    weights [B, N, T]).  ``remat`` selects the training routes."""
+    weights [B, N, T], or None from the fused route).  ``remat`` selects
+    the training routes, ``fused`` kernel 5 (see the module docstring)."""
     att_h = dense(p.h2att, h, dtype)  # [B, N, Hatt]
     alpha = p.alpha_net
+    if use_kernel and fused and not remat and dtype == torch.bfloat16:
+        return attention_fused(pre_att.contiguous(), att_h.contiguous(),
+                               alpha.weight.reshape(-1), alpha.bias, frame_mask.contiguous(),
+                               feats.contiguous()), None
     if use_kernel and remat:
         scores = attention_scores_diff(pre_att.contiguous(), att_h.contiguous(),
                                        alpha.weight.reshape(-1), alpha.bias)

@@ -8,8 +8,8 @@ flags, so a changed source rebuilds.  It is loaded with ctypes: every
 pointer and the stream are ``c_void_p``, every size ``c_int``, and each
 entry point returns ``cudaGetLastError()`` after its launches.
 
-No fast-math flag: the score kernels' tanhf and kernel 2's expf/logf are
-the accurate ones (an approximate tanh changes greedy tokens).
+No fast-math flag: the kernels' tanhf, expf and logf are the accurate
+ones (an approximate tanh changes greedy tokens).
 """
 from __future__ import annotations
 
@@ -39,6 +39,10 @@ _SIGNATURES = {
     "echr_attention_scores_bwd": [_P] * 9 + [_I] * 4 + [_P],
     # out, w, b, bf16, R, C, V1, splits, part_m, part_l, part_a, tok, mx, lse, stream
     "echr_greedy_head": [_P, _P, _P] + [_I] * 5 + [_P] * 6 + [_P],
+    # pre, q, w, b, mask, feats, out, B, N, T, H, D, stream
+    "echr_attention_fused": [_P] * 7 + [_I] * 5 + [_P],
+    # pre, feats, q, w, b, soi, out, B, N, T, H, D, stream
+    "echr_windowed_attention": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

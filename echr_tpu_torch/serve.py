@@ -1,10 +1,9 @@
-"""Batched greedy caption serving on one GPU (echr_tpu/serve.py).
+"""Batched caption serving on one GPU (echr_tpu/serve.py).
 
 Hand it raw C3D feature arrays, get dense captions with timestamps back.
 Requests are grouped by time bucket and chunked into batches; each chunk
-runs encode -> top-N proposal selection -> contexts -> greedy decode on
-``device``, and the host renders the token ids.  Beam search is not
-ported yet (ROADMAP.md).
+runs encode -> top-N proposal selection -> contexts -> greedy or beam
+decode on ``device``, and the host renders the token ids.
 """
 from __future__ import annotations
 
@@ -16,13 +15,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from echr_tpu.config import Config
-from echr_tpu.data.batcher import pick_bucket
-from echr_tpu.data.labels import anchor_mask, featstamp_to_time
-from echr_tpu.engine import proposals as P
-from echr_tpu.utils.text import decode_sequence
+from echr_tpu_torch.config import Config
+from echr_tpu_torch.data.batcher import pick_bucket
+from echr_tpu_torch.data.labels import anchor_mask, featstamp_to_time
+from echr_tpu_torch.engine import proposals as P
+from echr_tpu_torch.utils.text import decode_sequence
 from echr_tpu_torch.bridge import captioner_from_jax, tap_from_jax
 from echr_tpu_torch.engine.steps import (
+    beam_decode_step_batched,
     decode_step_batched,
     encode_step_batched,
     select_topk_batched,
@@ -75,16 +75,18 @@ def _device(device) -> torch.device:
 
 
 class CaptionService:
-    """Batched greedy captioner.  Parameters move to ``device`` and are cast
-    to the compute dtype once, here."""
+    """Batched captioner: greedy with ``beam_size`` 1, else beam search
+    ranked with the length penalty ``cfg.eval.beam_length_alpha``; a
+    caption's sentence_confidence is the summed logprob of its tokens (the
+    best beam's, for beam search).  Parameters move to ``device`` and are
+    cast to the compute dtype once, here."""
 
     def __init__(self, cfg: Config, tap: SST, cg: Captioner, vocab: Dict[str, str],
                  device="cuda", batch_videos: int = 32, topN: int = 100,
                  nms_threshold: float = 0.0, beam_size: int = 1):
-        if beam_size > 1:
-            raise NotImplementedError(
-                "beam search is not ported to echr_tpu_torch yet "
-                "(ROADMAP.md, queue A item 9)")
+        if beam_size < 1:
+            raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+        self.beam_size = beam_size
         self.cfg = cfg
         self.device = _device(device)
         dt = cfg.runtime.compute_dtype
@@ -104,9 +106,9 @@ class CaptionService:
         for bucket, reqs in groups.items():
             for i0 in range(0, len(reqs), self.batch_videos):
                 chunk = reqs[i0:i0 + self.batch_videos]
-                sels, nb, seq, logps = self.decode_chunk(chunk, bucket)
+                sels, nb, seq, score = self.decode_chunk(chunk, bucket)
                 seq_np = seq.cpu().numpy()
-                score_np = logps.sum(dim=2).cpu().numpy()
+                score_np = score.cpu().numpy()
                 for i, (r, (ind, soi, ts, tp)) in enumerate(zip(chunk, sels)):
                     n = min(len(ind), nb)
                     sents = decode_sequence(self.vocab, seq_np[i][:n])
@@ -119,10 +121,24 @@ class CaptionService:
         return out
 
     def decode_chunk(self, chunk: Sequence[CaptionRequest], bucket: int):
-        """Encode, select proposals for and greedily decode one chunk of
-        requests padded to ``bucket`` frames.  Returns (selections, nb,
-        seq [B, nb, L], logps [B, nb, L]); selections[i] is video i's
-        (ind, soi, timestamps, confidence)."""
+        """Encode, select proposals for and decode one chunk of requests
+        padded to ``bucket`` frames.  Returns (selections, nb, seq [B, nb, L],
+        score [B, nb]), where score is each caption's summed logprob (the
+        best beam's, for beam search).  selections[i] is video i's (ind,
+        soi, timestamps, confidence)."""
+        sels, nb, args = self.prepare_chunk(chunk, bucket)
+        if self.beam_size > 1:
+            seq, score = beam_decode_step_batched(
+                *args, self.beam_size, length_alpha=float(self.cfg.eval.beam_length_alpha))
+        else:
+            seq, logps, _ = decode_step_batched(*args)
+            score = logps.sum(dim=2)
+        return sels, nb, seq, score
+
+    def prepare_chunk(self, chunk: Sequence[CaptionRequest], bucket: int):
+        """Encode and select proposals for one chunk: (selections, nb, args),
+        where args are the decode steps' (cg, cfg, tap_feats, feats, lda,
+        frame_mask, props) on the device."""
         cfg = self.cfg
         dev = self.device
         B = len(chunk)
@@ -154,10 +170,8 @@ class CaptionService:
                 ps[i, :n] = np.asarray(soi)[:n]
                 pm[i, :n] = 1.0
         props = ProposalBatch(*(torch.from_numpy(x).to(dev) for x in (pi, ps, pm)))
-        seq, logps, _ = decode_step_batched(
-            self.cg, cfg, tap_feats, feats_d, torch.from_numpy(lda).to(dev),
-            torch.from_numpy(fmask).to(dev), props)
-        return sels, nb, seq, logps
+        return sels, nb, (self.cg, cfg, tap_feats, feats_d, torch.from_numpy(lda).to(dev),
+                          torch.from_numpy(fmask).to(dev), props)
 
     def _select(self, chunk, pred_props: torch.Tensor, nfr: np.ndarray):
         """Per-video (ind, soi, timestamps, confidence): top-N on the device,

@@ -1,9 +1,11 @@
-"""echr_tpu_torch runs without jax, and its seeded init builds the same
-param tree as echr_tpu.models.registry.
+"""echr_tpu_torch runs without jax and without echr_tpu, and its seeded
+init builds the same param tree as echr_tpu.models.registry.
 
-The subprocess imports every module of the port, serves a tiny CPU slice
+The subprocess imports every module of the port, builds its configuration
+and data from the port alone, serves a tiny CPU slice (greedy and beam)
 from the port's own init and from a JAX format-v2 checkpoint, takes one
-tiny training step, and checks that jax never entered sys.modules.
+tiny training step, and checks that neither jax nor any echr_tpu module
+entered sys.modules.
 """
 import os
 import pkgutil
@@ -29,6 +31,9 @@ from echr_tpu_torch.models.registry import init_captioner, init_tap
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "echr_tpu_torch"
+# an import of jax or of the JAX package (echr_tpu, echr_tpu.*; not echr_tpu_torch)
+FOREIGN_IMPORT = re.compile(r"^\s*(import jax|from jax)|^\s*(from|import)\s+echr_tpu(\.|\s|$)",
+                            re.M)
 
 
 def _all_modules():
@@ -71,12 +76,18 @@ def test_init_uniform_bounds():
 
 
 def test_port_sources_stay_off_jax_and_library_kernels():
-    banned = re.compile(r"^\s*(import jax|from jax)|scaled_dot_product_attention|"
-                        r"torch\.compile|flash_attn|xformers", re.M)
+    """No module of the port imports jax or echr_tpu, or calls a library
+    kernel; chip_smoke.py imports neither jax nor echr_tpu."""
+    banned = re.compile(r"scaled_dot_product_attention|torch\.compile|flash_attn|xformers")
     sources = [p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts]
-    assert len(sources) >= 18
-    for path in sources:
-        assert not banned.search(path.read_text()), path
+    assert len(sources) >= 25
+    for path in sources + [REPO / "chip_smoke.py"]:
+        text = path.read_text()
+        assert not FOREIGN_IMPORT.search(text), path
+        assert path.name == "chip_smoke.py" or not banned.search(text), path
+    assert FOREIGN_IMPORT.search("import echr_tpu.config\n")
+    assert FOREIGN_IMPORT.search("  from echr_tpu import native\n")
+    assert not FOREIGN_IMPORT.search("from echr_tpu_torch.config import Config\n")
 
 
 _CHILD = textwrap.dedent("""
@@ -84,7 +95,7 @@ _CHILD = textwrap.dedent("""
     import numpy as np, torch
     for name in {modules!r}:
         importlib.import_module(name)
-    from echr_tpu.config import flagship_config
+    from echr_tpu_torch.config import flagship_config
     from echr_tpu_torch.models.registry import init_captioner, init_tap
     from echr_tpu_torch.serve import CaptionRequest, CaptionService, from_checkpoint
     cfg = flagship_config()
@@ -100,12 +111,13 @@ _CHILD = textwrap.dedent("""
             for i in range(3)]
     for svc in (CaptionService(cfg, init_tap(g, cfg), init_captioner(g, cfg), vocab,
                                device="cpu", batch_videos=2, topN=6),
-                from_checkpoint({ckpt!r}, device="cpu", batch_videos=2, topN=6)):
+                from_checkpoint({ckpt!r}, device="cpu", batch_videos=2, topN=6),
+                from_checkpoint({ckpt!r}, device="cpu", batch_videos=2, topN=6, beam_size=2)):
         res = svc.caption(reqs)
         assert sorted(res) == ["v0", "v1", "v2"], res
         assert all(len(c) == 6 for c in res.values())
-    from echr_tpu.data.batcher import make_batch
-    from echr_tpu.data.dataset import SyntheticDataset
+    from echr_tpu_torch.data.batcher import make_batch
+    from echr_tpu_torch.data.dataset import SyntheticDataset
     from echr_tpu_torch.engine import steps
     from echr_tpu_torch.engine.train import _collate
     cfg = cfg.replace_in("tap", prop_sample_num=8).replace_in(
@@ -117,7 +129,9 @@ _CHILD = textwrap.dedent("""
     st, m = steps.train_step(st, steps.batch_to_device(batch, "cpu"),
                              torch.Generator().manual_seed(0), cfg, "tap_cg")
     assert st.step == 1 and np.isfinite(m["loss"]), m
-    assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+    foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                     or m == "echr_tpu" or m.startswith("echr_tpu."))
+    assert not foreign, foreign
     print("NOJAX_OK")
 """)
 

@@ -196,8 +196,8 @@ def test_caption_service_refuses_missing_cuda_and_beam():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             CaptionService(*args, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CaptionService(*args, device="cpu", beam_size=2)
+    with pytest.raises(ValueError, match="beam_size"):
+        CaptionService(*args, device="cpu", beam_size=0)
 
 
 def _save_jax_checkpoint(path, cfg, tap, cg, vocab):
