@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive echr_tpu_torch's batched greedy and beam serving paths and its XE
-training path once on one NVIDIA GPU, and hold every kernel against its
-plain PyTorch version.
+"""Drive echr_tpu_torch's batched greedy and beam serving paths, its XE
+training path and its three probes once on one NVIDIA GPU, and hold every
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,21 @@ Phases, in order; any failure raises and the script exits non-zero:
   14. beam parity: at f32 with TF32 off and phase 5's weights, beam 4 with
      the kernels and under force_plain() gives identical tokens for every
      beam and best logprobs within 5e-4; with the weights sharpened 16x
-     more, beam 1 gives the greedy tokens.
+     more, beam 1 gives the greedy tokens;
+  15. kernel 7 (the head probes' streaming head at its plan, TR=64, TV=512)
+     against its plain version at the probe's shapes (R=4096, C=1536,
+     V1=6001 padded to 6144, bf16; tokens bit-equal, max and lse within
+     5e-4), a ragged R and exact ties within and across vocab tiles; then
+     probe_greedy_head: X0, XM (and both over the padded vocab), K1
+     (kernel 7) and K2 (kernel 2) ms a step;
+  16. kernel 8, every instantiated tiling, against its plain version at a
+     ragged R, then probe_streaming_head2: each tiling checked at the
+     probe's shapes, then X0, XM, X0p, XMp and every tiling in interleaved
+     windows;
+  17. kernels 9 and 10 against their plain versions at B=32, N=128, T=256,
+     H=512, KD=2048 and a ragged shape, then probe_mxu_vpu_overlap: S0, S1,
+     SD and S2 at KD=2048 and 8192.  In 15-17 each kernel's launches over
+     the probe's run must equal the calls the probe made.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -926,6 +940,212 @@ def phase_train_parity():
              f"leaves {bad[:5]}")
 
 
+def _reset_probe_counts():
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.ops.kernel_probe_head import stream_head
+    from echr_tpu_torch.ops.kernel_probe_scores import probe_scores, probe_scores_plus_dot
+
+    for fn in (greedy_head, stream_head, probe_scores, probe_scores_plus_dot):
+        fn.launches = 0
+
+
+def _check_calls(phase, record, counts):
+    """Each kernel's launch count over a probe's run equals the calls the
+    run made to its wrapper."""
+    for name, calls in record["kernel_calls"].items():
+        if counts[name] != calls:
+            fail(f"phase {phase}: {name} launched {counts[name]} times, the probe made {calls} "
+                 f"calls")
+
+
+def _head_check(name, args, tr, tv):
+    """stream_head against its plain version: tokens bit-equal, max and lse
+    within TOL."""
+    from echr_tpu_torch.experiments.probe_greedy_head import check_head
+    from echr_tpu_torch.ops.kernel_probe_head import stream_head, stream_head_plain
+
+    got = stream_head(*args, tr, tv)
+    torch.cuda.synchronize()
+    c = check_head(got, stream_head_plain(*args))
+    err = max(c["max_abs_err_max"], c["max_abs_err_lse"])
+    if c["token_mismatches"] or not err <= TOL:
+        fail(f"stream_head {name} at {(tr, tv)}: {c}")
+    return err, got
+
+
+@torch.inference_mode()
+def phase_probe_head(card):
+    """Kernel 7 (stream_head at its plan) against its plain version at the
+    probe's shapes (R=4096, C=1536, V1=6001 padded to 6144, bf16), a ragged
+    R and exact ties within and across vocab tiles; its time; then the
+    probe: X0, XM, X0p, XMp, K1 (kernel 7) and K2 (kernel 2) ms per step."""
+    from echr_tpu_torch.experiments import probe_greedy_head as probe
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.ops.kernel_probe_head import PLAN, pad_probe_head, stream_head
+
+    dev = torch.device("cuda")
+    tr, tv = PLAN
+    w, b, out0 = probe.probe_inputs(probe.B, probe.N, probe.C, probe.V1, 0, dev)
+    wp, bp = pad_probe_head(w, b, tv)
+    args = (out0, wp, bp)
+    worst, got = _head_check("probe", args, tr, tv)
+    rng = np.random.RandomState(15)
+    Rr, Cr, Vr = 1000, 200, 777  # ragged rows; C a multiple of 8, as the kernel needs
+    rargs = (_rand(rng, (Rr, Cr), 1.0, dev),) + pad_probe_head(_rand(rng, (Cr, Vr), 0.1, dev),
+                                                               _rand(rng, (Vr,), 0.1, dev), tv)
+    worst = max(worst, _head_check("ragged", rargs, tr, tv)[0])
+    # exact ties from integer-valued sums: columns 3 and 5 in the first vocab
+    # tile, 1031 and 2000 in later ones; the first index wins
+    C, V1 = 16, 2048
+    wt = torch.zeros(C, V1, device=dev)
+    wt[:, [3, 5, 1031, 2000]] = 1.0
+    tok, mx, _ = stream_head(torch.ones(64, C, device=dev), *pad_probe_head(
+        wt, torch.zeros(V1, device=dev), tv), tr, tv)
+    if not (bool((tok == 3).all()) and bool((mx == C).all())):
+        fail(f"kernel 7 tie: tokens {tok.unique().tolist()}")
+    print(f"[15] kernel 7 {PLAN} R={out0.shape[0]} C={probe.C} V1={probe.V1} VP={wp.shape[1]} "
+          f"bf16: tokens bit-equal, max|d| max/lse {worst:.3e}; ragged R={Rr} C={Cr} V1={Vr} "
+          f"equal; ties: the first index wins")
+    ms = cuda_ms(lambda: stream_head(*args, tr, tv))
+    with force_plain():
+        plain_ms = cuda_ms(lambda: stream_head(*args, tr, tv), iters=10)
+    R, V1 = out0.shape[0], probe.V1
+    record = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+              **bound(nbytes(out0.to(torch.bfloat16), wp, bp, *got),
+                      bf16=2.0 * R * probe.C * V1)}
+    _reset_probe_counts()
+    run = probe.run()
+    torch.cuda.synchronize()
+    counts = {"stream_head": stream_head.launches, "greedy_head": greedy_head.launches}
+    _check_calls(15, run, counts)
+    if run["check"]["token_mismatches"]:
+        fail(f"probe_greedy_head: {run['check']}")
+    record.update(launches=counts["stream_head"], probe_ms_per_step=run["ms_per_step"])
+    p = run["ms_per_step"]
+    print(f"[15] kernel 7 {ms:.4f} ms vs plain {plain_ms:.4f} ms a call, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_by']}); probe ms/step "
+          f"{ {k: round(v, 4) for k, v in p.items()} }; launches {counts} [{card}]")
+    return record
+
+
+@torch.inference_mode()
+def phase_probe_sweep(card):
+    """Kernel 8, every instantiated tiling: a ragged R against the plain
+    version, then the probe (each tiling checked at the probe's shapes,
+    argmax bit-equal, then X0, XM, X0p, XMp and each tiling in interleaved
+    windows); each tiling's time a call."""
+    from echr_tpu_torch.experiments import probe_greedy_head, probe_streaming_head2 as probe
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_probe_head import TILINGS, pad_probe_head, stream_head
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(16)
+    Rr, Cr, Vr = 1000, 200, 777
+    a, w, b = _rand(rng, (Rr, Cr), 1.0, dev), _rand(rng, (Cr, Vr), 0.1, dev), _rand(rng, (Vr,),
+                                                                                     0.1, dev)
+    worst = max(_head_check("ragged", (a,) + pad_probe_head(w, b, tv), tr, tv)[0]
+                for tr, tv in TILINGS)
+    _reset_probe_counts()
+    run = probe.run()
+    torch.cuda.synchronize()
+    counts = {"stream_head": stream_head.launches}
+    _check_calls(16, run, counts)
+    for c in run["checks"].values():
+        worst = max(worst, c["max_abs_err_max"], c["max_abs_err_lse"])
+    if not worst <= TOL:
+        fail(f"kernel 8: max|d| max/lse {worst:.3e} > {TOL}")
+    w, b, out0 = probe_greedy_head.probe_inputs(probe.B, probe.N, probe.C, probe.V1, 0, dev)
+    tilings_ms = {}
+    for tr, tv in TILINGS:
+        wp, bp = pad_probe_head(w, b, tv)
+        tilings_ms[f"{tr}x{tv}"] = cuda_ms(lambda: stream_head(out0, wp, bp, tr, tv))
+    best = min(tilings_ms, key=tilings_ms.get)
+    tr, tv = map(int, best.split("x"))
+    wp, bp = pad_probe_head(w, b, tv)
+    with force_plain():
+        plain_ms = cuda_ms(lambda: stream_head(out0, wp, bp, tr, tv), iters=10)
+    got = stream_head(out0, wp, bp, tr, tv)
+    R = out0.shape[0]
+    record = {"launches": counts["stream_head"], "max_abs_err": worst, "ms": tilings_ms[best],
+              "best_tiling": best, "tilings_ms": tilings_ms, "plain_ms": plain_ms,
+              **bound(nbytes(out0.to(torch.bfloat16), wp, bp, *got),
+                      bf16=2.0 * R * probe.C * probe.V1),
+              "probe_ms_per_step": run["ms_per_step"]}
+    print(f"[16] kernel 8, {len(TILINGS)} tilings: tokens bit-equal at the probe's shapes and "
+          f"ragged R={Rr}, max|d| max/lse {worst:.3e}; ms a call "
+          f"{ {k: round(v, 4) for k, v in tilings_ms.items()} }, best {best}; plain "
+          f"{plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms ({record['bound_by']}); "
+          f"launches {counts['stream_head']} [{card}]")
+    return record
+
+
+@torch.inference_mode()
+def phase_probe_overlap(card):
+    """Kernels 9 and 10 against their plain versions at the probe's shapes
+    (B=32, N=128, T=256, H=512, KD=2048) and a ragged shape, kernel 10's
+    product warps alone too; their times; then the probe: S0, S1, SD and S2
+    at KD=2048 and 8192."""
+    from echr_tpu_torch.experiments import probe_mxu_vpu_overlap as probe
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_probe_scores import probe_scores, probe_scores_plus_dot
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(17)
+    bf16 = torch.bfloat16
+    records, worst = {}, {"probe_scores": 0.0, "probe_scores_plus_dot": 0.0}
+    for name, (B, N, T, H, KD) in {"probe": (probe.B, probe.N, probe.T, probe.H, probe.KD),
+                                   "ragged": (3, 77, 200, 496, 256)}.items():
+        pre, q = _rand(rng, (B, T, H), 0.5, dev), _rand(rng, (B, N, H), 0.5, dev)
+        w, wd = _rand(rng, (H,), 0.05, dev), _rand(rng, (H, KD), 0.05, dev).to(bf16)
+        s9 = probe_scores(pre, q, w)
+        s10, d10 = probe_scores_plus_dot(pre, q, w, wd)
+        _, d_only = probe_scores_plus_dot(pre, q, w, wd, scores=False)
+        torch.cuda.synchronize()
+        with force_plain():
+            ps, pd = probe_scores_plus_dot(pre, q, w, wd)
+        e9 = float((s9 - ps).abs().max())
+        e10 = max(float((s10 - ps).abs().max()), float((d10 - pd).abs().max()),
+                  float((d_only - pd).abs().max()))
+        print(f"[17] {name} B={B} N={N} T={T} H={H} KD={KD}: kernel 9 max|d| {e9:.3e}; kernel 10 "
+              f"scores and product (and the product alone) max|d| {e10:.3e}")
+        if not (e9 <= TOL and e10 <= TOL):
+            fail(f"kernels 9/10 {name}: max|d| {e9:.3e}, {e10:.3e} > {TOL}")
+        worst["probe_scores"] = max(worst["probe_scores"], e9)
+        worst["probe_scores_plus_dot"] = max(worst["probe_scores_plus_dot"], e10)
+        if name != "probe":
+            continue
+        tanh_ops = 4.0 * B * N * T * H  # per (n, t, h): add, tanh, multiply, add
+        for fn, call, outs, extra in (
+                (probe_scores, lambda: probe_scores(pre, q, w), (s9,), {}),
+                (probe_scores_plus_dot, lambda: probe_scores_plus_dot(pre, q, w, wd),
+                 (s10, d10, wd), {"bf16": 2.0 * d10.numel() * H})):
+            ms = cuda_ms(call)
+            with force_plain():
+                plain_ms = cuda_ms(call, iters=3, warmup=1)
+            records[fn.__name__] = {"ms": ms, "plain_ms": plain_ms,
+                                    **bound(nbytes(pre, q, w, *outs), f32=tanh_ops, **extra)}
+        records["probe_scores_plus_dot"]["product_only_ms"] = cuda_ms(
+            lambda: probe_scores_plus_dot(pre, q, w, wd, scores=False))
+        del pre, q, wd, s9, s10, d10, d_only, ps, pd
+    _reset_probe_counts()
+    run = probe.run()
+    torch.cuda.synchronize()
+    counts = {"probe_scores": probe_scores.launches,
+              "probe_scores_plus_dot": probe_scores_plus_dot.launches}
+    _check_calls(17, run, counts)
+    for name, rec in records.items():
+        rec.update(launches=counts[name], max_abs_err=worst[name],
+                   probe_ms_per_step={str(kd): row for kd, row in run["ms_per_step"].items()})
+        print(f"[17] {name} {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.4f} ms a call, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); launches {counts[name]} [{card}]")
+    rows = {kd: {k: round(v, 4) for k, v in row.items()} for kd, row in run["ms_per_step"].items()}
+    print(f"[17] kernel 10's product warps alone "
+          f"{records['probe_scores_plus_dot']['product_only_ms']:.4f} ms a call; probe ms/step "
+          f"{rows} [{card}]")
+    return records
+
+
 def main():
     card = phase_device()
     scores = phase_scores(card)
@@ -944,6 +1164,9 @@ def main():
     beam_launches = phase_beam(card, svc)
     del svc
     phase_beam_parity(tap, cg, vocab)
+    probe_head = phase_probe_head(card)
+    probe_sweep = phase_probe_sweep(card)
+    overlap = phase_probe_overlap(card)
     k1_paths = {"greedy": launches["attention_scores_masked"],
                 "beam": beam_launches["attention_scores_masked"]}
     kernels = [
@@ -969,10 +1192,23 @@ def main():
         {"name": "windowed_attention", "route": "cuda",
          "source": "echr_tpu_torch/csrc/windowed_attention.cu",
          "replaces": "echr_tpu/ops/pallas_windowed_attention.py:37", **windowed},
+        {"name": "probe_greedy_head", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/probe_stream_head.cu",
+         "replaces": "experiments/probe_greedy_head.py:36", **probe_head},
+        {"name": "probe_stream_head", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/probe_stream_head.cu",
+         "replaces": "experiments/probe_streaming_head2.py:38", **probe_sweep},
+        {"name": "probe_scores", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/probe_score_overlap.cu",
+         "replaces": "experiments/probe_mxu_vpu_overlap.py:55", **overlap["probe_scores"]},
+        {"name": "probe_scores_plus_dot", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/probe_score_overlap.cu",
+         "replaces": "experiments/probe_mxu_vpu_overlap.py:62",
+         **overlap["probe_scores_plus_dot"]},
     ]
     foreign = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith("jax.") or m == "echr_tpu"
-                     or m.startswith("echr_tpu."))
+                     if m in ("jax", "echr_tpu", "experiments")
+                     or m.startswith(("jax.", "echr_tpu.", "experiments.")))
     if foreign:
         fail(f"imported {foreign[:5]}")
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,11 @@ port is held against (tests/test_torch_*.py).  Module names mirror
 
   ops/        — dense / dropout / masked / recurrent / attention primitives,
                 and the hand-written CUDA kernels' wrappers (kernel_attention:
-                kernels 1, 3 and 4; kernel_head: kernel 2) with their build
-                (native) and plain PyTorch versions
+                kernels 1, 3 and 4; kernel_head: kernel 2;
+                kernel_attention_step: 5 and 6; kernel_probe_head: 7 and 8;
+                kernel_probe_scores: 9 and 10) with their build (native) and
+                plain PyTorch versions
+  experiments/ — the Pallas probes' counterparts, which drive kernels 7-10
   models/     — SST, TSRM, contexts, captioner, three_stream decoder, init
   engine/     — the batched encode / select / decode / beam steps, the
                 training step, the XE training loop (train) and the host

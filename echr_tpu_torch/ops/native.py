@@ -43,6 +43,10 @@ _SIGNATURES = {
     "echr_attention_fused": [_P] * 7 + [_I] * 5 + [_P],
     # pre, feats, q, w, b, soi, out, B, N, T, H, D, stream
     "echr_windowed_attention": [_P] * 7 + [_I] * 5 + [_P],
+    # out, w, b, R, C, VP, tr, tv, tok, mx, lse, stream
+    "echr_probe_stream_head": [_P] * 3 + [_I] * 5 + [_P] * 3 + [_P],
+    # pre, q, w, wd, s, dot, B, N, T, H, KD, scores, stream
+    "echr_probe_scores": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,11 +1,11 @@
 """echr_tpu_torch runs without jax and without echr_tpu, and its seeded
 init builds the same param tree as echr_tpu.models.registry.
 
-The subprocess imports every module of the port, builds its configuration
-and data from the port alone, serves a tiny CPU slice (greedy and beam)
-from the port's own init and from a JAX format-v2 checkpoint, takes one
-tiny training step, and checks that neither jax nor any echr_tpu module
-entered sys.modules.
+The subprocess imports every module of the port (its probes included),
+builds its configuration and data from the port alone, serves a tiny CPU
+slice (greedy and beam) from the port's own init and from a JAX format-v2
+checkpoint, takes one tiny training step, and checks that neither jax nor
+any echr_tpu or experiments module entered sys.modules.
 """
 import os
 import pkgutil
@@ -31,9 +31,10 @@ from echr_tpu_torch.models.registry import init_captioner, init_tap
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "echr_tpu_torch"
-# an import of jax or of the JAX package (echr_tpu, echr_tpu.*; not echr_tpu_torch)
-FOREIGN_IMPORT = re.compile(r"^\s*(import jax|from jax)|^\s*(from|import)\s+echr_tpu(\.|\s|$)",
-                            re.M)
+# an import of jax, of the JAX package (echr_tpu, echr_tpu.*; not echr_tpu_torch)
+# or of its Pallas probes (experiments, experiments.*)
+FOREIGN_IMPORT = re.compile(
+    r"^\s*(import jax|from jax)|^\s*(from|import)\s+(echr_tpu|experiments)(\.|\s|$)", re.M)
 
 
 def _all_modules():
@@ -76,8 +77,9 @@ def test_init_uniform_bounds():
 
 
 def test_port_sources_stay_off_jax_and_library_kernels():
-    """No module of the port imports jax or echr_tpu, or calls a library
-    kernel; chip_smoke.py imports neither jax nor echr_tpu."""
+    """No module of the port imports jax, echr_tpu or the JAX probes under
+    experiments/, or calls a library kernel; chip_smoke.py imports none of
+    the three."""
     banned = re.compile(r"scaled_dot_product_attention|torch\.compile|flash_attn|xformers")
     sources = [p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts]
     assert len(sources) >= 25
@@ -88,6 +90,9 @@ def test_port_sources_stay_off_jax_and_library_kernels():
     assert FOREIGN_IMPORT.search("import echr_tpu.config\n")
     assert FOREIGN_IMPORT.search("  from echr_tpu import native\n")
     assert not FOREIGN_IMPORT.search("from echr_tpu_torch.config import Config\n")
+    assert FOREIGN_IMPORT.search("from experiments import probe_greedy_head\n")
+    assert not FOREIGN_IMPORT.search("from echr_tpu_torch.experiments import probe_device\n")
+    assert PKG / "experiments" / "probe_mxu_vpu_overlap.py" in sources
 
 
 _CHILD = textwrap.dedent("""
@@ -129,8 +134,8 @@ _CHILD = textwrap.dedent("""
     st, m = steps.train_step(st, steps.batch_to_device(batch, "cpu"),
                              torch.Generator().manual_seed(0), cfg, "tap_cg")
     assert st.step == 1 and np.isfinite(m["loss"]), m
-    foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                     or m == "echr_tpu" or m.startswith("echr_tpu."))
+    foreign = sorted(m for m in sys.modules if m in ("jax", "echr_tpu", "experiments")
+                     or m.startswith(("jax.", "echr_tpu.", "experiments.")))
     assert not foreign, foreign
     print("NOJAX_OK")
 """)
@@ -150,3 +155,4 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX_OK" in proc.stdout
     assert len(_all_modules()) >= 18 and echr_tpu_torch.__version__
+    assert "echr_tpu_torch.experiments.probe_streaming_head2" in _all_modules()
