@@ -5,12 +5,22 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
+kernel_turns.py times kernels 1 and 4 beside another build of their
+sources (a parent commit's) in turns; this script times this checkout's
+kernels alone.
+
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: require CUDA, print the card's name and power limit, build
      the CUDA kernels from echr_tpu_torch/csrc into echr_tpu_torch/_build;
   2. kernel 1 (masked attention scores) against its plain PyTorch version
-     at the serving shapes, ragged shapes, all-masked and all-unmasked;
+     at the serving shapes, ragged shapes, all-masked, all-unmasked, an
+     unsorted mask and a mask with holes inside windows (masked entries
+     must be 0), and at the serving shape with every entry live, whose
+     time gives the rate of kernel 1's tanh; then its tanh itself
+     (csrc/tanh.cuh): kernel 1 at H=1 (w=1, q=0, b=0) returns it exactly,
+     swept over [-10, 10] and small |x| against float64 (max abs error at
+     most 2.4e-7, 2 ulp of 1.0);
   3. kernel 2 (streaming greedy head) against its plain version at the
      serving shapes in bf16 and f32, ragged shapes, and exact ties;
   4. the greedy slice: CaptionService at the flagship width (vocab 6000,
@@ -22,16 +32,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      and logps within 5e-4;
   6. times: kernel against plain version (CUDA events after warm-up) and
      the slice's captions/s, each beside the card's name and power limit;
+     kernel 1 at four inputs, phase 2's synthetic windows, one greedy
+     step's tensors of phase 4 and (after phase 10) the beam path's step
+     tensors with their own and with short windows, each held against
+     its plain version and timed with its live-work bound, the tanh the
+     design evaluates there over the tanh the mask needs (modelled from
+     the mask), and at the end the tanh-rate floor (live tanh over the
+     all-live rate of phase 2);
   7. kernel 3 (differentiable scores, forward) against its plain version
      at the training shapes and ragged shapes;
   8. kernel 4 (their backward) against the autograd of the plain forward at
-     the same shapes, and two calls bit-identical;
+     the same shapes with a dense cotangent and with one that is zero
+     outside sorted windows (N=64), and two calls bit-identical; its time
+     with both;
   9. the training slice: engine.train.train at the flagship width as
      bench.py's e2e_train_cfg builds it (B=32 videos of T=256, cotrain /
      tap_cg, vocab 6000, bf16, dropout on, seeded): 1 warm-up and 5 timed
      steps; finite losses, moved parameters, and kernel 3 and 4 launches
      equal to the teacher-forced steps run; time/step, videos/s and peak
-     memory;
+     memory; then one more step with a counting wrapper on kernel 4:
+     the share of nonzero cotangent entries it saw, and its time on the
+     step's own cotangents;
   10. training parity: at f32 with TF32 off and dropout off, one step's
      loss and gradients with the kernels and under force_plain() agree;
   11. kernel 5 (the fused attention step) through
@@ -48,7 +69,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      64 requests (two chunks of 32 videos, top-128 proposals: 16384 beam
      rows a chunk) after a warm-up chunk; kernel 1's launches must equal
      the beam steps run; captions/s, ms per chunk, early-exit syncs, peak
-     memory, and one chunk's decode under torch.profiler;
+     memory, and one chunk's decode under torch.profiler, with kernel 1's
+     device ms over the chunk;
   14. beam parity: at f32 with TF32 off and phase 5's weights, beam 4 with
      the kernels and under force_plain() gives identical tokens for every
      beam and best logprobs within 5e-4; with the weights sharpened 16x
@@ -71,6 +93,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -112,6 +136,31 @@ def bound(n_bytes, **ops):
             "bytes": n_bytes, "ops": sum(ops.values())}
 
 
+def in_turns(calls):
+    """Each of ``calls`` (name -> fn) timed in order and then in reverse
+    order (a, b, b, a): two CUDA-event means a name, in one call."""
+    times = {name: [] for name in calls}
+    for name in [*calls, *reversed(calls)]:
+        times[name].append(cuda_ms(calls[name]))
+    return times
+
+
+@contextlib.contextmanager
+def wrapped(module, name, hook):
+    """Within the block, module.name(*args) first calls hook(*args)."""
+    fn = getattr(module, name)
+
+    @functools.wraps(fn)  # with its attributes: fn counts its launches on its global name
+    def wrapper(*args):
+        hook(*args)
+        return fn(*args)
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """Mean device time of fn() over ``iters`` launches, from CUDA events."""
     for _ in range(warmup):
@@ -127,6 +176,8 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def phase_device():
+    """Require CUDA, print the card, build the kernels; returns the card's
+    name and power limit as nvidia-smi prints them."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -158,56 +209,157 @@ def _windows_mask(rng, B, N, T):
     return masks
 
 
+def _mask_of_windows(B, N, T, soi):
+    """[B, N, T] f32 mask of the windows soi [B, N, 2] (any order)."""
+    t = np.arange(T)[None, None, :]
+    return ((t >= soi[..., :1]) & (t < soi[..., 1:])).astype(np.float32)
+
+
+# kernel 1's exactness cases: (B, N, T, H, mask kind)
+SCORE_CASES = {
+    "serving": (32, 128, 256, 512, "windows"),
+    "ragged": (3, 120, 200, 500, "windows"),
+    "all_masked": (2, 40, 96, 64, "none"),
+    "all_unmasked": (2, 40, 96, 64, "all"),
+    "unsorted": (4, 130, 256, 512, "unsorted"),
+    "holes": (3, 77, 250, 300, "holes"),
+}
+
+
+def _case_mask(rng, kind, B, N, T):
+    """windows: sorted, 4-47 frames (_windows_mask); unsorted: windows of
+    1-120 frames in random order; holes: those with 30% of their frames
+    masked out; none / all: every entry 0 / 1."""
+    if kind == "windows":
+        return _windows_mask(rng, B, N, T)
+    if kind in ("none", "all"):
+        return np.full((B, N, T), float(kind == "all"), np.float32)
+    m = _mask_of_windows(B, N, T, _random_windows(rng, B, N, T, 120))
+    return m * (rng.rand(B, N, T) > 0.3) if kind == "holes" else m
+
+
+def score_case_inputs(rng, name, dev):
+    """(pre, q, w, b, mask) of kernel 1's exactness case ``name``
+    (SCORE_CASES), drawn from ``rng``: the mask first, then pre, q, w."""
+    B, N, T, H, kind = SCORE_CASES[name]
+    mask = torch.from_numpy(_case_mask(rng, kind, B, N, T)).to(dev)
+    pre = _rand(rng, (B, T, H), 0.5, dev)
+    q = _rand(rng, (B, N, H), 0.5, dev)
+    return pre, q, _rand(rng, (H,), 0.05, dev), torch.tensor([0.25], device=dev), mask
+
+
+def kernel1_check(name, args, want=None):
+    """Kernel 1 on args (pre, q, w, b, mask) against its plain version
+    (or ``want``): within TOL wherever mask == 1, masked entries 0.
+    Returns (max |d| where mask == 1, the kernel's output)."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+
+    got = attention_scores_masked(*args)
+    torch.cuda.synchronize()
+    if want is None:
+        with force_plain():
+            want = attention_scores_masked(*args)
+    m = args[4] > 0
+    err = float((got - want).abs()[m].max()) if bool(m.any()) else 0.0
+    if bool(got[~m].ne(0).any()):
+        fail(f"kernel 1 {name}: a masked entry is not 0")
+    if not err <= TOL:
+        fail(f"kernel 1 {name}: max|d| {err:.3e} > {TOL}")
+    return err, got
+
+
 def phase_scores(card):
+    """Kernel 1 at every SCORE_CASES mask; at the serving shape also with
+    every entry live, whose time gives the rate of its tanh (the floor of
+    kernels 1 and 4); then the tanh sweep."""
     from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
 
     rng = np.random.RandomState(0)
     dev = torch.device("cuda")
-
-    def inputs(B, N, T, H, mask):
-        pre = torch.from_numpy((rng.randn(B, T, H) * 0.5).astype(np.float32)).to(dev)
-        q = torch.from_numpy((rng.randn(B, N, H) * 0.5).astype(np.float32)).to(dev)
-        w = torch.from_numpy((rng.randn(H) * 0.05).astype(np.float32)).to(dev)
-        b = torch.tensor([0.25], device=dev)
-        return pre, q, w, b, torch.from_numpy(mask).to(dev)
-
-    cases = {
-        "serving": (32, 128, 256, 512, None),
-        "ragged": (3, 120, 200, 500, None),
-        "all_masked": (2, 40, 96, 64, 0.0),
-        "all_unmasked": (2, 40, 96, 64, 1.0),
-    }
     worst = 0.0
-    for name, (B, N, T, H, fill) in cases.items():
-        mask = _windows_mask(rng, B, N, T) if fill is None else np.full((B, N, T), fill,
-                                                                         np.float32)
-        args = inputs(B, N, T, H, mask)
-        got = attention_scores_masked(*args)
-        torch.cuda.synchronize()
+    for name, (B, N, T, H, kind) in SCORE_CASES.items():
+        args = score_case_inputs(rng, name, dev)
+        err, _ = kernel1_check(name, args)
+        worst = max(worst, err)
+        print(f"[2] scores {name} B={B} N={N} T={T} H={H} (mask density "
+              f"{float(args[4].mean()):.3f}): max|d| where mask==1 {err:.3e}, masked entries 0")
+        if name != "serving":
+            continue
+        record = kernel1_timing(card, "phase-2 synthetic windows", args)
         with force_plain():
             want = attention_scores_masked(*args)
-        m = args[4] > 0
-        err = float((got - want).abs()[m].max()) if bool(m.any()) else 0.0
-        if fill == 0.0 and bool(got.ne(0).any()):
-            fail("kernel 1 computed a fully-masked tile")
-        if not err <= TOL:
-            fail(f"kernel 1 {name}: max|d| {err:.3e} > {TOL}")
+            record["plain_ms"] = cuda_ms(lambda: attention_scores_masked(*args), iters=5)
+        print(f"[6] scores plain version {record['plain_ms']:.4f} ms [{card}]")
+        live = args[:4] + (torch.ones_like(args[4]),)
+        err, _ = kernel1_check("serving, all live", live, want)
         worst = max(worst, err)
-        print(f"[2] scores {name} B={B} N={N} T={T} H={H}: max|d| where mask==1 {err:.3e}")
-        if name == "serving":
-            ms = cuda_ms(lambda: attention_scores_masked(*args))
-            with force_plain():
-                plain_ms = cuda_ms(lambda: attention_scores_masked(*args), iters=5)
-            live = float(m.float().mean())
-            # per live (n, t, h): add, tanh, multiply, add
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      **bound(nbytes(*args, got), f32=float(m.sum()) * H * 4)}
-            print(f"[6] scores kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per decode step "
-                  f"(mask density {live:.3f}), bound {record['bound_ms']:.4f} ms "
-                  f"({record['bound_by']}) [{card}]")
+        all_live_ms = cuda_ms(lambda: attention_scores_masked(*live))
+        record.update(all_live_ms=all_live_ms, tanh_per_ms=B * N * T * H / all_live_ms)
+        print(f"[2] scores serving, every entry live: max|d| {err:.3e}; {all_live_ms:.4f} ms, "
+              f"{record['tanh_per_ms'] / 1e6:.1f} M tanh a ms: the rate of the tanh-rate floors "
+              f"of kernels 1 and 4 [{card}]")
     record["max_abs_err"] = worst
+    record["tanh_max_abs_err"] = tanh_sweep()
     return record
+
+
+def tanh_sweep():
+    """Kernel 1 at H=1 with w=1, q=0 and b=0 returns its tanh of pre
+    exactly (its other lanes add 0): the device tanh in use, held to
+    float64 over a dense sweep of [-10, 10] and of |x| from 1e-38 to 1,
+    both signs (experiments/probe_tanh.sweep_error)."""
+    from echr_tpu_torch.experiments.probe_tanh import TANH_TOL, sweep_error
+
+    err, at, n = sweep_error(torch.device("cuda"))
+    print(f"[2] tanh sweep, {n} points of [-10, 10] and +-[1e-38, 1]: max|tanh - tanh "
+          f"(float64)| {err:.3e} at x = {at:.9g} (gate {TANH_TOL})")
+    if not err <= TANH_TOL:
+        fail(f"the device tanh is off by {err:.3e} > {TANH_TOL}")
+    return err
+
+
+def kernel1_tanh(mask, H):
+    """Tanh per call of kernel 1 on ``mask`` [B, N, T] at width H, counted
+    from the mask, not on the card: what the mask needs (live pairs x H);
+    what this design evaluates by its rule (live pairs x H padded to its
+    chunk of hidden units: 128, 256 or multiples of 512); what the earlier
+    tiled design (kernel 1 before its lanes ran over hidden units)
+    evaluated by its rule (16 rows x 32 frames x H for every 16 x 32 tile
+    with a 1)."""
+    live = mask.ne(0)
+    B, N, T = live.shape
+    pairs = int(live.sum())
+    chunk = 128 if H <= 128 else 256 if H <= 256 else 512
+    tiles = torch.nn.functional.pad(live.float(), (0, -T % 32, 0, -N % 16))
+    tiles = tiles.reshape(B, -(-N // 16), 16, -(-T // 32), 32)
+    return {"tanh_needed": pairs * H, "tanh_modelled": pairs * -(-H // chunk) * chunk,
+            "tanh_modelled_tiled": int(tiles.amax(dim=(2, 4)).sum()) * 16 * 32 * H}
+
+
+def kernel1_timing(card, name, args):
+    """Kernel 1 at one input (pre, q, w, b, mask): held against its plain
+    version (kernel1_check), its time, its live-work bound and its tanh."""
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+
+    pre, q, mask = args[0], args[1], args[4]
+    B, T, H = pre.shape
+    N = q.shape[1]
+    err, out = kernel1_check(name, args)
+    work = kernel1_tanh(mask, H)
+    # per live (n, t, h): add, tanh, multiply, add
+    rec = {"B": B, "N": N, "T": T, "H": H, "density": work["tanh_needed"] / (mask.numel() * H),
+           "max_abs_err": err, **work,
+           **bound(nbytes(*args, out), f32=4.0 * work["tanh_needed"])}
+    rec["ms"] = cuda_ms(lambda: attention_scores_masked(*args))
+    need = max(work["tanh_needed"], 1)
+    print(f"[6] kernel 1, {name} B={B} N={N} T={T} H={H} (density {rec['density']:.3f}): "
+          f"max|d| where mask==1 {err:.3e}; {rec['ms']:.4f} ms, live-work bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); tanh by the design's rule / needed "
+          f"{work['tanh_modelled'] / need:.3f} (the earlier tiled design "
+          f"{work['tanh_modelled_tiled'] / need:.3f}) [{card}]")
+    return rec
 
 
 def phase_head(card):
@@ -331,8 +483,8 @@ def phase_slice(card):
     vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
     svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=32, topN=TOP_N)
     reqs = requests(64, seed=2)
-    svc.caption(reqs[:32])  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
+    # warm-up (cuBLAS handles, allocator), keeping kernel 1's inputs of one step
+    step_args = first_scores_args(svc, reqs[:32])
 
     attention_scores_masked.launches = 0
     greedy_head.launches = 0
@@ -356,7 +508,23 @@ def phase_slice(card):
           f"e.g. {res['v0'][0]}")
     print(f"[6] slice {n_caps / dt:.1f} captions/s ({len(reqs)} videos x {TOP_N} proposals "
           f"in {dt:.3f} s, bf16 compute, batch 32) [{card}]")
-    return launches, tap, cg, vocab
+    return launches, tap, cg, vocab, step_args
+
+
+def first_scores_args(svc, reqs):
+    """svc.caption(reqs) with a wrapper on kernel 1 that keeps the inputs
+    of its first call, the first decode step's: (pre, q, w, b, mask)."""
+    from echr_tpu_torch.ops import attention as attention_ops
+
+    kept = []
+
+    def keep_first(*args):
+        if not kept:
+            kept.append(tuple(a.detach().clone() for a in args))
+    with wrapped(attention_ops, "attention_scores_masked", keep_first):
+        svc.caption(reqs)
+    torch.cuda.synchronize()
+    return kept[0]
 
 
 def phase_parity(tap, cg, vocab):
@@ -380,26 +548,28 @@ def phase_parity(tap, cg, vocab):
         fail("the slice with the kernels disagrees with its plain version")
 
 
-def beam_service():
-    """The beam serving slice at the flagship width, bf16, from the port's
-    seeded init: CaptionService(beam_size=4), 32 videos a chunk."""
+def caption_service(beam_size=BEAM, **runtime):
+    """The serving slice at the flagship width, bf16, from the port's
+    seeded init: CaptionService(beam_size), 32 videos a chunk (greedy at
+    beam_size 1); ``runtime`` overrides cfg.runtime fields."""
     from echr_tpu_torch.models.registry import init_captioner, init_tap
     from echr_tpu_torch.serve import CaptionService
 
-    cfg = flagship_cfg()
+    cfg = flagship_cfg(**runtime)
     gen = torch.Generator().manual_seed(0)
     tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
     vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
     return CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=32, topN=TOP_N,
-                          beam_size=BEAM)
+                          beam_size=beam_size)
 
 
 @torch.inference_mode()
-def beam_step_tensors(svc):
+def beam_step_tensors(svc, sort=True):
     """The beam path's decode-step tensors for 32 requests: make_contexts,
-    the window sort, _expand_ctxs(k=4), precompute_attention and init_state,
-    then the <bos> step, whose hidden state is step 1's query.  B=32,
-    N*k=512 rows, T=256, Hatt=512, D=500, bf16 compute."""
+    the window sort (unless ``sort`` is false), _expand_ctxs(k=4),
+    precompute_attention and init_state, then the <bos> step, whose hidden
+    state is step 1's query.  B=32, N*k=512 rows, T=256, Hatt=512, D=500,
+    bf16 compute."""
     from echr_tpu_torch.models.beam import _expand_ctxs
     from echr_tpu_torch.models.captioner import make_contexts
     from echr_tpu_torch.models.decoder import (ctxs_soi, init_state, precompute_attention,
@@ -410,7 +580,8 @@ def beam_step_tensors(svc):
     _, nb, (cg, cfg, tap_feats, feats, lda, fm, props) = svc.prepare_chunk(
         requests(32, seed=5), T_BUCKET)
     ctxs = make_contexts(cg, cfg, tap_feats, feats, lda, props, frame_mask=fm)
-    ctxs, _ = sort_ctxs_by_window(ctxs)
+    if sort:
+        ctxs, _ = sort_ctxs_by_window(ctxs)
     bctx = _expand_ctxs(ctxs, BEAM)
     dec = cg.decoder
     pre = precompute_attention(dec, cfg, bctx, bf16)
@@ -452,13 +623,6 @@ def short_windows(t):
     soi = torch.from_numpy(np.stack([s, e], -1).astype(np.int32)).to(t["pre"].device)
     soi = soi.repeat_interleave(BEAM, dim=1).contiguous()
     return {**t, "soi": soi, "mask": segment_window_mask(soi, T).contiguous()}
-
-
-def timed_in_turns(kernel, route):
-    """kernel, route, kernel, route: CUDA-event means of each, in one call."""
-    k1, r1 = cuda_ms(kernel), cuda_ms(route)
-    k2, r2 = cuda_ms(kernel), cuda_ms(route)
-    return (k1, k2), (r1, r2)
 
 
 def _random_windows(rng, B, N, T, max_len):
@@ -520,7 +684,8 @@ def phase_fused(card, t):
         fail(f"kernel 5 ragged: max|d| {rerr:.3e}, or a fully-masked row is not zero")
     worst = max(worst, rerr)
 
-    (k1, k2), (r1, r2) = timed_in_turns(lambda: attention_fused(*args), lambda: kernel1_route(t))
+    turns = in_turns({"kernel": lambda: attention_fused(*args), "route": lambda: kernel1_route(t)})
+    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
     with force_plain():
         plain_ms = cuda_ms(lambda: attention_fused(*args), iters=3, warmup=1)
     # per live (n, t, h): add, tanh, multiply, add in f32; per live (n, t, d): a
@@ -539,8 +704,9 @@ def phase_fused(card, t):
     if not serr <= FUSED_TOL:
         fail(f"kernel 5, short windows: max|d| {serr:.3e} > {FUSED_TOL}")
     record["max_abs_err"] = max(worst, serr)
-    (k1, k2), (r1, r2) = timed_in_turns(lambda: attention_fused(*sargs),
-                                        lambda: kernel1_route(sw))
+    turns = in_turns({"kernel": lambda: attention_fused(*sargs),
+                      "route": lambda: kernel1_route(sw)})
+    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
     record.update(short_windows_ms=(k1 + k2) / 2, short_windows_route_ms=(r1 + r2) / 2)
     print(f"[11] fused step, short windows (mask density {float(sw['mask'].mean()):.3f}): "
           f"max|d| {serr:.3e}; kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, "
@@ -599,8 +765,9 @@ def phase_windowed(card, t):
              torch.tensor([0.25], device=dev), rsoi)
     worst = max(worst, check("ragged", rargs)[0])
 
-    (k1, k2), (r1, r2) = timed_in_turns(lambda: windowed_attention(*args, W=WINDOW),
-                                        lambda: kernel1_route(t))
+    turns = in_turns({"kernel": lambda: windowed_attention(*args, W=WINDOW),
+                      "route": lambda: kernel1_route(t)})
+    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
     with force_plain():
         plain_ms = cuda_ms(lambda: windowed_attention(*args, W=WINDOW), iters=3, warmup=1)
     B, _, H = t["pre"].shape
@@ -616,8 +783,9 @@ def phase_windowed(card, t):
     sargs = args[:5] + (sw["soi"],)
     worst = max(worst, check("short windows", sargs)[0])
     record["max_abs_err"] = worst
-    (k1, k2), (r1, r2) = timed_in_turns(lambda: windowed_attention(*sargs, W=WINDOW),
-                                        lambda: kernel1_route(sw))
+    turns = in_turns({"kernel": lambda: windowed_attention(*sargs, W=WINDOW),
+                      "route": lambda: kernel1_route(sw)})
+    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
     record.update(short_windows_ms=(k1 + k2) / 2, short_windows_route_ms=(r1 + r2) / 2)
     print(f"[12] windowed, short windows: kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route "
           f"{r1:.4f}, {r2:.4f} ms (in turns) [{card}]")
@@ -656,13 +824,14 @@ def phase_beam(card, svc):
     print(f"[13] beam {n_caps / dt:.1f} captions/s, {1000 * dt / 2:.1f} ms per chunk of 32 "
           f"videos x {TOP_N} proposals x {BEAM} beams, peak device memory {peak / 2**30:.2f} GiB, "
           f"bf16 compute [{card}]")
-    beam_profile(card, svc, reqs[:32])
-    return {"attention_scores_masked": launches}
+    profile = beam_profile(card, svc, reqs[:32])
+    return {"attention_scores_masked": launches, "kernel1_profile": profile}
 
 
 def beam_profile(card, svc, chunk):
     """Device kernel time of one chunk's beam decode under torch.profiler,
-    beside its host-clock time."""
+    beside its host-clock time; returns kernel 1's device ms over the chunk
+    and its launches there (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from echr_tpu_torch.engine.steps import beam_decode_step_batched
@@ -684,13 +853,19 @@ def beam_profile(card, svc, chunk):
     dev_us = sum(dev_time(e) for e in events)
     if not dev_us:
         print(f"[13] beam decode profile: device time not measured (no CUDA events) [{card}]")
-        return
+        return None
     top = sorted(events, key=lambda e: -dev_time(e))[:10]
     print(f"[13] beam decode of one chunk under the profiler: wall {1000 * wall:.1f} ms, "
           f"device kernel time {dev_us / 1000:.1f} ms over {steps} steps "
           f"({dev_us / 1000 / steps:.3f} ms a step, busy {dev_us / 1e6 / wall:.3f}) [{card}]")
     for e in top:
         print(f"     {dev_time(e) / 1000:9.2f} ms {e.count:6d}x {e.key[:90]}")
+    k1 = [e for e in events if "masked_scores_kernel" in e.key]
+    k1_ms = sum(dev_time(e) for e in k1) / 1000
+    k1_n = sum(e.count for e in k1)
+    print(f"[13] kernel 1 under the profiler: {k1_ms:.2f} ms of device time over the chunk, "
+          f"{k1_n} launches, {k1_ms / max(k1_n, 1):.4f} ms each [{card}]")
+    return {"device_ms_per_chunk": k1_ms, "launches": k1_n}
 
 
 @torch.inference_mode()
@@ -768,10 +943,11 @@ def phase_scores_dense(card):
             fail(f"kernel 3 {name}: max|d| {err:.3e} > {TOL}")
         worst = max(worst, err)
         if name == "training":
-            ms = cuda_ms(lambda: attention_scores_dense(*args))
+            call = lambda: attention_scores_dense(*args)  # noqa: E731
+            ms = cuda_ms(call)
             with force_plain():
-                plain_ms = cuda_ms(lambda: attention_scores_dense(*args), iters=5)
-            record = {"ms": ms, "plain_ms": plain_ms,
+                plain_ms = cuda_ms(call, iters=5)
+            record = {"ms": ms, "plain_ms": plain_ms, "tanh_needed": B * N * T * H,
                       **bound(nbytes(*args, got), f32=4.0 * B * N * T * H)}
             print(f"[7] dense scores kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
                   f"teacher-forced step, bound {record['bound_ms']:.4f} ms "
@@ -780,57 +956,95 @@ def phase_scores_dense(card):
     return record
 
 
+def _bwd_check(name, args, g):
+    """Kernel 4 through attention_scores_diff against the autograd of the
+    plain forward: d_pre and d_q at atol 2e-4, rtol 1e-4 (the JAX
+    package's gate for its backward kernel); d_w and d_b are each a sum of
+    B*N*T = 524k terms at the training shapes, so they are held to 1e-4 of
+    their largest entry.  Returns the worst d_pre / d_q error."""
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense_plain, attention_scores_diff
+
+    leaves = [a.clone().requires_grad_() for a in args]
+    attention_scores_diff(*leaves).backward(g)
+    got = [x.grad for x in leaves]
+    torch.cuda.synchronize()
+    ref = [a.clone().requires_grad_() for a in args]
+    attention_scores_dense_plain(*ref).backward(g)
+    want = [x.grad for x in ref]
+    worst = 0.0
+    for key, a, b in zip(("d_pre", "d_q", "d_w", "d_b"), got, want):
+        err = float((a - b).abs().max())
+        if key in ("d_pre", "d_q"):
+            ok = bool(((a - b).abs() <= 2e-4 + 1e-4 * b.abs()).all())
+            worst = max(worst, err)
+        else:
+            ok = err <= 1e-4 * float(b.abs().max())
+        print(f"[8] scores backward {name} {key}: max|d| {err:.3e} "
+              f"(max|ref| {float(b.abs().max()):.3e})")
+        if not ok:
+            fail(f"kernel 4 {name} {key} disagrees with the plain autograd")
+    return worst
+
+
+def kernel4_timing(card, name, raws, tag="8"):
+    """Kernel 4 over a list of inputs (pre, q, w, g): two calls
+    bit-identical; ms a call (the mean over the list), and the bound over
+    the nonzero cotangents."""
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd
+
+    pre, q = raws[0][0], raws[0][1]
+    B, T, H = pre.shape
+    N = q.shape[1]
+    call = lambda: [attention_scores_bwd(*raw) for raw in raws]  # noqa: E731
+    first = call()
+    if not all(torch.equal(u, v) for a, b in zip(first, call()) for u, v in zip(a, b)):
+        fail(f"kernel 4 {name}: two calls differ")
+    live = sum(int(raw[3].ne(0).sum()) for raw in raws) / len(raws)
+    n_bytes = sum(nbytes(*raw, *out) for raw, out in zip(raws, first)) / len(raws)
+    # per live (n, t, h): tanh(pre + q) 2, dz = g * w * (1 - y^2) 4, the d_pre,
+    # d_q and d_w sums 4
+    rec = {"B": B, "N": N, "T": T, "H": H, "calls": len(raws), "g_nonzero": live / (B * N * T),
+           "tanh_needed": live * H, **bound(n_bytes, f32=10.0 * live * H)}
+    rec["ms"] = cuda_ms(call) / len(raws)
+    print(f"[{tag}] kernel 4, {name} B={B} N={N} T={T} H={H} (nonzero g {rec['g_nonzero']:.3f}"
+          f"{f', mean of {len(raws)} calls' if len(raws) > 1 else ''}): two calls bit-identical; "
+          f"{rec['ms']:.4f} ms a call, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
+          f"[{card}]")
+    return rec
+
+
 def phase_scores_bwd(card):
-    """Kernel 4 against the autograd of the plain forward.  d_pre and d_q at
-    atol 2e-4, rtol 1e-4 (the JAX package's gate for its backward kernel);
-    d_w and d_b are each a sum of B*N*T = 524k terms at the training shapes,
-    so they are held to 1e-4 of their largest entry."""
+    """Kernel 4 against the autograd of the plain forward (_bwd_check) at
+    the training and ragged shapes with a dense cotangent, and at the
+    training shapes with one that is zero outside sorted windows drawn by
+    _windows_mask (the masked softmax gives exactly that); its time with
+    both."""
     from echr_tpu_torch.ops import force_plain
-    from echr_tpu_torch.ops.kernel_attention import (attention_scores_bwd,
-                                                     attention_scores_dense_plain,
-                                                     attention_scores_diff)
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd
 
     rng = np.random.RandomState(5)
     dev = torch.device("cuda")
-    worst = 0.0
-    for name, (B, N, T, H) in TRAIN_SHAPES.items():
+    worst, record = 0.0, None
+    cases = {name: (shape, False) for name, shape in TRAIN_SHAPES.items()}
+    cases["training, g zero outside windows"] = (TRAIN_SHAPES["training"], True)
+    for name, ((B, N, T, H), windowed) in cases.items():
         args = _score_inputs(rng, B, N, T, H, dev)
         g = _rand(rng, (B, N, T), 1.0, dev)
-        leaves = [a.clone().requires_grad_() for a in args]
-        attention_scores_diff(*leaves).backward(g)
-        got = [x.grad for x in leaves]
-        torch.cuda.synchronize()
-        ref = [a.clone().requires_grad_() for a in args]
-        attention_scores_dense_plain(*ref).backward(g)
-        want = [x.grad for x in ref]
-        for key, a, b in zip(("d_pre", "d_q", "d_w", "d_b"), got, want):
-            err = float((a - b).abs().max())
-            if key in ("d_pre", "d_q"):
-                ok = bool(((a - b).abs() <= 2e-4 + 1e-4 * b.abs()).all())
-                worst = max(worst, err)
-            else:
-                ok = err <= 1e-4 * float(b.abs().max())
-            print(f"[8] scores backward {name} {key}: max|d| {err:.3e} "
-                  f"(max|ref| {float(b.abs().max()):.3e})")
-            if not ok:
-                fail(f"kernel 4 {name} {key} disagrees with the plain autograd")
+        if windowed:
+            g = g * torch.from_numpy(_windows_mask(rng, B, N, T)).to(dev)
+        worst = max(worst, _bwd_check(name, args, g))
         raw = args[:3] + (g,)
-        first = attention_scores_bwd(*raw)
-        second = attention_scores_bwd(*raw)
-        if not all(torch.equal(x, y) for x, y in zip(first, second)):
-            fail(f"kernel 4 {name}: two calls differ")
-        print(f"[8] scores backward {name}: two calls bit-identical")
-        if name == "training":
-            ms = cuda_ms(lambda: attention_scores_bwd(*raw))
+        rec = kernel4_timing(card, name, [raw])
+        if name == "ragged":
+            continue
+        if record is None:
             with force_plain():
-                plain_ms = cuda_ms(lambda: attention_scores_bwd(*raw), iters=5)
-            # per (n, t, h): tanh(pre + q) 2, dz = g * w * (1 - y^2) 4, the d_pre,
-            # d_q and d_w sums 4
-            record = {"ms": ms, "plain_ms": plain_ms,
-                      **bound(nbytes(*raw, *first), f32=10.0 * B * N * T * H)}
-            print(f"[8] scores backward kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
-                  f"teacher-forced step, bound {record['bound_ms']:.4f} ms "
-                  f"({record['bound_by']}) [{card}]")
+                rec["plain_ms"] = cuda_ms(lambda: attention_scores_bwd(*raw), iters=5)
+            print(f"[8] scores backward plain version {rec['plain_ms']:.4f} ms per "
+                  f"teacher-forced step [{card}]")
+            record = rec
+        else:
+            record["windowed_g"] = rec
     record["max_abs_err"] = worst
     return record
 
@@ -898,7 +1112,37 @@ def phase_train(card):
           f"{ {k: round(v, 4) for k, v in out['losses'].items()} }")
     print(f"[9] training {1000 * dt:.1f} ms/step, {TRAIN_B / dt:.2f} videos/s over steps 2-"
           f"{TRAIN_STEPS}, peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    return launches
+    raws = training_cotangents(out)
+    share = sum(int(r[3].ne(0).sum()) for r in raws) / sum(r[3].numel() for r in raws)
+    print(f"[9] one more step of {TRAIN_B} videos: kernel 4 saw {len(raws)} cotangents, "
+          f"{share:.4f} of their entries nonzero")
+    return launches, kernel4_timing(card, "the training step's own cotangents", raws, tag="9")
+
+
+def training_cotangents(out):
+    """One more gradient step of train()'s state ``out`` on a batch of the
+    training data, with a wrapper on kernel 4 that keeps the inputs of
+    each of its calls: [(pre, q, w, g), ...]."""
+    from echr_tpu_torch.data.batcher import make_batch
+    from echr_tpu_torch.data.dataset import build_dataset
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.engine.train import _collate
+    from echr_tpu_torch.ops import kernel_attention
+
+    cfg = out["config"]
+    ds = build_dataset(cfg)
+    ix = ds.split_ix["train"][:TRAIN_B]
+    batch = steps.batch_to_device(_collate([
+        make_batch(ds.get_example(i), cfg, np.random.RandomState(i), w1=ds.w1)[0] for i in ix]),
+        "cuda")
+    raws = []
+
+    def keep(*args):
+        raws.append(tuple(x.detach().clone() for x in args))
+    gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed + 2)
+    with wrapped(kernel_attention, "attention_scores_bwd", keep):
+        steps.grad_step(out["state"], batch, gen, cfg, "tap_cg")
+    return raws
 
 
 def phase_train_parity():
@@ -1134,30 +1378,59 @@ def phase_probe_overlap(card):
     counts = {"probe_scores": probe_scores.launches,
               "probe_scores_plus_dot": probe_scores_plus_dot.launches}
     _check_calls(17, run, counts)
+    n_tanh = run["B"] * run["N"] * run["T"] * run["H"]
     for name, rec in records.items():
-        rec.update(launches=counts[name], max_abs_err=worst[name],
+        rec.update(launches=counts[name], max_abs_err=worst[name], tanh_needed=n_tanh,
                    probe_ms_per_step={str(kd): row for kd, row in run["ms_per_step"].items()})
         print(f"[17] {name} {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.4f} ms a call, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); launches {counts[name]} [{card}]")
+    kd = min(run["ms_per_step"])
+    tanh_per_ms = n_tanh / run["ms_per_step"][kd]["S0"]
     rows = {kd: {k: round(v, 4) for k, v in row.items()} for kd, row in run["ms_per_step"].items()}
+    print(f"[17] S0 evaluates {tanh_per_ms / 1e6:.1f} M tanh a ms (KD={kd}): the rate of the "
+          f"tanh-rate floors of the tanhf kernels 3, 9 and 10 [{card}]")
     print(f"[17] kernel 10's product warps alone "
           f"{records['probe_scores_plus_dot']['product_only_ms']:.4f} ms a call; probe ms/step "
           f"{rows} [{card}]")
-    return records
+    return records, tanh_per_ms
+
+
+def add_tanh_floor(rec, tanh_per_ms, rate_of):
+    """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
+    of the kernel's own tanh (``rate_of`` names where it was measured), in
+    rec and every record nested in it."""
+    if "tanh_needed" in rec:
+        rec.update(tanh_floor_ms=rec["tanh_needed"] / tanh_per_ms, tanh_floor_rate_of=rate_of)
+    for v in rec.values():
+        if isinstance(v, dict):
+            add_tanh_floor(v, tanh_per_ms, rate_of)
 
 
 def main():
     card = phase_device()
     scores = phase_scores(card)
     head = phase_head(card)
-    launches, tap, cg, vocab = phase_slice(card)
+    launches, tap, cg, vocab, greedy_args = phase_slice(card)
+    k1_inputs = {"phase2_synthetic": {k: v for k, v in scores.items()
+                                      if k not in ("max_abs_err", "tanh_max_abs_err", "plain_ms",
+                                                   "all_live_ms", "tanh_per_ms")}}
+    k1_inputs["greedy_slice"] = kernel1_timing(card, "one greedy step of phase 4", greedy_args)
+    del greedy_args
     phase_parity(tap, cg, vocab)
     dense = phase_scores_dense(card)
     bwd = phase_scores_bwd(card)
-    launches.update(phase_train(card))
+    train_launches, bwd["training_g"] = phase_train(card)
+    launches.update(train_launches)
     phase_train_parity()
-    svc = beam_service()
+    svc = caption_service()
     step = beam_step_tensors(svc)
+    keys = ("pre", "q", "w", "b", "mask")
+    k1_inputs["beam_step"] = kernel1_timing(card, "the beam path's step tensors",
+                                            tuple(step[k] for k in keys))
+    sw = short_windows(step)
+    k1_inputs["beam_step_short_windows"] = kernel1_timing(
+        card, "the beam path's step tensors, short windows", tuple(sw[k] for k in keys))
+    del sw
     fused = phase_fused(card, step)
     windowed = phase_windowed(card, step)
     del step
@@ -1166,7 +1439,19 @@ def main():
     phase_beam_parity(tap, cg, vocab)
     probe_head = phase_probe_head(card)
     probe_sweep = phase_probe_sweep(card)
-    overlap = phase_probe_overlap(card)
+    overlap, s0_tanh_per_ms = phase_probe_overlap(card)
+    scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
+    for rec in (scores, bwd):
+        add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
+    for rec in (dense, *overlap.values()):
+        add_tanh_floor(rec, s0_tanh_per_ms, "probe S0, tanhf (phase 17)")
+    for name, rec in k1_inputs.items():
+        print(f"[6] kernel 1, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
+              f"{rec['tanh_floor_ms']:.4f} ms, live-work bound {rec['bound_ms']:.4f} ms [{card}]")
+    for name, rec in (("dense g", bwd), ("windowed g", bwd["windowed_g"]),
+                      ("the training step's g", bwd["training_g"])):
+        print(f"[8] kernel 4, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
+              f"{rec['tanh_floor_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms [{card}]")
     k1_paths = {"greedy": launches["attention_scores_masked"],
                 "beam": beam_launches["attention_scores_masked"]}
     kernels = [

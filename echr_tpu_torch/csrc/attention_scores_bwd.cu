@@ -8,7 +8,7 @@
 // Replaces the Pallas TPU kernel echr_tpu/ops/pallas_attention.py::_bwd_kernel
 // (pallas_call at :344), the custom VJP of the training scores.  Like it, this
 // recomputes y tile by tile, so the [B, N, T, H] tanh never reaches device
-// memory.  Bound on an H100 by the throughput of the accurate tanhf and the
+// memory.  Bound on an H100 by the throughput of its tanh and the
 // FMAs around it: B*N*T*H = 268M tanh per teacher-forced step at training
 // dims (B=32, N=64, T=256, H=512), plus ~7 FMA-class operations each, against
 // 21 MB of gradients out.
@@ -24,8 +24,22 @@
 //   * a second kernel sums both partials in a fixed order.
 // No float atomics: two runs give identical bits.  Ragged N, T and H are
 // masked in the block (zero g and w contribute nothing).  Built without fast
-// math: tanhf is the accurate one.
+// math; the tanh is echr_tanh (tanh.cuh).
+//
+// Zero cotangents are skipped.  On the training path g comes through the
+// masked softmax, so g == 0 exactly wherever the window mask is 0, and such
+// an (n, t) adds +-0 to d_pre, d_q and d_w.  Each warp loads the 16 x 8
+// entries of g at its own frames (ty + WARPS * k) and ballots them, which
+// gives one byte of liveness per proposal.  An (n, t) is uniform across the
+// warp's lanes (they are hidden units), so a zero g skips its tanh and FMAs
+// without divergence.  A warp whose 16 x 8 entries are all live runs the
+// dense loop with no test at all, and a pass whose whole 16 x 64 tile of g
+// is zero computes nothing and writes zero d_q partials.  Frames stay
+// interleaved over the warps, so a short window still spreads over all
+// eight.  The outputs are those of the dense loop up to the sign of zeros.
 #include <cuda_runtime.h>
+
+#include "tanh.cuh"
 
 namespace {
 
@@ -35,14 +49,31 @@ constexpr int NT = 16;               // proposals staged per pass
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int FPT = BT / WARPS;      // frames per thread: ty + WARPS * k
+static_assert(FPT == 8 && NT % 4 == 0, "a ballot of g covers 4 proposals x 8 frames");
+
+// One (n, t) term at this thread's hidden unit: y = tanh(pre + q),
+// dz = g w (1 - y^2) into d_pre and d_q, g y into d_w.
+__device__ __forceinline__ void bwd_term(float gv, float pv, float qv, float wv, float& dp,
+                                         float& dq, float& dw) {
+  const float y = echr_tanh(pv + qv);
+  const float gw = gv * wv;
+  const float dz = fmaf(-gw * y, y, gw);  // g w (1 - y^2)
+  dp += dz;
+  dq += dz;
+  dw = fmaf(gv, y, dw);
+}
 
 __global__ void __launch_bounds__(THREADS)
 scores_bwd_kernel(const float* __restrict__ pre, const float* __restrict__ q,
                   const float* __restrict__ w, const float* __restrict__ g,
                   float* __restrict__ d_pre, float* __restrict__ dq_part,
                   float* __restrict__ dw_part, int N, int T, int H) {
-  __shared__ float g_s[NT][BT];         // read as a warp-wide broadcast
-  __shared__ float q_s[NT][BH];         // lane-indexed
+  // each warp's own cotangents: g_s[ty][i * FPT + k] = g[n0 + i, t0 + ty + WARPS * k],
+  // byte i of live_s[ty] has bit k set where that entry is nonzero, and
+  // q_s[ty][i][lane] = q[n0 + i, h] (a copy per warp: no block barrier)
+  __shared__ float g_s[WARPS][NT * FPT];
+  __shared__ unsigned live_s[WARPS][NT * FPT / 32];
+  __shared__ float q_s[WARPS][NT][BH];
   __shared__ float red_s[WARPS][NT][BH];
   __shared__ float dw_s[WARPS][BH];
 
@@ -71,31 +102,62 @@ scores_bwd_kernel(const float* __restrict__ pre, const float* __restrict__ q,
   float dw = 0.f;
 
   for (int n0 = 0; n0 < N; n0 += NT) {
-    for (int i = threadIdx.x; i < NT * BT; i += THREADS) {
-      const int r = i / BT, c = i % BT;
-      const int n = n0 + r, t = t0 + c;
-      g_s[r][c] = (n < N && t < T) ? gb[(size_t)n * T + t] : 0.f;
-    }
-    for (int i = threadIdx.x; i < NT * BH; i += THREADS) {
-      const int r = i / BH, c = i % BH;
-      const int n = n0 + r, hh = h0 + c;
-      q_s[r][c] = (n < N && hh < H) ? qb[(size_t)n * H + hh] : 0.f;
-    }
-    __syncthreads();
-    for (int i = 0; i < NT; ++i) {
-      const float qv = q_s[i][lane];
-      float dq = 0.f;
+    // lane l holds entry (i, k) = (4 r + l / 8, l % 8) in gr[r]; the ballot of
+    // gr[r] != 0 is then the live bytes of rows 4 r .. 4 r + 3
+    constexpr int R = NT * FPT / 32;
+    float gr[R];
+    unsigned lv[R];
+    unsigned any = 0;
 #pragma unroll
-      for (int k = 0; k < FPT; ++k) {
-        const float gv = g_s[i][ty + WARPS * k];
-        const float y = tanhf(p[k] + qv);
-        const float gw = gv * wv;
-        const float dz = fmaf(-gw * y, y, gw);  // g w (1 - y^2)
-        dp[k] += dz;
-        dq += dz;
-        dw = fmaf(gv, y, dw);
+    for (int r = 0; r < R; ++r) {
+      const int n = n0 + 4 * r + (lane >> 3), t = t0 + ty + WARPS * (lane & 7);
+      gr[r] = (n < N && t < T) ? gb[(size_t)n * T + t] : 0.f;
+      lv[r] = __ballot_sync(0xffffffffu, gr[r] != 0.f);
+      any |= lv[r];
+    }
+    if (!__syncthreads_or(any != 0u)) {
+      // a zero tile of g: no d_pre or d_w term, and zero d_q partials
+      for (int j = threadIdx.x; j < NT * BH; j += THREADS) {
+        const int n = n0 + j / BH, hh = h0 + j % BH;
+        if (n < N && hh < H) dq_part[(((size_t)b * n_tiles + tile) * N + n) * H + hh] = 0.f;
       }
-      red_s[ty][i][lane] = dq;
+      continue;
+    }
+    unsigned all = 0xffffffffu;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      g_s[ty][32 * r + lane] = gr[r];
+      if (lane == 0) live_s[ty][r] = lv[r];
+      all &= lv[r];
+    }
+    if (any) {
+      for (int i = 0; i < NT; ++i)
+        q_s[ty][i][lane] = (hv && n0 + i < N) ? qb[(size_t)(n0 + i) * H + h] : 0.f;
+    }
+    __syncwarp();
+    if (all == 0xffffffffu) {  // every entry of this warp's frames is live
+      for (int i = 0; i < NT; ++i) {
+        const float qv = q_s[ty][i][lane];
+        const float* gi = g_s[ty] + i * FPT;
+        float dq = 0.f;
+#pragma unroll
+        for (int k = 0; k < FPT; ++k) bwd_term(gi[k], p[k], qv, wv, dp[k], dq, dw);
+        red_s[ty][i][lane] = dq;
+      }
+    } else {
+      const unsigned char* live_i = reinterpret_cast<const unsigned char*>(live_s[ty]);
+      for (int i = 0; i < NT; ++i) {
+        const unsigned live = live_i[i];
+        float dq = 0.f;
+        if (live) {
+          const float qv = q_s[ty][i][lane];
+          const float* gi = g_s[ty] + i * FPT;
+#pragma unroll
+          for (int k = 0; k < FPT; ++k)
+            if ((live >> k) & 1u) bwd_term(gi[k], p[k], qv, wv, dp[k], dq, dw);
+        }
+        red_s[ty][i][lane] = dq;
+      }
     }
     __syncthreads();
     // d_q over this block's frames: the 8 warps' sums in a fixed order
@@ -107,7 +169,7 @@ scores_bwd_kernel(const float* __restrict__ pre, const float* __restrict__ q,
       for (int k = 0; k < WARPS; ++k) s += red_s[k][i][c];
       if (n < N && hh < H) dq_part[(((size_t)b * n_tiles + tile) * N + n) * H + hh] = s;
     }
-    // the next pass writes red_s only after its staging __syncthreads
+    // the next pass writes red_s only after its __syncthreads_or
   }
 
 #pragma unroll

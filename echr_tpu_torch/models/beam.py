@@ -113,7 +113,7 @@ def beam_search_batched(dec: Decoder, cfg: Config, ctxs: Contexts, beam_size: in
 
     Under ``decoder.sort_gate`` the proposals are sorted by window start
     first (before the k-fold expansion, so a proposal's copies stay
-    adjacent and kernel 1's tiles stay skippable) and the results are
+    adjacent and share kernel 1's row pairs) and the results are
     un-permuted at the end: every op is per proposal, so this is exact.
     Bucket-padding proposals (prop_mask 0) come back as zeros.  Every
     decode step (the <bos> step included) adds one to

@@ -324,7 +324,9 @@ def sort_gate(cfg: Config, ctxs: Contexts) -> bool:
 
 def sort_ctxs_by_window(ctxs: Contexts) -> Tuple[Contexts, torch.Tensor]:
     """Permute each video's proposal rows by window start, so that the score
-    kernel sees clustered windows and skips whole tiles.  Every decoder op
+    kernel sees clustered windows: neighbouring rows share their live
+    frames, and a block whose frames no row sees stages nothing.  The
+    kernel is exact without the sort.  Every decoder op
     is independent across rows, so un-permuting the outputs with the
     returned inverse [B, N] gives exactly the unsorted results."""
     m = ctxs.clip_mask

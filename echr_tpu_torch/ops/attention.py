@@ -9,7 +9,8 @@ decode.  The routes for the scores, as in the reference:
     dtype; with ``remat`` (training) under torch.utils.checkpoint, so the
     backward recomputes the tanh instead of saving it (1.07 GB per
     teacher-forced step at B=32, N=64, T=256, Hatt=512);
-  * kernel, no grad (decode): kernel 1, f32, fully-masked tiles skipped;
+  * kernel, no grad (decode): kernel 1, f32, the tanh evaluated only
+    where the window mask is 1;
   * kernel with ``remat`` (training): attention_scores_diff, f32, kernel 3
     forward and kernel 4 backward;
   * kernel with ``fused``, no grad, bf16 compute: the whole step in kernel

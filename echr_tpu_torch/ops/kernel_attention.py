@@ -11,32 +11,38 @@ echr_tpu/ops/pallas_attention.py::_kernel_skip (pallas_call at :153, via
 attention_scores_masked :179 and tile_any_mask :170), which launched per
 video under vmap on (8, 128) tiles.
 
-What bounds it on an H100: the throughput of the accurate tanhf, not
-bytes.  At serving dims (B=32, N=128, T=256, H=512) a step needs
-B*N*T*H = 537M tanh before any skipping, against ~4 MB of scores out.
-The design: one block per (video, 16-proposal tile, 32-frame tile)
-stages the tile's q rows and pre rows in shared memory, chunked over H,
-and each thread reduces over H for two outputs.  A block first ORs its
-tile of the window mask; with no 1 in it, it writes zeros and computes
-no tanh.  Proposals sorted by window start (decoder.sort_ctxs_by_window)
-make most tiles empty.  Any N, T and H are taken: the block masks its
-own ragged edges.
+What bounds it on an H100: the throughput of its tanh, not bytes.  At
+serving dims (B=32, N=128, T=256, H=512) a step needs B*N*T*H = 537M tanh
+before the mask, against ~4 MB of scores out.  The design evaluates the
+tanh only at the (n, t) where mask != 0: lanes run over hidden units, so
+a (row, frame) pair is uniform across a warp; a warp ballots the mask of
+a row pair over 32 frames and walks only the live frames, with both
+rows' q in registers and the frames' pre rows in shared memory.  Its work
+follows the live pairs whatever the order of the rows.  Its tanh is
+csrc/tanh.cuh's, 7 instructions against tanhf's 15, within 2.4e-7 of
+float64.  Any N, T and H are taken: the block masks its own ragged edges.
 
 Exactness: equal to the plain version wherever mask == 1 (the sum over H
-runs in another order); masked entries are zero or the score, and the
-caller's masked softmax never reads them.
+runs in another order); masked entries are zero, and the caller's masked
+softmax never reads them.
 
 Kernels 3 and 4 are the training scores, one ``torch.autograd.Function``
 (``attention_scores_diff``).  Kernel 3, ``attention_scores_dense``
-(csrc/attention_scores.cu, kernel 1's device code with every tile live),
-is the forward and replaces echr_tpu/ops/pallas_attention.py::_kernel
-(pallas_call at :52).  Kernel 4, ``attention_scores_bwd``
-(csrc/attention_scores_bwd.cu), is the backward and replaces ::_bwd_kernel
-(pallas_call at :344): it recomputes the tanh per tile, so the
-[B, N, T, H] intermediate is never stored, and it sums across blocks in a
-fixed order, so two runs give identical bits.  Both are bound by tanh
-throughput: 268M tanh per teacher-forced step at training dims
-(B=32, N=64, T=256, H=512).  The route (kernel or plain) is decided in the
+(csrc/attention_scores.cu, a tiled kernel of its own that computes every
+(n, t)), is the forward and replaces
+echr_tpu/ops/pallas_attention.py::_kernel (pallas_call at :52).  Kernel
+4, ``attention_scores_bwd`` (csrc/attention_scores_bwd.cu), is the
+backward and replaces ::_bwd_kernel (pallas_call at :344): it recomputes
+the tanh per tile, so the [B, N, T, H] intermediate is never stored, and
+it sums across blocks in a fixed order, so two runs give identical bits.
+It skips every (n, t) whose cotangent is 0, which on the training path
+is every (n, t) outside the window mask (the masked softmax passes no
+gradient there); a skipped term is exactly +-0, so the sums are those
+of the dense loop up to the sign of zeros.  It takes kernel 1's tanh
+(csrc/tanh.cuh).
+Kernels 3 and 4 are bound by tanh throughput: 268M tanh per
+teacher-forced step at training dims (B=32, N=64, T=256, H=512) before
+the mask.  The route (kernel or plain) is decided in the
 forward and kept for the backward, which autograd may run on another
 thread.
 """
@@ -65,6 +71,20 @@ def attention_scores_masked(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     plain version; CUDA tensors launch the kernel."""
     if use_plain(pre):
         return attention_scores_plain(pre, q, w, b, mask)
+    out = masked_scores_on(native.library(), pre, q, w, b, mask)
+    if out.numel():
+        attention_scores_masked.launches += 1
+    return out
+
+
+attention_scores_masked.launches = 0
+
+
+def masked_scores_on(lib, pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Kernel 1 through ``lib``: native.library(), or another build of its
+    C entry point (experiments/probe_tanh.py, kernel_turns.py).  The
+    arguments are checked; the launch is not counted."""
     B, T, H = pre.shape
     N = q.shape[1]
     f32, dev = torch.float32, pre.device
@@ -76,15 +96,11 @@ def attention_scores_masked(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     out = torch.empty(B, N, T, device=dev, dtype=f32)
     if out.numel() == 0:
         return out
-    rc = native.library().echr_attention_scores(
+    rc = lib.echr_attention_scores(
         pre.data_ptr(), q.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
         out.data_ptr(), B, N, T, H, torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "echr_attention_scores")
-    attention_scores_masked.launches += 1
     return out
-
-
-attention_scores_masked.launches = 0
 
 
 def attention_scores_dense_plain(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
@@ -147,6 +163,18 @@ def attention_scores_bwd(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     CUDA tensors launch the kernel."""
     if use_plain(pre):
         return attention_scores_bwd_plain(pre, q, w, g)
+    grads = scores_bwd_on(native.library(), pre, q, w, g)
+    if min(g.shape) and pre.shape[2]:
+        attention_scores_bwd.launches += 1
+    return grads
+
+
+attention_scores_bwd.launches = 0
+
+
+def scores_bwd_on(lib, pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
+                  g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 4 through ``lib``, as masked_scores_on: checked, not counted."""
     fn = "attention_scores_bwd"
     B, T, H = pre.shape
     N = q.shape[1]
@@ -163,16 +191,12 @@ def attention_scores_bwd(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     tiles = -(-T // _BWD_TILE_T)
     dq_part = torch.empty(B, tiles, N, H, device=dev, dtype=f32)
     dw_part = torch.empty(B * tiles, H, device=dev, dtype=f32)
-    rc = native.library().echr_attention_scores_bwd(
+    rc = lib.echr_attention_scores_bwd(
         pre.data_ptr(), q.data_ptr(), w.data_ptr(), g.data_ptr(), d_pre.data_ptr(),
         d_q.data_ptr(), d_w.data_ptr(), dq_part.data_ptr(), dw_part.data_ptr(),
         B, N, T, H, torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "echr_attention_scores_bwd")
-    attention_scores_bwd.launches += 1
     return d_pre, d_q, d_w
-
-
-attention_scores_bwd.launches = 0
 
 
 class _ScoresDiff(torch.autograd.Function):

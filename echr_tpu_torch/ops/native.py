@@ -9,7 +9,9 @@ pointer and the stream are ``c_void_p``, every size ``c_int``, and each
 entry point returns ``cudaGetLastError()`` after its launches.
 
 No fast-math flag: the kernels' tanhf, expf and logf are the accurate
-ones (an approximate tanh changes greedy tokens).
+ones (an approximate tanh changes greedy tokens).  Kernels 1 and 4 take
+their tanh from csrc/tanh.cuh, held within 2.4e-7 of float64 (2 ulp of
+1.0).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -64,30 +66,29 @@ def _nvcc() -> str:
                        "echr_tpu_torch/csrc at first use and need the CUDA toolkit")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def _digest() -> str:
+def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same hash exists: one nvcc
-    per source in parallel, then one link."""
+def build(cu: Optional[List[Path]] = None) -> Path:
+    """Compile ``cu`` (default: csrc/*.cu; another list builds another
+    version of the same entry points) unless a library of the same hash
+    exists: one nvcc per source in parallel, then one link.  The hash
+    covers the flags and the headers beside the sources."""
     global build_log
-    so = BUILD_DIR / f"libechr_kernels_{_digest()}.so"
+    cu = sorted(CSRC.glob("*.cu")) if cu is None else [Path(c) for c in cu]
+    headers = sorted({h for c in cu for h in c.parent.glob("*.cuh")})
+    so = BUILD_DIR / f"libechr_kernels_{_digest(cu + headers)}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        cu = sorted(CSRC.glob("*.cu"))
         objs = [work / (src.stem + ".o") for src in cu]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -114,16 +115,22 @@ def build() -> Path:
     return so
 
 
+def load(so: Path) -> ctypes.CDLL:
+    """Load a library built by ``build`` and declare the entry points it has."""
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 

@@ -38,8 +38,13 @@ def _sorted_windows(r, N, T, lo=4, hi=48):
     return ((t >= soi[:, :1]) & (t < soi[:, 1:])).astype(np.float32)
 
 
-@pytest.mark.parametrize("N,T,H", [(16, 128, 128), (24, 256, 128)])
-def test_scores_plain_matches_pallas_masked(N, T, H):
+@pytest.mark.parametrize("N,T,H,k", [
+    pytest.param(16, 128, 128, 1, id="16-128-128"),
+    pytest.param(24, 256, 128, 1, id="24-256-128"),
+    # beam-shaped: 8 proposals' long windows, each repeated for its k = 4 beams
+    pytest.param(32, 256, 128, 4, id="32-256-128-beam4"),
+])
+def test_scores_plain_matches_pallas_masked(N, T, H, k):
     """The plain version equals pallas_attention.attention_scores_masked (the
     tile-skipping Pallas kernel, interpret mode) wherever mask == 1."""
     r = np.random.RandomState(N + T)
@@ -48,7 +53,12 @@ def test_scores_plain_matches_pallas_masked(N, T, H):
     q = (r.randn(B, N, H) * 0.5).astype(np.float32)
     w = (r.randn(H) * 0.1).astype(np.float32)
     b = np.array([0.3], np.float32)
-    mask = np.stack([_sorted_windows(r, N, T) for _ in range(B)])
+    if k == 1:
+        mask = np.stack([_sorted_windows(r, N, T) for _ in range(B)])
+    else:
+        mask = np.stack([np.repeat(_sorted_windows(r, N // k, T, 40, 200), k, axis=0)
+                         for _ in range(B)])
+        assert 0.2 < mask.mean() < 0.8 and np.array_equal(mask[:, ::k], mask[:, k - 1::k])
     assert pallas_attention.supported(jnp.asarray(pre[0]), jnp.asarray(q[0]))
     got = attention_scores_masked(*(torch.from_numpy(x) for x in (pre, q, w, b, mask)))
     for i in range(B):
@@ -57,6 +67,71 @@ def test_scores_plain_matches_pallas_masked(N, T, H):
             {"w": jnp.asarray(w[:, None]), "b": jnp.asarray(b)}, jnp.asarray(mask[i]))
         m = mask[i] > 0
         np.testing.assert_allclose(got[i].numpy()[m], np.asarray(want)[m], atol=TOL, rtol=0)
+
+
+def test_kernel1_tanh_counts():
+    """chip_smoke's count of kernel 1's tanh, modelled from the mask, equals
+    a count made pair by pair and tile by tile: live pairs x H needed; live
+    pairs x H padded to the kernel's chunk by this design's rule; every
+    live 16 x 32 tile x H by the earlier tiled design."""
+    import chip_smoke
+
+    r = np.random.RandomState(7)
+    B, N, T = 2, 37, 70
+    mask = np.stack([_sorted_windows(r, N, T, 2, 30) for _ in range(B)])
+    mask[1, 5, 40:44] = 0.0  # a hole
+    blocks = [(b, n0, t0) for b in range(B) for n0 in range(0, N, 16) for t0 in range(0, T, 32)]
+    tiles = sum(bool(mask[b, n0:n0 + 16, t0:t0 + 32].any()) for b, n0, t0 in blocks)
+    live = int((mask != 0).sum())
+    for H, chunk in ((100, 128), (200, 256), (500, 512), (700, 1024)):
+        got = chip_smoke.kernel1_tanh(torch.from_numpy(mask), H)
+        assert got == {"tanh_needed": live * H, "tanh_modelled": live * chunk,
+                       "tanh_modelled_tiled": tiles * 16 * 32 * H}
+
+
+@pytest.mark.parametrize("kernel", ["masked_scores_on", "scores_bwd_on"])
+def test_launch_through_a_library_raises_on_cpu(kernel):
+    """The launch helpers behind kernels 1 and 4 (the wrappers call them
+    with native.library(); comparisons with another build) take CUDA
+    tensors only: on the CPU they raise before reaching the library, and
+    the wrappers' launch counts do not move."""
+    from echr_tpu_torch.ops import kernel_attention as ka
+
+    r = np.random.RandomState(3)
+    B, N, T, H = 2, 5, 9, 16
+    pre, q = torch.randn(B, T, H), torch.randn(B, N, H)
+    w, b = torch.randn(H), torch.zeros(1)
+    mask = torch.from_numpy((r.rand(B, N, T) > 0.5).astype(np.float32))
+    args = (pre, q, w, b, mask) if kernel == "masked_scores_on" else (pre, q, w, mask)
+    before = (ka.attention_scores_masked.launches, ka.attention_scores_bwd.launches)
+    with pytest.raises(ValueError, match="is on cpu"):
+        getattr(ka, kernel)(None, *args)
+    assert (ka.attention_scores_masked.launches, ka.attention_scores_bwd.launches) == before
+
+
+def test_shuffle_proposals_keeps_beams_together():
+    """kernel_turns.shuffle_proposals permutes each video's proposals as
+    blocks of k rows: q and mask rows move together, every row appears
+    once, and the mask's live pairs stay the same."""
+    import kernel_turns
+
+    r = np.random.RandomState(11)
+    B, P, k, T, H = 3, 6, 4, 20, 8
+    q = torch.from_numpy(r.randn(B, P * k, H).astype(np.float32))
+    mask = torch.from_numpy(np.repeat(_sorted_windows(r, P, T, 2, 9)[None], B, 0)
+                            .repeat(k, axis=1))
+    pre, w, b = torch.zeros(B, T, H), torch.zeros(H), torch.zeros(1)
+    out = kernel_turns.shuffle_proposals((pre, q, w, b, mask), k=k, seed=1)
+    assert out[0] is pre and out[2] is w and out[3] is b
+    q2, m2 = out[1], out[4]
+    assert int(m2.sum()) == int(mask.sum())
+    for i in range(B):
+        rows = [int(np.where((q[i] == q2[i, j]).all(1).numpy())[0][0]) for j in range(P * k)]
+        assert sorted(rows) == list(range(P * k))
+        blocks = np.array(rows).reshape(P, k)
+        assert (blocks == blocks[:, :1] + np.arange(k)).all() and (blocks[:, 0] % k == 0).all()
+        assert torch.equal(m2[i], mask[i, rows])
+    assert not torch.equal(q2, q)
 
 
 def _head_weights(r, C, V1, dtype):

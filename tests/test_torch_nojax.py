@@ -78,12 +78,12 @@ def test_init_uniform_bounds():
 
 def test_port_sources_stay_off_jax_and_library_kernels():
     """No module of the port imports jax, echr_tpu or the JAX probes under
-    experiments/, or calls a library kernel; chip_smoke.py imports none of
-    the three."""
+    experiments/, or calls a library kernel; chip_smoke.py and
+    kernel_turns.py import none of the three."""
     banned = re.compile(r"scaled_dot_product_attention|torch\.compile|flash_attn|xformers")
     sources = [p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts]
     assert len(sources) >= 25
-    for path in sources + [REPO / "chip_smoke.py"]:
+    for path in sources + [REPO / "chip_smoke.py", REPO / "kernel_turns.py"]:
         text = path.read_text()
         assert not FOREIGN_IMPORT.search(text), path
         assert path.name == "chip_smoke.py" or not banned.search(text), path

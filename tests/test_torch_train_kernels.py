@@ -47,10 +47,22 @@ def _port_grads(pre, q, w, b, ct):
     return s.detach().numpy(), [t.grad.numpy() for t in ts]
 
 
-@pytest.mark.parametrize("B,N,T,H", [(1, 8, 128, 128),  # one Pallas block
-                                     (3, 24, 256, 128)])  # several blocks, vmapped
-def test_scores_diff_matches_pallas(B, N, T, H):
+@pytest.mark.parametrize("B,N,T,H,windowed", [
+    pytest.param(1, 8, 128, 128, False, id="1-8-128-128"),  # one Pallas block
+    pytest.param(3, 24, 256, 128, False, id="3-24-256-128"),  # several blocks, vmapped
+    # the cotangent the masked softmax gives: exactly 0 outside sorted windows,
+    # the entries kernel 4 skips
+    pytest.param(3, 24, 256, 128, True, id="3-24-256-128-windowed"),
+])
+def test_scores_diff_matches_pallas(B, N, T, H, windowed):
     pre, q, w, b, ct = _inputs(B + N, B, N, T, H)
+    if windowed:
+        r = np.random.RandomState(B + N + T)
+        starts = np.sort(r.randint(0, T - 8, size=(B, N)), axis=1)
+        ends = np.minimum(starts + r.randint(4, 48, size=(B, N)), T)
+        t = np.arange(T)
+        ct = ct * ((t >= starts[..., None]) & (t < ends[..., None]))
+        assert 0.0 < (ct != 0).mean() < 0.2
     assert pallas_attention.supported(jnp.asarray(pre[0]), jnp.asarray(q[0]),
                                       differentiable=True)
 
