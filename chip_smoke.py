@@ -5,9 +5,9 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-kernel_turns.py times kernels 1 and 4 beside another build of their
-sources (a parent commit's) in turns; this script times this checkout's
-kernels alone.
+kernel_turns.py times kernels 1-4 beside another build of their sources
+(a parent commit's) in turns; this script times this checkout's kernels
+alone.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -22,7 +22,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      swept over [-10, 10] and small |x| against float64 (max abs error at
      most 2.4e-7, 2 ulp of 1.0);
   3. kernel 2 (streaming greedy head) against its plain version at the
-     serving shapes in bf16 and f32, ragged shapes, and exact ties;
+     serving shapes in bf16 and f32, ragged shapes (a width that is not a
+     multiple of 8 included: w padded once, out per call), and exact ties
+     within a tile, across tiles of one vocab split and across splits;
   4. the greedy slice: CaptionService at the flagship width (vocab 6000,
      30 steps) from the port's seeded init captions 64 requests of 256 x
      500 C3D features (two chunks of 32 videos, top-128 proposals: 4096
@@ -32,6 +34,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      and logps within 5e-4;
   6. times: kernel against plain version (CUDA events after warm-up) and
      the slice's captions/s, each beside the card's name and power limit;
+     kernel 2 in turns with the bare bf16 torch.matmul over the same out
+     and w, unpadded and with the vocab padded to a multiple of 8 (a
+     yardstick, not the head's function), and its host time a call;
      kernel 1 at four inputs, phase 2's synthetic windows, one greedy
      step's tensors of phase 4 and (after phase 10) the beam path's step
      tensors with their own and with short windows, each held against
@@ -39,8 +44,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      design evaluates there over the tanh the mask needs (modelled from
      the mask), and at the end the tanh-rate floor (live tanh over the
      all-live rate of phase 2);
-  7. kernel 3 (differentiable scores, forward) against its plain version
-     at the training shapes and ragged shapes;
+  7. kernel 3 (differentiable scores, forward, window-masked) against its
+     plain version wherever mask == 1, masked entries exactly 0: at the
+     training shapes with every entry live and with phase 2-style windows
+     of 4-47 frames in random order, and at a ragged shape; its time at
+     the first two beside its live-work bound;
   8. kernel 4 (their backward) against the autograd of the plain forward at
      the same shapes with a dense cotangent and with one that is zero
      outside sorted windows (N=64), and two calls bit-identical; its time
@@ -50,9 +58,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      tap_cg, vocab 6000, bf16, dropout on, seeded): 1 warm-up and 5 timed
      steps; finite losses, moved parameters, and kernel 3 and 4 launches
      equal to the teacher-forced steps run; time/step, videos/s and peak
-     memory; then one more step with a counting wrapper on kernel 4:
-     the share of nonzero cotangent entries it saw, and its time on the
-     step's own cotangents;
+     memory; then one more step with wrappers that keep kernels 3 and 4's
+     inputs: the density of the step's 29 window masks and the share of
+     nonzero cotangent entries, each kernel held against its plain version
+     and timed on the step's own inputs;
   10. training parity: at f32 with TF32 off and dropout off, one step's
      loss and gradients with the kernels and under force_plain() agree;
   11. kernel 5 (the fused attention step) through
@@ -197,11 +206,14 @@ def phase_device():
     return card
 
 
-def _windows_mask(rng, B, N, T):
-    """Sorted proposal windows drawn as bench.py draws them -> [B, N, T]."""
+def _windows_mask(rng, B, N, T, shuffle=False):
+    """Sorted proposal windows drawn as bench.py draws them -> [B, N, T];
+    with ``shuffle`` each video's windows in random order."""
     masks = np.zeros((B, N, T), np.float32)
     for b in range(B):
         starts = np.sort(rng.randint(0, T - 8, size=N))
+        if shuffle:
+            starts = rng.permutation(starts)
         lens = rng.randint(4, 48, size=N)
         ends = np.minimum(starts + lens, T)
         t = np.arange(T)[None, :]
@@ -252,27 +264,40 @@ def kernel1_check(name, args, want=None):
     """Kernel 1 on args (pre, q, w, b, mask) against its plain version
     (or ``want``): within TOL wherever mask == 1, masked entries 0.
     Returns (max |d| where mask == 1, the kernel's output)."""
-    from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
 
-    got = attention_scores_masked(*args)
+    return masked_check(1, attention_scores_masked, name, args, want)
+
+
+def kernel3_check(name, args):
+    """Kernel 3 on args (pre, q, w, b, mask), as kernel1_check: its plain
+    version computes the scores everywhere, the kernel only at mask == 1."""
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense
+
+    return masked_check(3, attention_scores_dense, name, args)
+
+
+def masked_check(k, fn, name, args, want=None):
+    from echr_tpu_torch.ops import force_plain
+
+    got = fn(*args)
     torch.cuda.synchronize()
     if want is None:
         with force_plain():
-            want = attention_scores_masked(*args)
+            want = fn(*args)
     m = args[4] > 0
     err = float((got - want).abs()[m].max()) if bool(m.any()) else 0.0
     if bool(got[~m].ne(0).any()):
-        fail(f"kernel 1 {name}: a masked entry is not 0")
+        fail(f"kernel {k} {name}: a masked entry is not 0")
     if not err <= TOL:
-        fail(f"kernel 1 {name}: max|d| {err:.3e} > {TOL}")
+        fail(f"kernel {k} {name}: max|d| {err:.3e} > {TOL}")
     return err, got
 
 
 def phase_scores(card):
     """Kernel 1 at every SCORE_CASES mask; at the serving shape also with
     every entry live, whose time gives the rate of its tanh (the floor of
-    kernels 1 and 4); then the tanh sweep."""
+    kernels 1, 3 and 4); then the tanh sweep."""
     from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
 
@@ -299,7 +324,7 @@ def phase_scores(card):
         record.update(all_live_ms=all_live_ms, tanh_per_ms=B * N * T * H / all_live_ms)
         print(f"[2] scores serving, every entry live: max|d| {err:.3e}; {all_live_ms:.4f} ms, "
               f"{record['tanh_per_ms'] / 1e6:.1f} M tanh a ms: the rate of the tanh-rate floors "
-              f"of kernels 1 and 4 [{card}]")
+              f"of kernels 1, 3 and 4 [{card}]")
     record["max_abs_err"] = worst
     record["tanh_max_abs_err"] = tanh_sweep()
     return record
@@ -362,25 +387,48 @@ def kernel1_timing(card, name, args):
     return rec
 
 
+def host_us(fn, calls=50):
+    """Host time a call of fn() (the enqueue, without a synchronise), in
+    microseconds, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def head_inputs(rng, R, C, V1, dtype, dev):
+    """(out f32 [R, C], w [V1, C] in ``dtype``, b f32 [V1]); bf16 w padded
+    to a multiple of 8 columns as prepare_head pads it."""
+    from echr_tpu_torch.ops.kernel_head import pad_head_width
+
+    out = torch.from_numpy(np.tanh(rng.randn(R, C)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.uniform(-0.1, 0.1, (V1, C)).astype(np.float32))
+    b = torch.from_numpy((rng.randn(V1) * 0.1).astype(np.float32)).to(dev)
+    w = w.to(dev).to(dtype)
+    if dtype == torch.bfloat16:
+        w = pad_head_width(w)
+    return out, w.contiguous(), b
+
+
 def phase_head(card):
     from echr_tpu_torch.ops import force_plain
-    from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.ops.kernel_head import greedy_head, split_plan
 
     rng = np.random.RandomState(1)
     dev = torch.device("cuda")
-
-    def inputs(R, C, V1, dtype):
-        out = torch.from_numpy(np.tanh(rng.randn(R, C)).astype(np.float32)).to(dev)
-        w = torch.from_numpy(rng.uniform(-0.1, 0.1, (V1, C)).astype(np.float32))
-        b = torch.from_numpy((rng.randn(V1) * 0.1).astype(np.float32)).to(dev)
-        return out, w.to(dev).to(dtype).contiguous(), b
 
     def compare(name, args):
         tok, mx, lse = outs = greedy_head(*args)
         torch.cuda.synchronize()
         with force_plain():
             ptok, pmx, plse = greedy_head(*args)
-            logits = torch.matmul(args[0].to(args[1].dtype).float(), args[1].float().t()) + args[2]
+            C = args[0].shape[1]
+            logits = torch.matmul(args[0].to(args[1].dtype).float(),
+                                  args[1][:, :C].float().t()) + args[2]
         top2 = torch.topk(logits, 2, dim=1).values
         clear = (top2[:, 0] - top2[:, 1]) > 1e-3
         bad = int((tok != ptok)[clear].sum())
@@ -391,6 +439,7 @@ def phase_head(card):
             fail(f"kernel 2 {name} disagrees with its plain version")
         return err, outs
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for name, (R, C, V1, dtype) in {
         "serving_bf16": (4096, 1536, 6001, torch.bfloat16),
@@ -400,33 +449,63 @@ def phase_head(card):
         "ragged_f32": (77, 36, 130, torch.float32),
         "ragged_unaligned_f32": (33, 30, 70, torch.float32),
     }.items():
-        args = inputs(R, C, V1, dtype)
+        args = head_inputs(rng, R, C, V1, dtype, dev)
         err, outs = compare(name, args)
         worst = max(worst, err)
         if name == "serving_bf16":
-            ms = cuda_ms(lambda: greedy_head(*args))
-            with force_plain():
-                plain_ms = cuda_ms(lambda: greedy_head(*args), iters=10)
-            record = {"ms": ms, "plain_ms": plain_ms,
-                      **bound(nbytes(*args, *outs), bf16=2.0 * R * C * V1)}
-            print(f"[6] head kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per decode step "
-                  f"(R={R} C={C} V1={V1} bf16, {2 * R * C * V1 / ms / 1e9:.1f} TFLOP/s), bound "
-                  f"{record['bound_ms']:.4f} ms ({record['bound_by']}) [{card}]")
+            record = head_timing(card, args, outs, split_plan(R, V1, sms, dtype))
 
-    # exact ties from integer-valued sums: within a tile, across tiles and
-    # across vocab splits the first index wins
+    # exact ties from integer-valued sums: columns 3 and 11 in one thread's
+    # columns of the first tile, 5 in another thread's, 300 in the second
+    # tile, 1031 and 2000 in later ones.  At 64 rows every tile is a vocab
+    # split of its own; at 4096 rows (4 splits in bf16, 8 in f32) 300 shares
+    # a split with the first tile in bf16.  The first index wins.
     C, V1 = 16, 2048
     w = torch.zeros(V1, C)
-    for col in (3, 5, 1031, 2000):
+    for col in (3, 5, 11, 300, 1031, 2000):
         w[col] = 1.0
-    out = torch.ones(64, C, device=dev)
-    for dtype in (torch.bfloat16, torch.float32):
-        tok, mx, _ = greedy_head(out, w.to(dev).to(dtype).contiguous(),
-                                 torch.zeros(V1, device=dev))
-        if not (bool((tok == 3).all()) and bool((mx == C).all())):
-            fail(f"kernel 2 tie ({dtype}): tokens {tok.unique().tolist()}")
-    print("[3] head ties: the first index wins (bf16, f32)")
+    for R in (64, 4096):
+        for dtype in (torch.bfloat16, torch.float32):
+            tok, mx, _ = greedy_head(torch.ones(R, C, device=dev),
+                                     w.to(dev).to(dtype).contiguous(),
+                                     torch.zeros(V1, device=dev))
+            if not (bool((tok == 3).all()) and bool((mx == C).all())):
+                fail(f"kernel 2 tie (R={R}, {dtype}): tokens {tok.unique().tolist()}")
+    print("[3] head ties: the first index wins (bf16, f32; within a tile, across tiles and "
+          "across splits)")
     record["max_abs_err"] = worst
+    return record
+
+
+def head_timing(card, args, outs, plan):
+    """Kernel 2 on bf16 core outputs (the cast is not timed) in turns with
+    the bare bf16 product over the same out and w, unpadded and with the
+    vocab padded to a multiple of 8; its plain version; its host time a
+    call (the tensor maps are encoded per call)."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    out, w, b = args
+    R, C = out.shape
+    V1 = w.shape[0]
+    a = out.to(torch.bfloat16)
+    w8 = torch.nn.functional.pad(w, (0, 0, 0, -V1 % 8))
+    turns = in_turns({"kernel": lambda: greedy_head(a, w, b),
+                      "matmul": lambda: torch.matmul(a, w.t()),
+                      "matmul_vocab_pad8": lambda: torch.matmul(a, w8.t())})
+    mean = {k: sum(v) / 2 for k, v in turns.items()}
+    with force_plain():
+        plain_ms = cuda_ms(lambda: greedy_head(a, w, b), iters=10)
+    record = {"ms": mean["kernel"], "plain_ms": plain_ms, "turns_ms": turns,
+              "matmul_ms": mean["matmul"], "matmul_vocab_pad8_ms": mean["matmul_vocab_pad8"],
+              "host_us_per_call": host_us(lambda: greedy_head(a, w, b)),
+              "tiles_per_split": plan[0], "splits": plan[1],
+              **bound(nbytes(a, w, b, *outs), bf16=2.0 * R * C * V1)}
+    print(f"[6] head kernel " + ", ".join(f"{k} {x:.4f} / {y:.4f}" for k, (x, y) in turns.items())
+          + f" ms in turns (R={R} C={C} V1={V1} bf16, {plan[1]} splits of {plan[0]} tiles; "
+          f"kernel {2 * R * C * V1 / record['ms'] / 1e9:.1f} TFLOP/s); plain {plain_ms:.4f} ms; "
+          f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}); host "
+          f"{record['host_us_per_call']:.1f} us a call [{card}]")
     return record
 
 
@@ -924,35 +1003,71 @@ def _score_inputs(rng, B, N, T, H, dev):
 TRAIN_SHAPES = {"training": (TRAIN_B, TRAIN_N, T_BUCKET, 512), "ragged": (3, 60, 200, 500)}
 
 
+def kernel3_timing(card, name, raws, tag="7"):
+    """Kernel 3 over a list of inputs (pre, q, w, b, mask), each held
+    against its plain version where mask == 1 (kernel3_check): ms a call
+    (the mean over the list), its bound over the live (n, t) and the tanh
+    they need."""
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense
+
+    pre, q = raws[0][0], raws[0][1]
+    B, T, H = pre.shape
+    N = q.shape[1]
+    outs, err = [], 0.0
+    for raw in raws:
+        e, out = kernel3_check(name, raw)
+        err = max(err, e)
+        outs.append(out)
+    live = sum(int(raw[4].ne(0).sum()) for raw in raws) / len(raws)
+    n_bytes = sum(nbytes(*raw, out) for raw, out in zip(raws, outs)) / len(raws)
+    del outs
+    # per live (n, t, h): add, tanh, multiply, add
+    rec = {"B": B, "N": N, "T": T, "H": H, "calls": len(raws), "density": live / (B * N * T),
+           "max_abs_err": err, "tanh_needed": live * H, **bound(n_bytes, f32=4.0 * live * H)}
+    rec["ms"] = cuda_ms(lambda: [attention_scores_dense(*raw) for raw in raws]) / len(raws)
+    print(f"[{tag}] kernel 3, {name} B={B} N={N} T={T} H={H} (density {rec['density']:.4f}"
+          f"{f', mean of {len(raws)} calls' if len(raws) > 1 else ''}): max|d| where mask==1 "
+          f"{err:.3e}, masked entries 0; {rec['ms']:.4f} ms a call, live-work bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
+    return rec
+
+
+def kernel3_inputs(rng, dev):
+    """Phase 7's inputs (pre, q, w, b, mask): the training shapes with every
+    entry live and with windows of 4-47 frames in random order (one draw
+    of pre, q, w), and a ragged shape with unsorted windows of 1-120."""
+    B, N, T, H = TRAIN_SHAPES["training"]
+    args = _score_inputs(rng, B, N, T, H, dev)
+    windows = torch.from_numpy(_windows_mask(rng, B, N, T, shuffle=True)).to(dev)
+    Br, Nr, Tr, Hr = TRAIN_SHAPES["ragged"]
+    ragged = _score_inputs(rng, Br, Nr, Tr, Hr, dev)
+    rmask = torch.from_numpy(_case_mask(rng, "unsorted", Br, Nr, Tr)).to(dev)
+    return {"all_live": args + (torch.ones(B, N, T, device=dev),),
+            "windows": args + (windows,), "ragged": ragged + (rmask,)}
+
+
 def phase_scores_dense(card):
+    """Kernel 3 against its plain version where mask == 1, masked entries
+    exactly 0 (kernel3_inputs); its time with every entry live (the
+    no-regression case) and at the windows."""
     from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention import attention_scores_dense
 
-    rng = np.random.RandomState(4)
-    dev = torch.device("cuda")
-    worst = 0.0
-    for name, (B, N, T, H) in TRAIN_SHAPES.items():
-        args = _score_inputs(rng, B, N, T, H, dev)
-        got = attention_scores_dense(*args)
-        torch.cuda.synchronize()
-        with force_plain():
-            want = attention_scores_dense(*args)
-        err = float((got - want).abs().max())
-        print(f"[7] dense scores {name} B={B} N={N} T={T} H={H}: max|d| {err:.3e}")
-        if not err <= TOL:
-            fail(f"kernel 3 {name}: max|d| {err:.3e} > {TOL}")
-        worst = max(worst, err)
-        if name == "training":
-            call = lambda: attention_scores_dense(*args)  # noqa: E731
-            ms = cuda_ms(call)
-            with force_plain():
-                plain_ms = cuda_ms(call, iters=5)
-            record = {"ms": ms, "plain_ms": plain_ms, "tanh_needed": B * N * T * H,
-                      **bound(nbytes(*args, got), f32=4.0 * B * N * T * H)}
-            print(f"[7] dense scores kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
-                  f"teacher-forced step, bound {record['bound_ms']:.4f} ms "
-                  f"({record['bound_by']}) [{card}]")
-    record["max_abs_err"] = worst
+    inputs = kernel3_inputs(np.random.RandomState(4), torch.device("cuda"))
+    err, _ = kernel3_check("ragged", inputs["ragged"])
+    (B, T, H), N = inputs["ragged"][0].shape, inputs["ragged"][1].shape[1]
+    print(f"[7] kernel 3, ragged B={B} N={N} T={T} H={H}, unsorted windows (density "
+          f"{float(inputs['ragged'][4].mean()):.3f}): max|d| where mask==1 {err:.3e}, masked "
+          f"entries 0")
+    record = kernel3_timing(card, "training shapes, every entry live", [inputs["all_live"]])
+    with force_plain():
+        record["plain_ms"] = cuda_ms(lambda: attention_scores_dense(*inputs["all_live"]),
+                                     iters=5)
+    print(f"[7] kernel 3 plain version {record['plain_ms']:.4f} ms per teacher-forced step "
+          f"[{card}]")
+    record["windows"] = kernel3_timing(card, "training shapes, windows of 4-47 frames in "
+                                       "random order", [inputs["windows"]])
+    record["max_abs_err"] = max(err, record["max_abs_err"], record["windows"]["max_abs_err"])
     return record
 
 
@@ -965,7 +1080,8 @@ def _bwd_check(name, args, g):
     from echr_tpu_torch.ops.kernel_attention import attention_scores_dense_plain, attention_scores_diff
 
     leaves = [a.clone().requires_grad_() for a in args]
-    attention_scores_diff(*leaves).backward(g)
+    # every entry live: the forward's masked entries are not under test here
+    attention_scores_diff(*leaves, torch.ones_like(g)).backward(g)
     got = [x.grad for x in leaves]
     torch.cuda.synchronize()
     ref = [a.clone().requires_grad_() for a in args]
@@ -1112,17 +1228,21 @@ def phase_train(card):
           f"{ {k: round(v, 4) for k, v in out['losses'].items()} }")
     print(f"[9] training {1000 * dt:.1f} ms/step, {TRAIN_B / dt:.2f} videos/s over steps 2-"
           f"{TRAIN_STEPS}, peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    raws = training_cotangents(out)
+    fwd, raws = training_step_inputs(out)
+    density = sum(int(r[4].ne(0).sum()) for r in fwd) / sum(r[4].numel() for r in fwd)
     share = sum(int(r[3].ne(0).sum()) for r in raws) / sum(r[3].numel() for r in raws)
-    print(f"[9] one more step of {TRAIN_B} videos: kernel 4 saw {len(raws)} cotangents, "
+    print(f"[9] one more step of {TRAIN_B} videos: kernel 3 saw {len(fwd)} window masks, "
+          f"{density:.4f} of their entries live; kernel 4 saw {len(raws)} cotangents, "
           f"{share:.4f} of their entries nonzero")
-    return launches, kernel4_timing(card, "the training step's own cotangents", raws, tag="9")
+    return (launches, kernel3_timing(card, "the training step's own masks", fwd, tag="9"),
+            kernel4_timing(card, "the training step's own cotangents", raws, tag="9"))
 
 
-def training_cotangents(out):
+def training_step_inputs(out):
     """One more gradient step of train()'s state ``out`` on a batch of the
-    training data, with a wrapper on kernel 4 that keeps the inputs of
-    each of its calls: [(pre, q, w, g), ...]."""
+    training data, with wrappers on kernels 3 and 4 that keep the inputs
+    of each of their calls: ([(pre, q, w, b, mask), ...],
+    [(pre, q, w, g), ...])."""
     from echr_tpu_torch.data.batcher import make_batch
     from echr_tpu_torch.data.dataset import build_dataset
     from echr_tpu_torch.engine import steps
@@ -1135,14 +1255,17 @@ def training_cotangents(out):
     batch = steps.batch_to_device(_collate([
         make_batch(ds.get_example(i), cfg, np.random.RandomState(i), w1=ds.w1)[0] for i in ix]),
         "cuda")
-    raws = []
+    fwd, bwd = [], []
 
-    def keep(*args):
-        raws.append(tuple(x.detach().clone() for x in args))
+    def keeper(kept):
+        def keep(*args):
+            kept.append(tuple(x.detach().clone() for x in args))
+        return keep
     gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed + 2)
-    with wrapped(kernel_attention, "attention_scores_bwd", keep):
+    with wrapped(kernel_attention, "attention_scores_dense", keeper(fwd)), \
+            wrapped(kernel_attention, "attention_scores_bwd", keeper(bwd)):
         steps.grad_step(out["state"], batch, gen, cfg, "tap_cg")
-    return raws
+    return fwd, bwd
 
 
 def phase_train_parity():
@@ -1388,7 +1511,7 @@ def phase_probe_overlap(card):
     tanh_per_ms = n_tanh / run["ms_per_step"][kd]["S0"]
     rows = {kd: {k: round(v, 4) for k, v in row.items()} for kd, row in run["ms_per_step"].items()}
     print(f"[17] S0 evaluates {tanh_per_ms / 1e6:.1f} M tanh a ms (KD={kd}): the rate of the "
-          f"tanh-rate floors of the tanhf kernels 3, 9 and 10 [{card}]")
+          f"tanh-rate floors of the tanhf kernels 9 and 10 [{card}]")
     print(f"[17] kernel 10's product warps alone "
           f"{records['probe_scores_plus_dot']['product_only_ms']:.4f} ms a call; probe ms/step "
           f"{rows} [{card}]")
@@ -1419,7 +1542,7 @@ def main():
     phase_parity(tap, cg, vocab)
     dense = phase_scores_dense(card)
     bwd = phase_scores_bwd(card)
-    train_launches, bwd["training_g"] = phase_train(card)
+    train_launches, dense["training_masks"], bwd["training_g"] = phase_train(card)
     launches.update(train_launches)
     phase_train_parity()
     svc = caption_service()
@@ -1441,12 +1564,17 @@ def main():
     probe_sweep = phase_probe_sweep(card)
     overlap, s0_tanh_per_ms = phase_probe_overlap(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
-    for rec in (scores, bwd):
+    for rec in (scores, dense, bwd):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
-    for rec in (dense, *overlap.values()):
+    for rec in overlap.values():
         add_tanh_floor(rec, s0_tanh_per_ms, "probe S0, tanhf (phase 17)")
     for name, rec in k1_inputs.items():
         print(f"[6] kernel 1, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
+              f"{rec['tanh_floor_ms']:.4f} ms, live-work bound {rec['bound_ms']:.4f} ms [{card}]")
+    for name, rec in (("every entry live", dense), ("windows in random order",
+                                                    dense["windows"]),
+                      ("the training step's masks", dense["training_masks"])):
+        print(f"[7] kernel 3, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
               f"{rec['tanh_floor_ms']:.4f} ms, live-work bound {rec['bound_ms']:.4f} ms [{card}]")
     for name, rec in (("dense g", bwd), ("windowed g", bwd["windowed_g"]),
                       ("the training step's g", bwd["training_g"])):

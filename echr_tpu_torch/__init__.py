@@ -11,7 +11,7 @@ port is held against (tests/test_torch_*.py).  Module names mirror
                 kernel_probe_scores: 9 and 10) with their build (native) and
                 plain PyTorch versions
   experiments/ — the Pallas probes' counterparts, which drive kernels 7-10,
-                and probe_tanh (the tanh of kernels 1 and 4 against tanhf)
+                and probe_tanh (the tanh of kernels 1, 3 and 4 against tanhf)
   models/     — SST, TSRM, contexts, captioner, three_stream decoder, init
   engine/     — the batched encode / select / decode / beam steps, the
                 training step, the XE training loop (train) and the host

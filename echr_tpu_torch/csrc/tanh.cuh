@@ -1,5 +1,5 @@
-// The tanh of kernels 1 and 4 (csrc/attention_scores.cu masked_scores_kernel,
-// csrc/attention_scores_bwd.cu); kernel 3 calls tanhf itself.
+// The tanh of kernels 1, 3 and 4 (csrc/attention_scores.cu
+// masked_scores_kernel, csrc/attention_scores_bwd.cu).
 //
 // tanh |x| = (1 - e) / (1 + e) with e = 2^(-2 |x| log2 e), and the sign of x:
 // 7 instructions, two of them on the special-function unit (ex2, rcp).  CUDA's

@@ -12,7 +12,8 @@ decode.  The routes for the scores, as in the reference:
   * kernel, no grad (decode): kernel 1, f32, the tanh evaluated only
     where the window mask is 1;
   * kernel with ``remat`` (training): attention_scores_diff, f32, kernel 3
-    forward and kernel 4 backward;
+    forward (the tanh only where the window mask is 1, as kernel 1) and
+    kernel 4 backward;
   * kernel with ``fused``, no grad, bf16 compute: the whole step in kernel
     5 (ops/kernel_attention_step.attention_fused), which returns no
     weights.  As in the reference, no decoder passes ``fused``; an f32
@@ -84,7 +85,8 @@ def additive_attention_step(
                                feats.contiguous()), None
     if use_kernel and remat:
         scores = attention_scores_diff(pre_att.contiguous(), att_h.contiguous(),
-                                       alpha.weight.reshape(-1), alpha.bias)
+                                       alpha.weight.reshape(-1), alpha.bias,
+                                       frame_mask.contiguous())
     elif use_kernel:
         scores = attention_scores_masked(pre_att.contiguous(), att_h.contiguous(),
                                          alpha.weight.reshape(-1), alpha.bias,

@@ -8,10 +8,12 @@ flags, so a changed source rebuilds.  It is loaded with ctypes: every
 pointer and the stream are ``c_void_p``, every size ``c_int``, and each
 entry point returns ``cudaGetLastError()`` after its launches.
 
-No fast-math flag: the kernels' tanhf, expf and logf are the accurate
-ones (an approximate tanh changes greedy tokens).  Kernels 1 and 4 take
-their tanh from csrc/tanh.cuh, held within 2.4e-7 of float64 (2 ulp of
-1.0).
+No fast-math flag: the kernels' tanhf, expf, exp2f and logf are the
+accurate ones (an approximate tanh changes greedy tokens).  Kernels 1, 3
+and 4 take their tanh from csrc/tanh.cuh, held within 2.4e-7 of float64
+(2 ulp of 1.0).  Kernel 2's bf16 path finds the CUDA driver library's
+cuTensorMapEncodeTiled through the runtime (cudaGetDriverEntryPoint), so
+the library needs no -lcuda.
 """
 from __future__ import annotations
 
@@ -35,12 +37,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # pre, q, w, b, mask, out, B, N, T, H, stream
     "echr_attention_scores": [_P] * 6 + [_I] * 4 + [_P],
-    # pre, q, w, b, out, B, N, T, H, stream
-    "echr_attention_scores_dense": [_P] * 5 + [_I] * 4 + [_P],
+    # pre, q, w, b, mask, out, B, N, T, H, stream
+    "echr_attention_scores_dense": [_P] * 6 + [_I] * 4 + [_P],
     # pre, q, w, g, d_pre, d_q, d_w, dq_part, dw_part, B, N, T, H, stream
     "echr_attention_scores_bwd": [_P] * 9 + [_I] * 4 + [_P],
-    # out, w, b, bf16, R, C, V1, splits, part_m, part_l, part_a, tok, mx, lse, stream
-    "echr_greedy_head": [_P, _P, _P] + [_I] * 5 + [_P] * 6 + [_P],
+    # out, w, b, bf16, R, C, V1, tiles_per_split, splits, part_m, part_l, part_a, tok,
+    # mx, lse, stream
+    "echr_greedy_head": [_P, _P, _P] + [_I] * 6 + [_P] * 6 + [_P],
     # pre, q, w, b, mask, feats, out, B, N, T, H, D, stream
     "echr_attention_fused": [_P] * 7 + [_I] * 5 + [_P],
     # pre, feats, q, w, b, soi, out, B, N, T, H, D, stream

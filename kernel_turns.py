@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time kernels 1 and 4 of this checkout beside another build of their
-sources, in turns on one NVIDIA GPU; and kernel 1 on the decode paths'
+"""Time kernels 1-4 of this checkout beside another build of their
+sources, in turns on one NVIDIA GPU; and kernels 1 and 3 on the paths'
 masks with the proposals sorted by window start and unsorted.
 
     python3 kernel_turns.py [--earlier CSRC]
 
 The builds, each a library with the same C entry points: "this", the
 package's own (echr_tpu_torch/csrc), and with --earlier "earlier", every
-*.cu of CSRC, for example a parent commit's kernel sources unpacked into
-a gitignored directory:
+*.cu of CSRC built from the sources before kernels 2 and 3 were
+redesigned, whose entry points of those two take the arguments of
+EARLIER_SIGNATURES (kernel 3 no mask, kernel 2 its own vocab split), for
+example the parent commit's kernel sources unpacked into a gitignored
+directory:
 
     mkdir -p echr_tpu_torch/_build/parent
     git archive HEAD~1 echr_tpu_torch/csrc | tar -x -C echr_tpu_torch/_build/parent
@@ -17,17 +20,24 @@ a gitignored directory:
 Kernel 1 runs at chip_smoke.py's four inputs (phase 2's synthetic
 windows, one greedy step, the beam step, the beam step with short
 windows), kernel 4 at three (a dense cotangent, one zero outside windows,
-the cotangents of one training step after two).  Every build is held
-against the plain version (kernel 1 within 5e-4 where mask == 1; kernel 4
-within phase 8's gates), then all are timed in turns: each build in
-order, then in reverse (CUDA events).  Last, kernel 1 of this build on the
+the cotangents of one training step after two), kernel 3 at three
+(phase 7's every entry live and windows in random order, and the window
+masks of that training step), kernel 2 at the serving shapes in bf16
+(R=4096, C=1536, V1=6001; also its host time a call).  Every build is
+held against the plain version (kernels 1 and 3 within 5e-4 where
+mask == 1; kernel 4 within phase 8's gates; kernel 2 within phase 3's),
+then all are timed in turns: each build in order, then in reverse (CUDA
+events).  Last, kernel 1 of this build on the
 greedy and the beam step with runtime.sort_decode_props on (as the decode
 paths run) and off, and on the short windows sorted and with the
-proposals shuffled (shuffle_proposals), in turns.  The last line is a
+proposals shuffled (shuffle_proposals), and kernel 3 of this build on
+the training step's masks as sampled and sorted by window start
+(sort_windows; training does not sort), in turns.  The last line is a
 JSON record of every time; each time printed stands beside the card's
 name and power limit.
 """
 import argparse
+import ctypes
 import json
 from pathlib import Path
 
@@ -35,6 +45,16 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the earlier build's entry points of kernels 3 and 2 (the sources of
+# commit b009248), which native.load would declare with this build's
+EARLIER_SIGNATURES = {
+    # pre, q, w, b, out, B, N, T, H, stream
+    "echr_attention_scores_dense": [_P] * 5 + [_I] * 4 + [_P],
+    # out, w, b, bf16, R, C, V1, splits, part_m, part_l, part_a, tok, mx, lse, stream
+    "echr_greedy_head": [_P] * 3 + [_I] * 5 + [_P] * 6 + [_P],
+}
 
 
 def builds(earlier):
@@ -46,9 +66,53 @@ def builds(earlier):
         cu = sorted(Path(earlier).glob("*.cu"))
         if not cu:
             cs.fail(f"no *.cu in {earlier}")
-        libs["earlier"] = native.load(native.build(cu))
+        lib = native.load(native.build(cu))
+        for name, argtypes in EARLIER_SIGNATURES.items():
+            getattr(lib, name).argtypes = argtypes
+        libs["earlier"] = lib
     libs["this"] = native.library()
     return libs
+
+
+def dense_on(build, lib, pre, q, w, b, mask):
+    """Kernel 3 of a build: this build's through kernel_attention, the
+    earlier one (scores everywhere) without the mask."""
+    from echr_tpu_torch.ops import native
+    from echr_tpu_torch.ops.kernel_attention import dense_scores_on
+
+    if build != "earlier":
+        return dense_scores_on(lib, pre, q, w, b, mask)
+    B, T, H = pre.shape
+    N = q.shape[1]
+    out = torch.empty(B, N, T, device=pre.device)
+    native.check(lib.echr_attention_scores_dense(
+        pre.data_ptr(), q.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, T, H,
+        torch.cuda.current_stream().cuda_stream), "earlier echr_attention_scores_dense")
+    return out
+
+
+def head_of(build, lib, a, w, b):
+    """Kernel 2 of a build on bf16 rows a: this build's through
+    kernel_head, the earlier one with its own rule for the vocab splits
+    (as many as bring the grid to two blocks an SM)."""
+    from echr_tpu_torch.ops import native
+    from echr_tpu_torch.ops.kernel_head import head_on
+
+    if build != "earlier":
+        return head_on(lib, a, w, b)
+    R, C = a.shape
+    V1 = w.shape[0]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits = max(1, -(-2 * sms // -(-R // 128)))
+    part = [torch.empty(splits, R, device=a.device, dtype=dt)
+            for dt in (torch.float32, torch.float32, torch.int32)]
+    tok = torch.empty(R, device=a.device, dtype=torch.int32)
+    mx, lse = torch.empty(R, device=a.device), torch.empty(R, device=a.device)
+    native.check(lib.echr_greedy_head(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(), 1, R, C, V1, splits,
+        *(t.data_ptr() for t in part), tok.data_ptr(), mx.data_ptr(), lse.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "earlier echr_greedy_head")
+    return tok, mx, lse
 
 
 def turns_of(card, what, calls):
@@ -119,34 +183,110 @@ def kernel4_builds(card, name, raws, libs):
 
 
 @torch.inference_mode()
-def sort_turns(card, name, sorted_args, unsorted_args):
-    """Kernel 1 (this build) on a step's tensors with the window sort and
-    without: both held against the plain version, the same live pairs,
-    timed in turns."""
-    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+def kernel3_builds(card, name, raws, libs):
+    """Every build of kernel 3 over raws [(pre, q, w, b, mask), ...]
+    against the plain version where mask == 1, then timed in turns (ms a
+    call)."""
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense_plain
 
-    live = [int(a[4].ne(0).sum()) for a in (sorted_args, unsorted_args)]
+    errs = {b: 0.0 for b in libs}
+    for raw in raws:
+        want = attention_scores_dense_plain(*raw[:4])
+        m = raw[4] > 0
+        for b, lib in libs.items():
+            errs[b] = max(errs[b], float((dense_on(b, lib, *raw) - want).abs()[m].max()))
+            if not errs[b] <= cs.TOL:
+                cs.fail(f"kernel 3 {name}, build {b}: max|d| {errs[b]:.3e} > {cs.TOL}")
+        del want
+    density = sum(int(r[4].ne(0).sum()) for r in raws) / sum(r[4].numel() for r in raws)
+    print(f"[k3] {name}: {len(raws)} call(s), density {density:.4f}; max|d| where mask==1 "
+          + ", ".join(f"{b} {e:.3e}" for b, e in errs.items()))
+    calls = {b: (lambda b=b, lib=lib: [dense_on(b, lib, *raw) for raw in raws])
+             for b, lib in libs.items()}
+    turns = {b: [t / len(raws) for t in ts]
+             for b, ts in turns_of(card, f"kernel 3, {name} (ms for all calls)", calls).items()}
+    return {"density": density, "calls": len(raws), "max_abs_err": errs, "turns_ms": turns}
+
+
+@torch.inference_mode()
+def kernel2_builds(card, libs):
+    """Every build of kernel 2 at the serving shapes in bf16 against the
+    plain version (phase 3's gates), then timed in turns; and each build's
+    host time a call."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    dev = torch.device("cuda")
+    out, w, b = cs.head_inputs(np.random.RandomState(1), 4096, 1536, 6001, torch.bfloat16, dev)
+    a = out.to(torch.bfloat16)
+    with force_plain():
+        ptok, pmx, plse = greedy_head(a, w, b)
+        top2 = torch.topk(torch.matmul(a.float(), w.float().t()) + b, 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    errs = {}
+    for name, lib in libs.items():
+        tok, mx, lse = head_of(name, lib, a, w, b)
+        bad = int((tok != ptok)[clear].sum())
+        errs[name] = max(float((mx - pmx).abs().max()), float((lse - plse).abs().max()))
+        if bad or not errs[name] <= cs.TOL:
+            cs.fail(f"kernel 2, build {name}: {bad} token mismatches, max|d| {errs[name]:.3e}")
+    print(f"[k2] R=4096 C=1536 V1=6001 bf16: tokens equal on the {int(clear.sum())} rows with "
+          f"top-2 gap > 1e-3; max|d| max/lse " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    calls = {k: (lambda k=k, lib=lib: head_of(k, lib, a, w, b)) for k, lib in libs.items()}
+    turns = turns_of(card, "kernel 2, R=4096 C=1536 V1=6001 bf16", calls)
+    host = {k: cs.host_us(fn) for k, fn in calls.items()}
+    print("  kernel 2 host time a call: " + ", ".join(f"{k} {u:.1f} us" for k, u in host.items())
+          + f" [{card}]")
+    return {"max_abs_err": errs, "turns_ms": turns, "host_us_per_call": host}
+
+
+@torch.inference_mode()
+def sort_turns(card, name, sorted_args, unsorted_args, kernel=1):
+    """Kernel 1 or 3 (this build) on a step's tensors, lists of (pre, q,
+    w, b, mask), with the proposals sorted by window start and without:
+    both held against the plain version, the same live pairs, timed in
+    turns (ms a call)."""
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense, attention_scores_masked
+
+    fn, check = {1: (attention_scores_masked, cs.kernel1_check),
+                 3: (attention_scores_dense, cs.kernel3_check)}[kernel]
+    cases = {"sorted": sorted_args, "unsorted": unsorted_args}
+    live = [sum(int(a[4].ne(0).sum()) for a in args) for args in cases.values()]
     if live[0] != live[1]:
         cs.fail(f"{name}: the sorted and unsorted masks differ in live pairs {live}")
-    errs = [cs.kernel1_check(f"{name}, {k}", a)[0]
-            for k, a in (("sorted", sorted_args), ("unsorted", unsorted_args))]
+    errs = [max(check(f"{name}, {k}", a)[0] for a in args) for k, args in cases.items()]
     print(f"[sort] {name}: {live[0]} live pairs either way; max|d| where mask==1 sorted "
           f"{errs[0]:.3e}, unsorted {errs[1]:.3e}")
-    turns = turns_of(card, f"kernel 1, {name}", {
-        "sorted": lambda: attention_scores_masked(*sorted_args),
-        "unsorted": lambda: attention_scores_masked(*unsorted_args)})
-    return {"live_pairs": live[0], "turns_ms": turns}
+    turns = turns_of(card, f"kernel {kernel}, {name} (ms for all calls)",
+                     {k: (lambda args=args: [fn(*a) for a in args]) for k, args in cases.items()})
+    return {"live_pairs": live[0], "calls": len(sorted_args),
+            "turns_ms": {k: [t / len(sorted_args) for t in ts] for k, ts in turns.items()}}
 
 
 def shuffle_proposals(args, k=cs.BEAM, seed=0):
     """Kernel 1's args (pre, q, w, b, mask) with each video's proposals,
     k adjacent rows each, in a random order: an unsorted version of
     windows that were drawn sorted."""
-    pre, q, w, b, mask = args
-    B, N = q.shape[:2]
+    B, N = args[1].shape[:2]
     gen = torch.Generator().manual_seed(seed)
     perm = torch.stack([torch.randperm(N // k, generator=gen) for _ in range(B)])
-    rows = (perm[:, :, None] * k + torch.arange(k)).reshape(B, N, 1).to(q.device)
+    rows = (perm[:, :, None] * k + torch.arange(k)).reshape(B, N, 1).to(args[1].device)
+    return take_rows(args, rows)
+
+
+def sort_windows(args):
+    """Kernel 1 or 3's args (pre, q, w, b, mask) with each video's
+    proposals sorted by the first frame of their window (rows with none
+    last), as the decode paths sort theirs."""
+    live = args[4].ne(0)
+    start = torch.where(live.any(2), live.float().argmax(2), live.shape[2])
+    return take_rows(args, start.argsort(dim=1, stable=True)[..., None])
+
+
+def take_rows(args, rows):
+    """(pre, q, w, b, mask) with the proposals of q and mask taken in the
+    order rows [B, N, 1]."""
+    pre, q, w, b, mask = args
 
     def take(x):
         return torch.gather(x, 1, rows.expand(-1, -1, x.shape[2])).contiguous()
@@ -162,7 +302,9 @@ def main():
     libs = builds(opts.earlier)
     print(f"[1] builds, in the order of the turns: {list(libs)}")
     dev = torch.device("cuda")
-    rec = {"card": card, "builds": list(libs), "kernel1": {}, "kernel4": {}, "sort": {}}
+    rec = {"card": card, "builds": list(libs), "kernel1": {}, "kernel4": {}, "kernel3": {},
+           "sort": {}}
+    rec["kernel2"] = kernel2_builds(card, libs)
 
     k1 = rec["kernel1"]
     k1["phase2_synthetic"] = kernel1_builds(
@@ -193,19 +335,31 @@ def main():
     from echr_tpu_torch.engine.train import train
 
     out = train(cs.train_cfg(), max_iterations=2, device="cuda")
-    k4["training_g"] = kernel4_builds(card, "one training step's cotangents",
-                                      cs.training_cotangents(out), libs)
+    fwd, bwd = cs.training_step_inputs(out)
     del out
+    k4["training_g"] = kernel4_builds(card, "one training step's cotangents", bwd, libs)
+    del bwd
+    k3 = rec["kernel3"]
+    k3["training_masks"] = kernel3_builds(card, "one training step's window masks", fwd, libs)
+    rec["sort"]["training_masks"] = sort_turns(card, "one training step's window masks",
+                                               [sort_windows(a) for a in fwd], fwd, kernel=3)
+    del fwd
+    phase7 = cs.kernel3_inputs(np.random.RandomState(4), dev)
+    k3["all_live"] = kernel3_builds(card, "training shapes, every entry live",
+                                    [phase7["all_live"]], libs)
+    k3["windows"] = kernel3_builds(card, "training shapes, windows of 4-47 frames in random "
+                                   "order", [phase7["windows"]], libs)
+    del phase7
 
     srt = rec["sort"]
     greedy_unsorted = cs.first_scores_args(cs.caption_service(1, sort_decode_props=False),
                                            cs.requests(32, seed=2))
-    srt["greedy_step"] = sort_turns(card, "one greedy step", greedy_sorted, greedy_unsorted)
+    srt["greedy_step"] = sort_turns(card, "one greedy step", [greedy_sorted], [greedy_unsorted])
     beam_unsorted = cs.beam_step_tensors(svc, sort=False)
-    srt["beam_step"] = sort_turns(card, "the beam step", beam_sorted,
-                                  tuple(beam_unsorted[k] for k in keys))
+    srt["beam_step"] = sort_turns(card, "the beam step", [beam_sorted],
+                                  [tuple(beam_unsorted[k] for k in keys)])
     srt["beam_step_short_windows"] = sort_turns(card, "the beam step, short windows",
-                                                short_sorted, shuffle_proposals(short_sorted))
+                                                [short_sorted], [shuffle_proposals(short_sorted)])
     print(json.dumps(rec))
 
 

@@ -89,24 +89,40 @@ def test_kernel1_tanh_counts():
                        "tanh_modelled_tiled": tiles * 16 * 32 * H}
 
 
-@pytest.mark.parametrize("kernel", ["masked_scores_on", "scores_bwd_on"])
+@pytest.mark.parametrize("kernel", ["masked_scores_on", "scores_bwd_on", "dense_scores_on",
+                                    "head_on"])
 def test_launch_through_a_library_raises_on_cpu(kernel):
-    """The launch helpers behind kernels 1 and 4 (the wrappers call them
-    with native.library(); comparisons with another build) take CUDA
-    tensors only: on the CPU they raise before reaching the library, and
-    the wrappers' launch counts do not move."""
+    """The launch helpers behind kernels 1-4 (the wrappers call them with
+    native.library(); comparisons with another build) take CUDA tensors
+    only: on the CPU they raise before reaching the library, and the
+    wrappers' launch counts do not move."""
     from echr_tpu_torch.ops import kernel_attention as ka
+    from echr_tpu_torch.ops import kernel_head as kh
 
     r = np.random.RandomState(3)
     B, N, T, H = 2, 5, 9, 16
     pre, q = torch.randn(B, T, H), torch.randn(B, N, H)
     w, b = torch.randn(H), torch.zeros(1)
     mask = torch.from_numpy((r.rand(B, N, T) > 0.5).astype(np.float32))
-    args = (pre, q, w, b, mask) if kernel == "masked_scores_on" else (pre, q, w, mask)
-    before = (ka.attention_scores_masked.launches, ka.attention_scores_bwd.launches)
+    args = {"masked_scores_on": (pre, q, w, b, mask), "dense_scores_on": (pre, q, w, b, mask),
+            "scores_bwd_on": (pre, q, w, mask),
+            "head_on": (torch.randn(7, H), torch.randn(11, H).bfloat16(), torch.zeros(11))}
+    counts = (ka.attention_scores_masked, ka.attention_scores_dense, ka.attention_scores_bwd,
+              kh.greedy_head)
+    before = [fn.launches for fn in counts]
     with pytest.raises(ValueError, match="is on cpu"):
-        getattr(ka, kernel)(None, *args)
-    assert (ka.attention_scores_masked.launches, ka.attention_scores_bwd.launches) == before
+        getattr(kh if kernel == "head_on" else ka, kernel)(None, *args[kernel])
+    assert [fn.launches for fn in counts] == before
+
+
+def test_kernel3_launch_without_mask_raises():
+    """Kernel 3 takes the window mask: its launch helper refuses None
+    before it looks at the tensors."""
+    from echr_tpu_torch.ops.kernel_attention import dense_scores_on
+
+    pre, q, w, b = torch.randn(1, 4, 8), torch.randn(1, 3, 8), torch.randn(8), torch.zeros(1)
+    with pytest.raises(ValueError, match="takes the window mask"):
+        dense_scores_on(None, pre, q, w, b, None)
 
 
 def test_shuffle_proposals_keeps_beams_together():
@@ -162,6 +178,52 @@ def test_head_plain_matches_pallas(R, C, V1, out_dtype):
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jt))
     np.testing.assert_allclose(mx.numpy(), np.asarray(jm), atol=TOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("C", [36, 61])
+def test_head_padded_width_matches_unpadded_and_pallas(C):
+    """A width that is not a multiple of 8: prepare_head pads w's rows with
+    zeros (the kernel's TMA reads 16-byte strides) and the plain version,
+    given the unpadded core output, equals the one over the unpadded w
+    bit for bit, and pallas_head.greedy_head (interpret mode)."""
+    from echr_tpu_torch.ops.kernel_head import pad_head_width
+
+    r = np.random.RandomState(C)
+    R, V1 = 40, 517
+    w, b, (wk, bk) = _head_weights(r, C, V1, torch.bfloat16)
+    assert wk.shape == (V1, C + (-C % 8)) and not wk[:, C:].any()
+    assert torch.equal(pad_head_width(wk), wk)
+    out = (r.randn(R, C) * 0.3).astype(np.float32)
+    got = greedy_head(torch.from_numpy(out), wk, bk)
+    want = greedy_head_plain(torch.from_numpy(out), wk[:, :C].contiguous(), bk)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    tr, tv, _, _ = pallas_head.head_plan(R, C, V1)
+    wp, bp = pallas_head.pad_head_weights(jnp.asarray(w), jnp.asarray(b), tv)
+    jt, jm, jl = pallas_head.greedy_head(jnp.asarray(out), wp, bp, tr, tv)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jt))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(jm), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(jl), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_split_plan_covers_every_tile_once(dtype):
+    """split_plan's vocab splits, as the kernel walks them (split s: tiles
+    [s * per, min(n, (s + 1) * per))), cover every vocab tile exactly once
+    and each holds at least one; at the serving shapes on 132 SMs the bf16
+    grid is 32 row tiles x 4 splits of 6 tiles."""
+    from echr_tpu_torch.ops.kernel_head import _VOCAB_TILE, split_plan
+
+    for R in (1, 77, 128, 1000, 4096, 16384):
+        for V1 in (1, 70, 130, 777, 2048, 6001):
+            for sms in (1, 16, 132):
+                per, splits = split_plan(R, V1, sms, dtype)
+                n = -(-V1 // _VOCAB_TILE[dtype])
+                tiles = [t for s in range(splits) for t in range(s * per, min(n, (s + 1) * per))]
+                assert sorted(tiles) == list(range(n)) and len(tiles) == n
+                assert all(s * per < n for s in range(splits))
+    if dtype == torch.bfloat16:
+        assert split_plan(4096, 6001, 132, dtype) == (6, 4)
 
 
 def test_head_plain_f32_matches_jnp():
