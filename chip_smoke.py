@@ -5,9 +5,9 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-kernel_turns.py times kernels 1-4 beside another build of their sources
-(a parent commit's) in turns; this script times this checkout's kernels
-alone.
+kernel_turns.py times kernels 1-4 and 7-8 beside another build of their
+sources (a parent commit's) in turns; this script times this checkout's
+kernels alone.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -87,13 +87,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   15. kernel 7 (the head probes' streaming head at its plan, TR=64, TV=512)
      against its plain version at the probe's shapes (R=4096, C=1536,
      V1=6001 padded to 6144, bf16; tokens bit-equal, max and lse within
-     5e-4), a ragged R and exact ties within and across vocab tiles; then
+     5e-4), a ragged R and exact ties within and across vocab tiles; its
+     time and the bytes its plan reads through L2 (modelled); then
      probe_greedy_head: X0, XM (and both over the padded vocab), K1
      (kernel 7) and K2 (kernel 2) ms a step;
   16. kernel 8, every instantiated tiling, against its plain version at a
      ragged R, then probe_streaming_head2: each tiling checked at the
      probe's shapes, then X0, XM, X0p, XMp and every tiling in interleaved
-     windows;
+     windows; exact ties at every tiling; each tiling's time a call and
+     the bytes its plan reads through L2 (modelled);
   17. kernels 9 and 10 against their plain versions at B=32, N=128, T=256,
      H=512, KD=2048 and a ragged shape, then probe_mxu_vpu_overlap: S0, S1,
      SD and S2 at KD=2048 and 8192.  In 15-17 each kernel's launches over
@@ -1340,6 +1342,24 @@ def _head_check(name, args, tr, tv):
     return err, got
 
 
+def _tie_check(tr, tv, dev):
+    """Exact ties from integer-valued sums, the first index winning: columns
+    3 and 5 in the first vocab tile, 1031 and 2000 in later ones; and tv - 1
+    (the first tile's upper column half, which TR <= 64 folds in the second
+    consumer) against tv + 1 and 2000 (lower halves of later tiles)."""
+    from echr_tpu_torch.ops.kernel_probe_head import pad_probe_head, stream_head
+
+    C, V1 = 16, 2048
+    for cols in ([3, 5, 1031, 2000], [tv - 1, tv + 1, 2000]):
+        wt = torch.zeros(C, V1, device=dev)
+        wt[:, cols] = 1.0
+        tok, mx, _ = stream_head(torch.ones(64, C, device=dev), *pad_probe_head(
+            wt, torch.zeros(V1, device=dev), tv), tr, tv)
+        if not (bool((tok == cols[0]).all()) and bool((mx == C).all())):
+            fail(f"stream_head tie at {(tr, tv)}, columns {cols}: tokens "
+                 f"{tok.unique().tolist()}")
+
+
 @torch.inference_mode()
 def phase_probe_head(card):
     """Kernel 7 (stream_head at its plan) against its plain version at the
@@ -1349,7 +1369,7 @@ def phase_probe_head(card):
     from echr_tpu_torch.experiments import probe_greedy_head as probe
     from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_head import greedy_head
-    from echr_tpu_torch.ops.kernel_probe_head import PLAN, pad_probe_head, stream_head
+    from echr_tpu_torch.ops.kernel_probe_head import PLAN, l2_bytes, pad_probe_head, stream_head
 
     dev = torch.device("cuda")
     tr, tv = PLAN
@@ -1362,15 +1382,7 @@ def phase_probe_head(card):
     rargs = (_rand(rng, (Rr, Cr), 1.0, dev),) + pad_probe_head(_rand(rng, (Cr, Vr), 0.1, dev),
                                                                _rand(rng, (Vr,), 0.1, dev), tv)
     worst = max(worst, _head_check("ragged", rargs, tr, tv)[0])
-    # exact ties from integer-valued sums: columns 3 and 5 in the first vocab
-    # tile, 1031 and 2000 in later ones; the first index wins
-    C, V1 = 16, 2048
-    wt = torch.zeros(C, V1, device=dev)
-    wt[:, [3, 5, 1031, 2000]] = 1.0
-    tok, mx, _ = stream_head(torch.ones(64, C, device=dev), *pad_probe_head(
-        wt, torch.zeros(V1, device=dev), tv), tr, tv)
-    if not (bool((tok == 3).all()) and bool((mx == C).all())):
-        fail(f"kernel 7 tie: tokens {tok.unique().tolist()}")
+    _tie_check(tr, tv, dev)
     print(f"[15] kernel 7 {PLAN} R={out0.shape[0]} C={probe.C} V1={probe.V1} VP={wp.shape[1]} "
           f"bf16: tokens bit-equal, max|d| max/lse {worst:.3e}; ragged R={Rr} C={Cr} V1={Vr} "
           f"equal; ties: the first index wins")
@@ -1378,6 +1390,7 @@ def phase_probe_head(card):
     with force_plain():
         plain_ms = cuda_ms(lambda: stream_head(*args, tr, tv), iters=10)
     R, V1 = out0.shape[0], probe.V1
+    l2 = l2_bytes(R, probe.C, wp.shape[1], tr, tv)["total"]  # modelled, not measured
     record = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
               **bound(nbytes(out0.to(torch.bfloat16), wp, bp, *got),
                       bf16=2.0 * R * probe.C * V1)}
@@ -1391,7 +1404,8 @@ def phase_probe_head(card):
     record.update(launches=counts["stream_head"], probe_ms_per_step=run["ms_per_step"])
     p = run["ms_per_step"]
     print(f"[15] kernel 7 {ms:.4f} ms vs plain {plain_ms:.4f} ms a call, bound "
-          f"{record['bound_ms']:.4f} ms ({record['bound_by']}); probe ms/step "
+          f"{record['bound_ms']:.4f} ms ({record['bound_by']}), {l2 / 1e9:.3f} GB through L2 by "
+          f"the plan (modelled); probe ms/step "
           f"{ {k: round(v, 4) for k, v in p.items()} }; launches {counts} [{card}]")
     return record
 
@@ -1404,7 +1418,7 @@ def phase_probe_sweep(card):
     windows); each tiling's time a call."""
     from echr_tpu_torch.experiments import probe_greedy_head, probe_streaming_head2 as probe
     from echr_tpu_torch.ops import force_plain
-    from echr_tpu_torch.ops.kernel_probe_head import TILINGS, pad_probe_head, stream_head
+    from echr_tpu_torch.ops.kernel_probe_head import TILINGS, l2_bytes, pad_probe_head, stream_head
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(16)
@@ -1413,6 +1427,8 @@ def phase_probe_sweep(card):
                                                                                      0.1, dev)
     worst = max(_head_check("ragged", (a,) + pad_probe_head(w, b, tv), tr, tv)[0]
                 for tr, tv in TILINGS)
+    for tr, tv in TILINGS:
+        _tie_check(tr, tv, dev)
     _reset_probe_counts()
     run = probe.run()
     torch.cuda.synchronize()
@@ -1423,10 +1439,11 @@ def phase_probe_sweep(card):
     if not worst <= TOL:
         fail(f"kernel 8: max|d| max/lse {worst:.3e} > {TOL}")
     w, b, out0 = probe_greedy_head.probe_inputs(probe.B, probe.N, probe.C, probe.V1, 0, dev)
-    tilings_ms = {}
+    tilings_ms, tilings_l2 = {}, {}
     for tr, tv in TILINGS:
         wp, bp = pad_probe_head(w, b, tv)
         tilings_ms[f"{tr}x{tv}"] = cuda_ms(lambda: stream_head(out0, wp, bp, tr, tv))
+        tilings_l2[f"{tr}x{tv}"] = l2_bytes(out0.shape[0], probe.C, wp.shape[1], tr, tv)["total"]
     best = min(tilings_ms, key=tilings_ms.get)
     tr, tv = map(int, best.split("x"))
     wp, bp = pad_probe_head(w, b, tv)
@@ -1440,8 +1457,10 @@ def phase_probe_sweep(card):
                       bf16=2.0 * R * probe.C * probe.V1),
               "probe_ms_per_step": run["ms_per_step"]}
     print(f"[16] kernel 8, {len(TILINGS)} tilings: tokens bit-equal at the probe's shapes and "
-          f"ragged R={Rr}, max|d| max/lse {worst:.3e}; ms a call "
-          f"{ {k: round(v, 4) for k, v in tilings_ms.items()} }, best {best}; plain "
+          f"ragged R={Rr}, first-index ties, max|d| max/lse {worst:.3e}; ms a call "
+          f"{ {k: round(v, 4) for k, v in tilings_ms.items()} }, best {best}; GB through L2 "
+          f"by the plan (modelled) { {k: round(v / 1e9, 3) for k, v in tilings_l2.items()} }; "
+          f"plain "
           f"{plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms ({record['bound_by']}); "
           f"launches {counts['stream_head']} [{card}]")
     return record

@@ -37,133 +37,27 @@
 // thread scans its columns in ascending order with a strict >, and the
 // threads that share a row combine by (value, lower index); a later tile, or
 // a later split in the combine, takes over only on a strictly greater value.
-#include <cuda.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
+using namespace hopper;
+
 constexpr int BR = 128;  // rows per block, both paths
 
 // ---------------------------------------------------------------------------
 // bf16: TMA + wgmma
 // ---------------------------------------------------------------------------
 constexpr int BV = 256;        // vocab columns per tile: the wgmma n
-constexpr int BK = 64;         // depth of a stage: one 128-byte swizzle row of bf16
+constexpr int BK = SW;         // depth of a stage: one 128-byte swizzle row of bf16
 constexpr int STAGES = 4;
 constexpr int THREADS = 384;   // warpgroups 0 and 1 consume, 2 produces
 constexpr int A_BYTES = BR * BK * 2;
 constexpr int W_BYTES = BV * BK * 2;
 constexpr int STAGE_BYTES = A_BYTES + W_BYTES;  // 48 KB
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
-constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// the box at (c0 along C, c1 along rows) of `map` into shared memory at dst;
-// completes `bar`'s transaction bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major bf16 tile in the 128-byte swizzle TMA writes:
-// rows of 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-// the accumulators are not read or written across this point
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= a [64 x 16] . w [256 x 16]^T, both K-major in shared memory;
-// scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t dw,
-                                          int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110,"
-      " %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124,"
-      " %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(dw), "r"(scale_d));
-}
-
-// The consumers' accumulator layout (wgmma m64nN, f32): thread t of a
-// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + 8 h, h < 2, and register
-// 4 j + 2 h + e holds column 8 j + 2 (t % 4) + e, j < 32, e < 2.
+// The consumers' accumulator layout and its fold: hopper.cuh, fold_tile.
 __global__ void __launch_bounds__(THREADS, 1)
 head_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
@@ -232,7 +126,7 @@ head_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int k = 0; k < BK / 16; ++k)  // 16 bf16 = 32 bytes deeper each
-          wgmma_256(acc, sw128_desc(a + 32 * k), sw128_desc(w + 32 * k), kt > 0 || k > 0);
+          wgmma<0>(acc, sw128_desc(a + 32 * k), sw128_desc(w + 32 * k), kt > 0 || k > 0);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         fence_acc(acc);
@@ -243,56 +137,7 @@ head_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
 
-      // fold the tile: bias, mask v >= V1, (max, argmax) by an ascending
-      // scan with strict >, then over the 4 threads of each row
-      const int v0 = tile * BV;
-      float best[2] = {-INFINITY, -INFINITY};
-      int best_i[2] = {INT32_MAX, INT32_MAX};
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int v = v0 + 8 * j + 2 * quad + e;
-          const bool live = v < V1;
-          const float bv = live ? __ldg(bias + v) : 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float& x = acc[4 * j + 2 * h + e];
-            x = live ? x + bv : -INFINITY;
-            if (x > best[h]) {
-              best[h] = x;
-              best_i[h] = v;
-            }
-          }
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int o = 1; o <= 2; o <<= 1) {
-          const float ob = __shfl_xor_sync(FULL, best[h], o);
-          const int oi = __shfl_xor_sync(FULL, best_i[h], o);
-          if (ob > best[h] || (ob == best[h] && oi < best_i[h])) {
-            best[h] = ob;
-            best_i[h] = oi;
-          }
-        }
-      }
-      float m_new[2], s[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) m_new[h] = fmaxf(m_run[h], best[h]);
-#pragma unroll
-      for (int i = 0; i < 128; ++i) {  // exp(x - m) as 2^(x log2e - m log2e); masked: 0
-        const int h = (i >> 1) & 1;
-        s[h] += exp2f(fmaf(acc[i], LOG2E, -m_new[h] * LOG2E));
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s[h] += __shfl_xor_sync(FULL, s[h], 1);
-        s[h] += __shfl_xor_sync(FULL, s[h], 2);
-        l_run[h] = l_run[h] * exp2f((m_run[h] - m_new[h]) * LOG2E) + s[h];
-        if (best[h] > m_run[h]) a_run[h] = best_i[h];  // strict: an earlier tile keeps a tie
-        m_run[h] = m_new[h];
-      }
+      fold_tile<BV>(acc, bias, tile * BV, V1, quad, m_run, l_run, a_run);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -461,44 +306,6 @@ __global__ void head_combine_kernel(const float* __restrict__ part_m,
   tok[row] = a;
   mx[row] = m;
   lse[row] = m + logf(l);
-}
-
-// cuTensorMapEncodeTiled, from the CUDA driver library the runtime has loaded
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the map of a row-major bf16 [rows, C] matrix in boxes of box_rows x 64,
-// 128-byte swizzled; out-of-bounds elements read as zero
-bool encode_rows(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows, int C,
-                 int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * 2};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 cudaError_t launch_bf16(dim3 grid, cudaStream_t s, const void* out, const void* w,

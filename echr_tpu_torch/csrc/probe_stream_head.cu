@@ -13,229 +13,253 @@
 // (TR rows per block, TV vocab columns per tile).
 //
 // Bound on an H100 by tensor-core throughput: 75.5 GFLOP bf16 per step at
-// R=4096, C=1536, VP=6144, against 31.5 MB of inputs and outputs; w (18.9 MB)
-// stays in the 50 MB L2.  The design is the probes' own: one block owns TR
-// rows and walks every vocab tile in order (the TPU grid's sequential j
-// axis), with no vocab split and no combine pass.  Each logit tile comes from
-// nvcuda::wmma bf16 16x16x16 products with f32 accumulation, the whole
-// [TR, TV] tile in the 8 warps' registers while the depth C streams through
-// shared memory in BK=64 stages that cp.async double-buffers (the TPU kept a
-// [TILE_R, C] row block resident in VMEM; a 1.5 MB block has no place in 227
-// KB, so A streams like w).  The tile is then stored over the stages and
-// folded into a running (max, argmax, sumexp) per row with accurate expf.
+// R=4096, C=1536, V1=6001 (VP=6144), against 31.5 MB of inputs and outputs.
+// The probes' contract: one block owns TR rows and walks every vocab tile in
+// order (the TPU grid's sequential j axis), with no vocab split and no
+// combine pass, so the grid is ceil(R / TR) row blocks.  What bounds such a
+// head on this card is occupancy, not the product's rate: R / TR blocks (128,
+// 64, 32 at R=4096 against 132 SMs), each a 64-row wgmma slice or two walking
+// all of VP on one SM, so no tiling runs below one such block's time (0.161
+// ms at TR <= 64 here, twice that at TR=128).  Every block also reads all of
+// w from L2 (R / TR x 18.9 MB) and A once per vocab tile; that L2 traffic
+// was measured not to bind.
 //
-// Tilings instantiated (the H100's corner): TR in {32, 64, 128} x TV in {128,
-// 256, 512} but (128, 512), whose f32 tile is 264 KB of shared memory (over
-// 227 KB) and 256 accumulators a thread.  The trade-off: without a split
-// there are R/TR blocks (128, 64, 32 at R=4096 against 132 SMs), and every
-// block reads all of w from L2 (R/TR x 18.9 MB).  Kernel 7's plan is TV=512
-// and the largest TR that fits: (64, 512).
+// The block is kernel 2's machinery (hopper.cuh): three warpgroups, the third
+// a producer whose one thread keeps TMA loads (128-byte swizzle) in flight in
+// a ring of as many stages as fit 227 KB (Plan::STAGES), with full / empty
+// mbarriers; each stage holds the A box [TR x 64] (K-major) and w's [64 x TV]
+// box as TV / 64 chunks of 64 vocab columns (MN-major: wgmma reads B
+// "transposed", so w is loaded as it lies, vocab contiguous).  The two
+// consumer warpgroups run wgmma m64nNk16 with f32 accumulators in registers
+// and fold each finished vocab tile in registers into a running (max, argmax,
+// sumexp) per row (fold_tile); setmaxnreg gives them 232 registers and the
+// producer 40.  wgmma's M is 64 rows, so the two consumers split the tile by
+// rows at TR=128 (N=TV) and by columns at TR<=64 (N=TV/2; at the end the
+// upper half's (max, argmax, sumexp) merges into the lower's, a tie taking
+// the lower index); at TR=32
+// each wgmma computes 64 rows of which 32 are kept: half the tensor-core work
+// is waste, the price of that tiling.  (128, 512) is not instantiated: N=512
+// is 256 accumulators a thread.
+//
+// Neither of Hopper's answers to the L2 traffic is taken: the A row block
+// does not stay resident (at TR=64, C=1536 it is 192 KB, which leaves no
+// room for w's ring), and no thread-block cluster shares w's tiles by TMA
+// multicast: on an H100 clusters of 2 and 4 row blocks gained a few percent
+// at one tiling at most and lost at others (PERF.md), which did not pay for
+// the multicast, the cluster-wide barriers and the drain they need.
 //
 // Ties, as the probes: within a tile the lowest index of the tile's max wins;
-// a later tile takes over only on a strictly greater max.  The running max
-// starts at -1e30 and the argmax at 0, as the probes' scratch does.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <algorithm>
-#include <cmath>
-#include <cstdint>
+// a later tile takes over only on a strictly greater max.
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int BK = 64;        // depth of one stage
-constexpr int LDA = BK + 8;   // A stage row stride: 144 bytes, a wmma ldm
+constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, 2 produces
+constexpr int BK = SW;        // depth of a stage: one 128-byte swizzle row of A
+constexpr int CHUNK_BYTES = BK * SW * 2;  // one [BK x 64] box of w
+constexpr int SMEM_LIMIT = 232448;        // 227 KB: what one block may use
+constexpr int MERGE_BYTES = 64 * 12;      // the column halves' merge: (m, l, a) per row
 
 template <int TR, int TV>
 struct Plan {
-  static constexpr int WM = TR >= 64 ? 32 : 16;  // rows of one warp's tile
-  static constexpr int WR = TR / WM;             // warps along the rows
-  static constexpr int WC = 8 / WR;              // warps along the columns
-  static constexpr int WN = TV / WC;             // columns of one warp's tile
-  static constexpr int FM = WM / 16, FN = WN / 16;
-  static constexpr int LDW = TV + 8;              // w stage row stride
-  static constexpr int TPR = THREADS / TR;        // fold threads per row
-  static constexpr int LDL = TV + (TPR >= 8 ? 8 : 4);  // logit row stride
-  static constexpr size_t STAGE = sizeof(bf16) * (TR * LDA + BK * LDW);
-  static constexpr size_t SMEM = std::max(2 * STAGE, sizeof(float) * TR * LDL);
-  static_assert(WR * WC == 8 && WN % 16 == 0 && TPR >= 1 && 32 % TPR == 0, "tiling");
-  static_assert(FM * FN <= 16, "at most 128 accumulators a thread");
-  static_assert(SMEM <= 227 * 1024, "the tile must fit one block's shared memory");
+  static constexpr int MG = TR > 64 ? 2 : 1;  // 64-row wgmma slices of the block
+  static constexpr int CG = 2 / MG;           // column groups of a vocab tile
+  static constexpr int N = TV / CG;           // wgmma n: one consumer's columns
+  static constexpr int A_SLOT = MG * 64 * BK * 2;  // TR=32: the upper 32 rows unused
+  static constexpr int A_BOX = TR * BK * 2;
+  static constexpr int W_BYTES = TV * BK * 2;
+  static constexpr int STAGE = A_SLOT + W_BYTES;
+  static constexpr int CHUNKS = TV / SW;
+  // as many stages as fit: 1024 bytes of alignment slack, then each stage
+  // with its two barriers, then the merge rows
+  static constexpr int STAGES = (SMEM_LIMIT - 1024 - MERGE_BYTES) / (STAGE + 16);
+  static constexpr int SMEM = 1024 + STAGES * (STAGE + 16) + MERGE_BYTES;
+  static_assert(TR % 32 == 0 && TR <= MG * 64 && N % SW == 0, "tiling");
+  static_assert(MG * CG == 2, "two consumer warpgroups: row slices x column groups");
+  static_assert(CG * N == TV, "the column groups cover the vocab tile once, in order");
+  static_assert(N / 2 <= 128, "at most 128 f32 accumulators a consumer thread");
+  static_assert(STAGES >= 2 && SMEM <= SMEM_LIMIT, "a ring of two stages or more in 227 KB");
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0: no read, the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + TR) x depth [k0, k0 + BK) of out, and depth [k0, k0 + BK)
-// x columns [v0, v0 + TV) of w, into one stage; zero outside R and C (C is a
-// multiple of 8, so a 16-byte vector lies wholly inside or outside)
-template <int TR, int TV>
-__device__ __forceinline__ void load_stage(bf16* sa, bf16* sw, const bf16* __restrict__ a,
-                                           const bf16* __restrict__ w, int row0, int R, int C,
-                                           int VP, int v0, int k0) {
-  using P = Plan<TR, TV>;
-  constexpr int AV = BK / 8;  // 16-byte vectors of one A row
-  for (int i = threadIdx.x; i < TR * AV; i += THREADS) {
-    const int r = i / AV, c = (i % AV) * 8, k = k0 + c;
-    const bool ok = row0 + r < R && k < C;
-    cp_async16(sa + r * LDA + c, ok ? a + (size_t)(row0 + r) * C + k : a, ok);
-  }
-  constexpr int WV = TV / 8;  // 16-byte vectors of one w row
-  for (int i = threadIdx.x; i < BK * WV; i += THREADS) {
-    const int k = i / WV, c = (i % WV) * 8;
-    const bool ok = k0 + k < C;
-    cp_async16(sw + k * P::LDW + c, ok ? w + (size_t)(k0 + k) * VP + v0 + c : w, ok);
-  }
-}
 
 template <int TR, int TV>
 __global__ void __launch_bounds__(THREADS, 1)
-stream_head_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, int R, int C, int VP,
-                   int* __restrict__ tok, float* __restrict__ mx, float* __restrict__ lse) {
+stream_head_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
+                   int R, int C, int VP, int* __restrict__ tok, float* __restrict__ mx,
+                   float* __restrict__ lse) {
   using P = Plan<TR, TV>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* logits = reinterpret_cast<float*>(smem);  // over the two stages
-  bf16* const a0 = reinterpret_cast<bf16*>(smem);
-  bf16* const a1 = reinterpret_cast<bf16*>(smem + P::STAGE);
+  extern __shared__ unsigned char smem_raw[];
+  // stage s: the A slot at base + s * STAGE, w's chunks after it (each
+  // 1024-byte aligned, as the 128-byte swizzle needs); then the full and the
+  // empty barriers, then the merge rows
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full0 = base + P::STAGES * P::STAGE;
+  const uint32_t empty0 = full0 + 8 * P::STAGES;
+  unsigned char* merge = smem_raw + (empty0 + 8 * P::STAGES - smem_u32(smem_raw));
+  float* merge_m = reinterpret_cast<float*>(merge);
+  float* merge_l = merge_m + 64;
+  int* merge_a = reinterpret_cast<int*>(merge_l + 64);
 
   const int row0 = blockIdx.x * TR;
-  const int warp = threadIdx.x >> 5;
-  const int wr = (warp / P::WC) * P::WM, wc = (warp % P::WC) * P::WN;
-  const int r = threadIdx.x / P::TPR;  // the fold: TPR threads per row,
-  const int j = threadIdx.x % P::TPR;  // thread j takes columns j, j + TPR, ...
   const int nk = (C + BK - 1) / BK;
+  const int tiles = VP / TV;
+  const int wg = threadIdx.x >> 7;
 
-  float m_run = -1e30f, l_run = 0.f;
-  int a_run = 0;
-  for (int v0 = 0; v0 < VP; v0 += TV) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[P::FM][P::FN];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's arrival, then the bytes
+      mbar_init(empty0 + 8 * s, 2);  // each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer; the paths never meet again
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = 0; tile < tiles; ++tile)
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the first round passes
+          const uint32_t dst = base + stage * P::STAGE;
+          const uint32_t full = full0 + 8 * stage;
+          mbar_expect_tx(full, P::A_BOX + P::W_BYTES);
+          tma_load(dst, &map_a, full, kt * BK, row0);
+          for (int c = 0; c < P::CHUNKS; ++c)
+            tma_load(dst + P::A_SLOT + c * CHUNK_BYTES, &map_w, full, tile * TV + c * SW,
+                     kt * BK);
+          if (++stage == P::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int mg = P::MG == 2 ? wg : 0;  // this consumer's 64-row slice
+    const int cg = P::MG == 2 ? 0 : wg;  // and column group
+    const int lane = threadIdx.x & 31;
+    const int quad = lane & 3;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int r_blk = 64 * mg + 16 * warp + (lane >> 2);  // rows r_blk and r_blk + 8
+    const bool live = 64 * mg + 16 * warp < TR;  // TR=32: warps 2 and 3 hold unused rows
+    const uint32_t a_off = mg * (64 * BK * 2);
+    const uint32_t w_off = P::A_SLOT + cg * (P::N / SW) * CHUNK_BYTES;
+    float acc[P::N / 2];
 #pragma unroll
-    for (int i = 0; i < P::FM; ++i)
+    for (int i = 0; i < P::N / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    int a_run[2] = {0, 0};
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = 0; tile < tiles; ++tile) {
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t a = base + stage * P::STAGE + a_off;
+        const uint32_t w = base + stage * P::STAGE + w_off;
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int n = 0; n < P::FN; ++n) wmma::fill_fragment(acc[i][n], 0.f);
-    load_stage<TR, TV>(a0, a0 + TR * LDA, a, w, row0, R, C, VP, v0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        bf16* next = (kt & 1) ? a0 : a1;
-        load_stage<TR, TV>(next, next + TR * LDA, a, w, row0, R, C, VP, v0, (kt + 1) * BK);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();  // stage kt has landed; stage kt + 1 may be in flight
-      __syncthreads();
-      const bf16* sa = (kt & 1) ? a1 : a0;
-      const bf16* sw = sa + TR * LDA;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[P::FM];
-#pragma unroll
-        for (int i = 0; i < P::FM; ++i)
-          wmma::load_matrix_sync(fa[i], sa + (wr + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-        for (int n = 0; n < P::FN; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, sw + kk * P::LDW + wc + 16 * n, P::LDW);
-#pragma unroll
-          for (int i = 0; i < P::FM; ++i) wmma::mma_sync(acc[i][n], fa[i], fb, acc[i][n]);
+        for (int k = 0; k < BK / 16; ++k)  // 16 deeper: 32 bytes along A's rows, 16 rows of w
+          wgmma<1>(acc, sw128_desc(a + 32 * k), sw128_mn_desc(w + 16 * 128 * k, CHUNK_BYTES),
+                   kt > 0 || k > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc(acc);
+        if ((threadIdx.x & 127) == 0) mbar_arrive(empty0 + 8 * stage);
+        if (++stage == P::STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      __syncthreads();  // everyone is done with stage kt before it is refilled
+      if (live) fold_tile<P::N>(acc, bias, tile * TV + cg * P::N, VP, quad, m_run, l_run, a_run);
     }
-    cp_async_wait<0>();
-    __syncthreads();
+    if (P::CG == 2) {  // the upper column half merges into the lower
+      if (cg == 1 && live && quad == 0)
 #pragma unroll
-    for (int i = 0; i < P::FM; ++i)
+        for (int h = 0; h < 2; ++h) {
+          merge_m[r_blk + 8 * h] = m_run[h];
+          merge_l[r_blk + 8 * h] = l_run[h];
+          merge_a[r_blk + 8 * h] = a_run[h];
+        }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the two consumer warpgroups
+      if (cg == 0 && live && quad == 0)
 #pragma unroll
-      for (int n = 0; n < P::FN; ++n)
-        wmma::store_matrix_sync(logits + (wr + 16 * i) * P::LDL + wc + 16 * n, acc[i][n], P::LDL,
-                                wmma::mem_row_major);
-    __syncthreads();
-
-    float* lr = logits + r * P::LDL;
-    float best = -INFINITY;
-    int best_i = INT32_MAX;
-    for (int c = j; c < TV; c += P::TPR) {  // ascending: strict > keeps the lower index
-      const float x = lr[c] + bias[v0 + c];
-      lr[c] = x;
-      if (x > best) {
-        best = x;
-        best_i = v0 + c;
+        for (int h = 0; h < 2; ++h) {
+          const float m1 = merge_m[r_blk + 8 * h];
+          const int a1 = merge_a[r_blk + 8 * h];
+          const float m = fmaxf(m_run[h], m1);
+          l_run[h] = l_run[h] * exp2f((m_run[h] - m) * LOG2E) +
+                     merge_l[r_blk + 8 * h] * exp2f((m1 - m) * LOG2E);
+          // each half's argmax is its first index of its max: on a tie the
+          // lower of the two is the first overall
+          if (m1 > m_run[h] || (m1 == m_run[h] && a1 < a_run[h])) a_run[h] = a1;
+          m_run[h] = m;
+        }
+    }
+    if (cg == 0 && live && quad == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r_blk + 8 * h;
+        if (row < R) {
+          tok[row] = a_run[h];
+          mx[row] = m_run[h];
+          lse[row] = m_run[h] + logf(l_run[h]);
+        }
       }
-    }
-#pragma unroll
-    for (int o = P::TPR / 2; o > 0; o >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
-      if (ob > best || (ob == best && oi < best_i)) {
-        best = ob;
-        best_i = oi;
-      }
-    }
-    const float m_new = fmaxf(m_run, best);
-    float s = 0.f;
-    for (int c = j; c < TV; c += P::TPR) s += expf(lr[c] - m_new);
-#pragma unroll
-    for (int o = P::TPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    l_run = l_run * expf(m_run - m_new) + s;
-    if (best > m_run) a_run = best_i;  // strict: an earlier tile keeps a tie
-    m_run = m_new;
-    __syncthreads();  // the next tile's loads overwrite the logit tile
-  }
-  const int row = row0 + r;
-  if (j == 0 && row < R) {
-    tok[row] = a_run;
-    mx[row] = m_run;
-    lse[row] = m_run + logf(l_run);
   }
 }
 
 template <int TR, int TV>
 cudaError_t launch(cudaStream_t s, const void* out, const void* w, const void* b, int R, int C,
                    int VP, void* tok, void* mx, void* lse) {
-  constexpr size_t smem = Plan<TR, TV>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(stream_head_kernel<TR, TV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using P = Plan<TR, TV>;
+  if (VP % TV != 0) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map_a, map_w;
+  if (!encode_rows(encode, &map_a, out, R, C, TR) || !encode_rows(encode, &map_w, w, C, VP, BK))
+    return cudaErrorInvalidValue;
+  auto kernel = stream_head_kernel<TR, TV>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (err != cudaSuccess) return err;
-  stream_head_kernel<TR, TV><<<(R + TR - 1) / TR, THREADS, smem, s>>>(
-      static_cast<const bf16*>(out), static_cast<const bf16*>(w), static_cast<const float*>(b),
-      R, C, VP, static_cast<int*>(tok), static_cast<float*>(mx), static_cast<float*>(lse));
+  stream_head_kernel<TR, TV><<<(R + TR - 1) / TR, THREADS, P::SMEM, s>>>(
+      map_a, map_w, static_cast<const float*>(b), R, C, VP, static_cast<int*>(tok),
+      static_cast<float*>(mx), static_cast<float*>(lse));
   return cudaGetLastError();
 }
 
 }  // namespace
 
+#define ECHR_TILINGS(X) \
+  X(32, 128)            \
+  X(32, 256)            \
+  X(32, 512)            \
+  X(64, 128)            \
+  X(64, 256)            \
+  X(64, 512)            \
+  X(128, 128)           \
+  X(128, 256)
+
 // out [R, C] bf16, w [C, VP] bf16, b [VP] f32 -> tok [R] int32, mx [R] f32,
 // lse [R] f32.  C a multiple of 8, VP a multiple of tv, 16-byte aligned
-// bases; (tr, tv) one of the instantiated tilings, else cudaErrorInvalidValue.
+// bases; (tr, tv) one of the instantiated tilings, else
+// cudaErrorInvalidValue.
 extern "C" int echr_probe_stream_head(const void* out, const void* w, const void* b, int R,
                                       int C, int VP, int tr, int tv, void* tok, void* mx,
                                       void* lse, void* stream) {
+  if (R < 1 || C < 1 || C % 8 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define ECHR_TILING(TR, TV) \
+#define ECHR_LAUNCH(TR, TV) \
   if (tr == TR && tv == TV) err = launch<TR, TV>(s, out, w, b, R, C, VP, tok, mx, lse);
-  ECHR_TILING(32, 128)
-  ECHR_TILING(32, 256)
-  ECHR_TILING(32, 512)
-  ECHR_TILING(64, 128)
-  ECHR_TILING(64, 256)
-  ECHR_TILING(64, 512)
-  ECHR_TILING(128, 128)
-  ECHR_TILING(128, 256)
-#undef ECHR_TILING
+  ECHR_TILINGS(ECHR_LAUNCH)
+#undef ECHR_LAUNCH
   return static_cast<int>(err);
 }

@@ -11,8 +11,13 @@ replaces experiments/probe_streaming_head2.py::_kernel (pallas_call at :78),
 the tile sweep.  One block owns TR rows and walks every vocab tile in
 order, with no vocab split: the probes' design, where kernel 2
 (ops/kernel_head.py) splits the vocab across blocks and masks the edge.
-What bounds it and how the tilings were chosen: the note at the top of the
-source.
+
+The block is kernel 2's: a producer warp keeps TMA loads of the A row
+block and of wp's vocab tiles in flight in a ring of stages, two consumer
+warpgroups multiply on wgmma and fold each tile in registers.  How each
+tiling maps onto that block, and the checks that it fits, live with the
+kernel (Plan in the source); ``l2_bytes`` counts what a call reads from L2
+by that plan.
 """
 from __future__ import annotations
 
@@ -26,6 +31,17 @@ TILINGS = ((32, 128), (32, 256), (32, 512), (64, 128), (64, 256), (64, 512),
            (128, 128), (128, 256))
 PLAN = (64, 512)  # kernel 7: the probe's TV and the largest TR that fits
 _PAD_BIAS = -1e30
+
+
+def l2_bytes(R: int, C: int, VP: int, tr: int, tv: int) -> dict:
+    """The bytes a call reads through L2 by the plan, a model and not a
+    measurement: A [R, C] bf16 once a vocab tile, wp [C, VP] bf16 and bp
+    [VP] f32 once a row block."""
+    blocks = -(-R // tr)
+    a = R * C * 2 * (VP // tv)
+    w = C * VP * 2 * blocks
+    bias = VP * 4 * blocks
+    return {"a": a, "w": w, "bias": bias, "total": a + w + bias}
 
 
 def pad_probe_head(w: torch.Tensor, b: torch.Tensor, tv: int):
@@ -58,6 +74,19 @@ def stream_head(out: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, tr: int =
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if use_plain(out):
         return stream_head_plain(out, wp, bp)
+    res = stream_head_on(native.library(), out, wp, bp, tr, tv)
+    stream_head.launches += 1
+    return res
+
+
+stream_head.launches = 0
+
+
+def stream_head_on(lib, out: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, tr: int,
+                   tv: int):
+    """Kernels 7 and 8 through ``lib`` (native.library(), or another build
+    of the C entry point) at the (tr, tv) tiling: the arguments are checked
+    and out is rounded to bf16; the launch is not counted."""
     if (tr, tv) not in TILINGS:
         raise ValueError(f"{_FN}: tiling {(tr, tv)} is not one of {TILINGS}")
     R, C = out.shape
@@ -71,16 +100,12 @@ def stream_head(out: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, tr: int =
         raise ValueError(f"{_FN}: needs R > 0, VP a positive multiple of tv={tv} and C a "
                          f"multiple of 8 (R={R}, VP={VP}, C={C})")
     if a.data_ptr() % 16 or wp.data_ptr() % 16:
-        raise ValueError(f"{_FN}: out and wp must start on a 16-byte boundary (cp.async)")
+        raise ValueError(f"{_FN}: out and wp must start on a 16-byte boundary (TMA)")
     tok = torch.empty(R, device=dev, dtype=torch.int32)
     mx = torch.empty(R, device=dev, dtype=torch.float32)
     lse = torch.empty(R, device=dev, dtype=torch.float32)
-    rc = native.library().echr_probe_stream_head(
+    rc = lib.echr_probe_stream_head(
         a.data_ptr(), wp.data_ptr(), bp.data_ptr(), R, C, VP, tr, tv, tok.data_ptr(),
         mx.data_ptr(), lse.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "echr_probe_stream_head")
-    stream_head.launches += 1
     return tok, mx, lse
-
-
-stream_head.launches = 0

@@ -1,17 +1,14 @@
 #!/usr/bin/env python3
-"""Time kernels 1-4 of this checkout beside another build of their
-sources, in turns on one NVIDIA GPU; and kernels 1 and 3 on the paths'
-masks with the proposals sorted by window start and unsorted.
+"""Time kernels 1-4 and 7-8 of this checkout beside another build of their
+sources, in turns on one NVIDIA GPU; kernels 1 and 3 on the paths' masks
+with the proposals sorted by window start and unsorted.
 
     python3 kernel_turns.py [--earlier CSRC]
 
 The builds, each a library with the same C entry points: "this", the
 package's own (echr_tpu_torch/csrc), and with --earlier "earlier", every
-*.cu of CSRC built from the sources before kernels 2 and 3 were
-redesigned, whose entry points of those two take the arguments of
-EARLIER_SIGNATURES (kernel 3 no mask, kernel 2 its own vocab split), for
-example the parent commit's kernel sources unpacked into a gitignored
-directory:
+*.cu of CSRC, for example the parent commit's kernel sources unpacked
+into a gitignored directory:
 
     mkdir -p echr_tpu_torch/_build/parent
     git archive HEAD~1 echr_tpu_torch/csrc | tar -x -C echr_tpu_torch/_build/parent
@@ -23,13 +20,16 @@ windows), kernel 4 at three (a dense cotangent, one zero outside windows,
 the cotangents of one training step after two), kernel 3 at three
 (phase 7's every entry live and windows in random order, and the window
 masks of that training step), kernel 2 at the serving shapes in bf16
-(R=4096, C=1536, V1=6001; also its host time a call).  Every build is
-held against the plain version (kernels 1 and 3 within 5e-4 where
-mask == 1; kernel 4 within phase 8's gates; kernel 2 within phase 3's),
-then all are timed in turns: each build in order, then in reverse (CUDA
-events).  Last, kernel 1 of this build on the
-greedy and the beam step with runtime.sort_decode_props on (as the decode
-paths run) and off, and on the short windows sorted and with the
+(R=4096, C=1536, V1=6001; also its host time a call), kernels 7 and 8 at
+the head probes' shapes (R=4096, C=1536, V1=6001 padded to the vocab
+tile, bf16) at every tiling (kernel 7 is the (64, 512) one; also its host
+time a call).  Every build is held against the plain version (kernels 1
+and 3 within 5e-4 where mask == 1; kernel 4 within phase 8's gates;
+kernel 2 within phase 3's; kernels 7-8 tokens bit-equal, max and lse
+within 5e-4), then all are timed in turns: each build in order, then in
+reverse (CUDA events).  Last, kernel 1 of this build on
+the greedy and the beam step with runtime.sort_decode_props on (as the
+decode paths run) and off, and on the short windows sorted and with the
 proposals shuffled (shuffle_proposals), and kernel 3 of this build on
 the training step's masks as sampled and sorted by window start
 (sort_windows; training does not sort), in turns.  The last line is a
@@ -37,7 +37,6 @@ JSON record of every time; each time printed stands beside the card's
 name and power limit.
 """
 import argparse
-import ctypes
 import json
 from pathlib import Path
 
@@ -45,17 +44,6 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# the earlier build's entry points of kernels 3 and 2 (the sources of
-# commit b009248), which native.load would declare with this build's
-EARLIER_SIGNATURES = {
-    # pre, q, w, b, out, B, N, T, H, stream
-    "echr_attention_scores_dense": [_P] * 5 + [_I] * 4 + [_P],
-    # out, w, b, bf16, R, C, V1, splits, part_m, part_l, part_a, tok, mx, lse, stream
-    "echr_greedy_head": [_P] * 3 + [_I] * 5 + [_P] * 6 + [_P],
-}
-
 
 def builds(earlier):
     """{name: library}, in the order they are timed."""
@@ -66,53 +54,9 @@ def builds(earlier):
         cu = sorted(Path(earlier).glob("*.cu"))
         if not cu:
             cs.fail(f"no *.cu in {earlier}")
-        lib = native.load(native.build(cu))
-        for name, argtypes in EARLIER_SIGNATURES.items():
-            getattr(lib, name).argtypes = argtypes
-        libs["earlier"] = lib
+        libs["earlier"] = native.load(native.build(cu))
     libs["this"] = native.library()
     return libs
-
-
-def dense_on(build, lib, pre, q, w, b, mask):
-    """Kernel 3 of a build: this build's through kernel_attention, the
-    earlier one (scores everywhere) without the mask."""
-    from echr_tpu_torch.ops import native
-    from echr_tpu_torch.ops.kernel_attention import dense_scores_on
-
-    if build != "earlier":
-        return dense_scores_on(lib, pre, q, w, b, mask)
-    B, T, H = pre.shape
-    N = q.shape[1]
-    out = torch.empty(B, N, T, device=pre.device)
-    native.check(lib.echr_attention_scores_dense(
-        pre.data_ptr(), q.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, T, H,
-        torch.cuda.current_stream().cuda_stream), "earlier echr_attention_scores_dense")
-    return out
-
-
-def head_of(build, lib, a, w, b):
-    """Kernel 2 of a build on bf16 rows a: this build's through
-    kernel_head, the earlier one with its own rule for the vocab splits
-    (as many as bring the grid to two blocks an SM)."""
-    from echr_tpu_torch.ops import native
-    from echr_tpu_torch.ops.kernel_head import head_on
-
-    if build != "earlier":
-        return head_on(lib, a, w, b)
-    R, C = a.shape
-    V1 = w.shape[0]
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits = max(1, -(-2 * sms // -(-R // 128)))
-    part = [torch.empty(splits, R, device=a.device, dtype=dt)
-            for dt in (torch.float32, torch.float32, torch.int32)]
-    tok = torch.empty(R, device=a.device, dtype=torch.int32)
-    mx, lse = torch.empty(R, device=a.device), torch.empty(R, device=a.device)
-    native.check(lib.echr_greedy_head(
-        a.data_ptr(), w.data_ptr(), b.data_ptr(), 1, R, C, V1, splits,
-        *(t.data_ptr() for t in part), tok.data_ptr(), mx.data_ptr(), lse.data_ptr(),
-        torch.cuda.current_stream().cuda_stream), "earlier echr_greedy_head")
-    return tok, mx, lse
 
 
 def turns_of(card, what, calls):
@@ -187,21 +131,21 @@ def kernel3_builds(card, name, raws, libs):
     """Every build of kernel 3 over raws [(pre, q, w, b, mask), ...]
     against the plain version where mask == 1, then timed in turns (ms a
     call)."""
-    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense_plain
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense_plain, dense_scores_on
 
     errs = {b: 0.0 for b in libs}
     for raw in raws:
         want = attention_scores_dense_plain(*raw[:4])
         m = raw[4] > 0
         for b, lib in libs.items():
-            errs[b] = max(errs[b], float((dense_on(b, lib, *raw) - want).abs()[m].max()))
+            errs[b] = max(errs[b], float((dense_scores_on(lib, *raw) - want).abs()[m].max()))
             if not errs[b] <= cs.TOL:
                 cs.fail(f"kernel 3 {name}, build {b}: max|d| {errs[b]:.3e} > {cs.TOL}")
         del want
     density = sum(int(r[4].ne(0).sum()) for r in raws) / sum(r[4].numel() for r in raws)
     print(f"[k3] {name}: {len(raws)} call(s), density {density:.4f}; max|d| where mask==1 "
           + ", ".join(f"{b} {e:.3e}" for b, e in errs.items()))
-    calls = {b: (lambda b=b, lib=lib: [dense_on(b, lib, *raw) for raw in raws])
+    calls = {b: (lambda lib=lib: [dense_scores_on(lib, *raw) for raw in raws])
              for b, lib in libs.items()}
     turns = {b: [t / len(raws) for t in ts]
              for b, ts in turns_of(card, f"kernel 3, {name} (ms for all calls)", calls).items()}
@@ -214,7 +158,7 @@ def kernel2_builds(card, libs):
     plain version (phase 3's gates), then timed in turns; and each build's
     host time a call."""
     from echr_tpu_torch.ops import force_plain
-    from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.ops.kernel_head import greedy_head, head_on
 
     dev = torch.device("cuda")
     out, w, b = cs.head_inputs(np.random.RandomState(1), 4096, 1536, 6001, torch.bfloat16, dev)
@@ -225,19 +169,58 @@ def kernel2_builds(card, libs):
     clear = (top2[:, 0] - top2[:, 1]) > 1e-3
     errs = {}
     for name, lib in libs.items():
-        tok, mx, lse = head_of(name, lib, a, w, b)
+        tok, mx, lse = head_on(lib, a, w, b)
         bad = int((tok != ptok)[clear].sum())
         errs[name] = max(float((mx - pmx).abs().max()), float((lse - plse).abs().max()))
         if bad or not errs[name] <= cs.TOL:
             cs.fail(f"kernel 2, build {name}: {bad} token mismatches, max|d| {errs[name]:.3e}")
     print(f"[k2] R=4096 C=1536 V1=6001 bf16: tokens equal on the {int(clear.sum())} rows with "
           f"top-2 gap > 1e-3; max|d| max/lse " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
-    calls = {k: (lambda k=k, lib=lib: head_of(k, lib, a, w, b)) for k, lib in libs.items()}
+    calls = {k: (lambda lib=lib: head_on(lib, a, w, b)) for k, lib in libs.items()}
     turns = turns_of(card, "kernel 2, R=4096 C=1536 V1=6001 bf16", calls)
     host = {k: cs.host_us(fn) for k, fn in calls.items()}
     print("  kernel 2 host time a call: " + ", ".join(f"{k} {u:.1f} us" for k, u in host.items())
           + f" [{card}]")
     return {"max_abs_err": errs, "turns_ms": turns, "host_us_per_call": host}
+
+
+@torch.inference_mode()
+def stream_builds(card, libs):
+    """Every build of kernels 7-8 at every tiling at the head probes'
+    shapes against the plain version (tokens bit-equal, max and lse within
+    TOL), then timed in turns; and each build's host time a call at kernel
+    7's plan."""
+    from echr_tpu_torch.experiments import probe_greedy_head as pg
+    from echr_tpu_torch.ops.kernel_probe_head import (PLAN, TILINGS, pad_probe_head,
+                                                      stream_head_on, stream_head_plain)
+
+    w, b, out0 = pg.probe_inputs(pg.B, pg.N, pg.C, pg.V1, 0, torch.device("cuda"))
+    a = out0.to(torch.bfloat16)
+    rec = {}
+    for tr, tv in TILINGS:
+        wp, bp = pad_probe_head(w, b, tv)
+        want = stream_head_plain(a, wp, bp)
+        errs = {}
+        for name, lib in libs.items():
+            c = pg.check_head(stream_head_on(lib, a, wp, bp, tr, tv), want)
+            errs[name] = max(c["max_abs_err_max"], c["max_abs_err_lse"])
+            if c["token_mismatches"] or not errs[name] <= cs.TOL:
+                cs.fail(f"kernels 7-8 at {(tr, tv)}, build {name}: {c}")
+        del want
+        tag = f"{tr}x{tv}"
+        print(f"[k8] {tag} R={a.shape[0]} C={pg.C} VP={wp.shape[1]}: tokens bit-equal, max|d| "
+              f"max/lse " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        calls = {k: (lambda lib=lib: stream_head_on(lib, a, wp, bp, tr, tv))
+                 for k, lib in libs.items()}
+        kernel = 7 if (tr, tv) == PLAN else 8
+        rec[tag] = {"max_abs_err": errs, "turns_ms": turns_of(card, f"kernel {kernel}, {tag}",
+                                                              calls)}
+    wp, bp = pad_probe_head(w, b, PLAN[1])
+    host = {k: cs.host_us(lambda lib=lib: stream_head_on(lib, a, wp, bp, *PLAN))
+            for k, lib in libs.items()}
+    print("  kernel 7 host time a call: " + ", ".join(f"{k} {u:.1f} us" for k, u in host.items())
+          + f" [{card}]")
+    return {"tilings": rec, "host_us_per_call": host}
 
 
 @torch.inference_mode()
@@ -305,6 +288,7 @@ def main():
     rec = {"card": card, "builds": list(libs), "kernel1": {}, "kernel4": {}, "kernel3": {},
            "sort": {}}
     rec["kernel2"] = kernel2_builds(card, libs)
+    rec["kernel78"] = stream_builds(card, libs)
 
     k1 = rec["kernel1"]
     k1["phase2_synthetic"] = kernel1_builds(

@@ -90,14 +90,15 @@ def test_kernel1_tanh_counts():
 
 
 @pytest.mark.parametrize("kernel", ["masked_scores_on", "scores_bwd_on", "dense_scores_on",
-                                    "head_on"])
+                                    "head_on", "stream_head_on"])
 def test_launch_through_a_library_raises_on_cpu(kernel):
-    """The launch helpers behind kernels 1-4 (the wrappers call them with
+    """The launch helpers behind kernels 1-4 and 7-8 (the wrappers call them with
     native.library(); comparisons with another build) take CUDA tensors
     only: on the CPU they raise before reaching the library, and the
     wrappers' launch counts do not move."""
     from echr_tpu_torch.ops import kernel_attention as ka
     from echr_tpu_torch.ops import kernel_head as kh
+    from echr_tpu_torch.ops import kernel_probe_head as kp
 
     r = np.random.RandomState(3)
     B, N, T, H = 2, 5, 9, 16
@@ -106,12 +107,16 @@ def test_launch_through_a_library_raises_on_cpu(kernel):
     mask = torch.from_numpy((r.rand(B, N, T) > 0.5).astype(np.float32))
     args = {"masked_scores_on": (pre, q, w, b, mask), "dense_scores_on": (pre, q, w, b, mask),
             "scores_bwd_on": (pre, q, w, mask),
-            "head_on": (torch.randn(7, H), torch.randn(11, H).bfloat16(), torch.zeros(11))}
+            "head_on": (torch.randn(7, H), torch.randn(11, H).bfloat16(), torch.zeros(11)),
+            "stream_head_on": (torch.randn(7, H),) + kp.pad_probe_head(torch.randn(H, 11),
+                                                                       torch.zeros(11), 128)
+            + kp.PLAN}
     counts = (ka.attention_scores_masked, ka.attention_scores_dense, ka.attention_scores_bwd,
-              kh.greedy_head)
+              kh.greedy_head, kp.stream_head)
+    module = {"head_on": kh, "stream_head_on": kp}.get(kernel, ka)
     before = [fn.launches for fn in counts]
     with pytest.raises(ValueError, match="is on cpu"):
-        getattr(kh if kernel == "head_on" else ka, kernel)(None, *args[kernel])
+        getattr(module, kernel)(None, *args[kernel])
     assert [fn.launches for fn in counts] == before
 
 
