@@ -5,7 +5,7 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
-kernel_turns.py times kernels 1-4 and 7-8 beside another build of their
+kernel_turns.py times kernels 1-4 and 7-10 beside another build of their
 sources (a parent commit's) in turns; this script times this checkout's
 kernels alone.
 
@@ -96,8 +96,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      probe's shapes, then X0, XM, X0p, XMp and every tiling in interleaved
      windows; exact ties at every tiling; each tiling's time a call and
      the bytes its plan reads through L2 (modelled);
-  17. kernels 9 and 10 against their plain versions at B=32, N=128, T=256,
-     H=512, KD=2048 and a ragged shape, then probe_mxu_vpu_overlap: S0, S1,
+  17. kernels 9 and 10, and kernel 10's product warps alone, against their
+     plain versions at B=32, N=128, T=256, H=512, KD=2048, a ragged shape
+     and a shape with N and T both off the kernels' 64 x 128 block at the
+     narrowest product (KD=128), and kernel 10 at the probe's KD=8192; their
+     times (kernel 10 also at KD=8192) beside the bound, the SFU floor
+     (two SFU ops a tanh at the data sheet's 16 a clock an SM, at
+     clocks.max.sm: modelled, printed and kept out of the record) and, at
+     the end, the tanh-rate floor (phase 2's rate); then probe_mxu_vpu_overlap: S0, S1,
      SD and S2 at KD=2048 and 8192.  In 15-17 each kernel's launches over
      the probe's run must equal the calls the probe made.
 
@@ -122,6 +128,9 @@ BEAM, WINDOW = 4, 64  # beam width; kernel 6's W
 # published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+# special-function unit: 16 results a clock an SM (CUDA C++ Programming Guide,
+# arithmetic instructions, compute capability 9.0); echr_tanh takes two
+SFU_OPS_PER_CLOCK_SM, SFU_OPS_PER_TANH = 16, 2
 
 
 def fail(msg):
@@ -1466,22 +1475,44 @@ def phase_probe_sweep(card):
     return record
 
 
+def sfu_floor(tanh_needed, grid_blocks=None, tanh_per_block=None):
+    """The SFU floor of echr_tanh work: two SFU ops a tanh (ex2, rcp) at the
+    data sheet's 16 a clock an SM, at the card's clocks.max.sm.  Over every
+    SM (``sfu_floor_ms``), and, given a grid, over its waves of blocks of
+    ``tanh_per_block`` each, one block an SM (``sfu_floor_grid_ms``)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_ms = SFU_OPS_PER_CLOCK_SM * mhz * 1e3 / SFU_OPS_PER_TANH  # tanh a ms on one SM
+    rec = {"sfu_floor_ms": tanh_needed / (per_ms * sms), "sfu_clock_mhz": mhz, "sms": sms}
+    if grid_blocks is not None:
+        rec["sfu_floor_grid_ms"] = -(-grid_blocks // sms) * tanh_per_block / per_ms
+    return rec
+
+
 @torch.inference_mode()
 def phase_probe_overlap(card):
-    """Kernels 9 and 10 against their plain versions at the probe's shapes
-    (B=32, N=128, T=256, H=512, KD=2048) and a ragged shape, kernel 10's
-    product warps alone too; their times; then the probe: S0, S1, SD and S2
-    at KD=2048 and 8192."""
+    """Kernels 9 and 10, and kernel 10's product warps alone, against their
+    plain versions at the probe's shapes (B=32, N=128, T=256, H=512,
+    KD=2048), a ragged shape and one with N and T both off the 64 x 128
+    block and the narrowest product (KD=128), and kernel 10 at KD=8192;
+    their times and SFU floors (printed only: modelled from the data
+    sheet); then the probe: S0, S1, SD and S2 at KD=2048 and 8192."""
     from echr_tpu_torch.experiments import probe_mxu_vpu_overlap as probe
     from echr_tpu_torch.ops import force_plain
-    from echr_tpu_torch.ops.kernel_probe_scores import probe_scores, probe_scores_plus_dot
+    from echr_tpu_torch.ops.kernel_probe_scores import (KD_TILE, TILE_N, TILE_T, grid,
+                                                        probe_dot_plain, probe_scores,
+                                                        probe_scores_plus_dot)
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(17)
     bf16 = torch.bfloat16
     records, worst = {}, {"probe_scores": 0.0, "probe_scores_plus_dot": 0.0}
     for name, (B, N, T, H, KD) in {"probe": (probe.B, probe.N, probe.T, probe.H, probe.KD),
-                                   "ragged": (3, 77, 200, 496, 256)}.items():
+                                   "ragged": (3, 77, 200, 496, 256),
+                                   "off the block": (2, 50, 130, 100, KD_TILE)}.items():
         pre, q = _rand(rng, (B, T, H), 0.5, dev), _rand(rng, (B, N, H), 0.5, dev)
         w, wd = _rand(rng, (H,), 0.05, dev), _rand(rng, (H, KD), 0.05, dev).to(bf16)
         s9 = probe_scores(pre, q, w)
@@ -1502,6 +1533,8 @@ def phase_probe_overlap(card):
         if name != "probe":
             continue
         tanh_ops = 4.0 * B * N * T * H  # per (n, t, h): add, tanh, multiply, add
+        blocks = int(np.prod(grid(B, N, T)))
+        floors = sfu_floor(B * N * T * H, blocks, TILE_N * TILE_T * H)
         for fn, call, outs, extra in (
                 (probe_scores, lambda: probe_scores(pre, q, w), (s9,), {}),
                 (probe_scores_plus_dot, lambda: probe_scores_plus_dot(pre, q, w, wd),
@@ -1513,7 +1546,24 @@ def phase_probe_overlap(card):
                                     **bound(nbytes(pre, q, w, *outs), f32=tanh_ops, **extra)}
         records["probe_scores_plus_dot"]["product_only_ms"] = cuda_ms(
             lambda: probe_scores_plus_dot(pre, q, w, wd, scores=False))
-        del pre, q, wd, s9, s10, d10, d_only, ps, pd
+        del wd, s9, s10, d10, d_only, pd
+        wide = _rand(rng, (H, probe.KDS[-1]), 0.05, dev).to(bf16)  # the probe's wider product
+        s_w, d_w = probe_scores_plus_dot(pre, q, w, wide)
+        _, d_w_only = probe_scores_plus_dot(pre, q, w, wide, scores=False)
+        pd_w = probe_dot_plain(q, wide, T)
+        e_w = max(float((s_w - ps).abs().max()), float((d_w - pd_w).abs().max()),
+                  float((d_w_only - pd_w).abs().max()))
+        print(f"[17] {name} at KD={wide.shape[1]}: kernel 10 scores and product (and the "
+              f"product alone) max|d| {e_w:.3e}")
+        if not e_w <= TOL:
+            fail(f"kernel 10 {name} at KD={wide.shape[1]}: max|d| {e_w:.3e} > {TOL}")
+        worst["probe_scores_plus_dot"] = max(worst["probe_scores_plus_dot"], e_w)
+        del s_w, d_w, d_w_only, pd_w, ps
+        records["probe_scores_plus_dot"]["at_kd"] = {str(probe.KDS[-1]): {
+            "ms": cuda_ms(lambda: probe_scores_plus_dot(pre, q, w, wide)),
+            "product_only_ms": cuda_ms(lambda: probe_scores_plus_dot(pre, q, w, wide,
+                                                                     scores=False))}}
+        del pre, q, wide
     _reset_probe_counts()
     run = probe.run()
     torch.cuda.synchronize()
@@ -1525,16 +1575,20 @@ def phase_probe_overlap(card):
         rec.update(launches=counts[name], max_abs_err=worst[name], tanh_needed=n_tanh,
                    probe_ms_per_step={str(kd): row for kd, row in run["ms_per_step"].items()})
         print(f"[17] {name} {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.4f} ms a call, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); launches {counts[name]} [{card}]")
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), SFU floor worked from the data "
+              f"sheet (modelled) {floors['sfu_floor_ms']:.4f} ms on {floors['sms']} SMs, "
+              f"{floors['sfu_floor_grid_ms']:.4f} ms for its grid's {blocks} blocks (at "
+              f"{floors['sfu_clock_mhz']:.0f} MHz); launches {counts[name]} [{card}]")
     kd = min(run["ms_per_step"])
-    tanh_per_ms = n_tanh / run["ms_per_step"][kd]["S0"]
     rows = {kd: {k: round(v, 4) for k, v in row.items()} for kd, row in run["ms_per_step"].items()}
-    print(f"[17] S0 evaluates {tanh_per_ms / 1e6:.1f} M tanh a ms (KD={kd}): the rate of the "
-          f"tanh-rate floors of the tanhf kernels 9 and 10 [{card}]")
-    print(f"[17] kernel 10's product warps alone "
-          f"{records['probe_scores_plus_dot']['product_only_ms']:.4f} ms a call; probe ms/step "
-          f"{rows} [{card}]")
-    return records, tanh_per_ms
+    print(f"[17] S0 (kernel 9, echr_tanh) evaluates "
+          f"{n_tanh / run['ms_per_step'][kd]['S0'] / 1e6:.1f} M tanh a ms (KD={kd}) [{card}]")
+    k10 = records["probe_scores_plus_dot"]
+    at_kd = {kd: f"{r['ms']:.4f} ms, the product alone {r['product_only_ms']:.4f} ms"
+             for kd, r in k10["at_kd"].items()}
+    print(f"[17] kernel 10's product warps alone {k10['product_only_ms']:.4f} ms a call; "
+          f"kernel 10 at KD={at_kd}; probe ms/step {rows} [{card}]")
+    return records
 
 
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
@@ -1581,12 +1635,10 @@ def main():
     phase_beam_parity(tap, cg, vocab)
     probe_head = phase_probe_head(card)
     probe_sweep = phase_probe_sweep(card)
-    overlap, s0_tanh_per_ms = phase_probe_overlap(card)
+    overlap = phase_probe_overlap(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
-    for rec in (scores, dense, bwd):
+    for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
-    for rec in overlap.values():
-        add_tanh_floor(rec, s0_tanh_per_ms, "probe S0, tanhf (phase 17)")
     for name, rec in k1_inputs.items():
         print(f"[6] kernel 1, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
               f"{rec['tanh_floor_ms']:.4f} ms, live-work bound {rec['bound_ms']:.4f} ms [{card}]")

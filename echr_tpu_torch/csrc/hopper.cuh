@@ -1,5 +1,6 @@
-// Hopper pieces shared by kernel 2's bf16 path (greedy_head.cu) and the
-// head probes' kernels 7 and 8 (probe_stream_head.cu): mbarriers, TMA loads,
+// Hopper pieces shared by kernel 2's bf16 path (greedy_head.cu), the head
+// probes' kernels 7 and 8 (probe_stream_head.cu) and kernel 10's product
+// (probe_score_overlap.cu): mbarriers, TMA loads,
 // the 128-byte-swizzle wgmma descriptors, the m64nNk16 bf16 wgmma wrappers,
 // the tensor-map encoder, and the fold of a finished logit tile from wgmma's
 // accumulator layout into a running (max, argmax, sumexp) per row.  Built

@@ -9,245 +9,378 @@
 // kernel 10 (scores and product) replaces ::_score_plus_dot_kernel (pallas_call
 // at :95).  As in the probe, every 128-frame block of a video computes the
 // product of its proposals' q rows with wd again and writes it to its own copy
-// j: dot has ceil(T/128) copies of the product.  Both are one template on DOT,
-// so the score tile, its tanh loop and its warps are the same in both and
-// kernel 10 - kernel 9 is the product alone.
+// j: dot has ceil(T/128) copies of the product (17.2 GFLOP a call at B=32,
+// N=128, T=256, H=512, KD=2048).  Both are one template on DOT: the score warps
+// and their code are the same in both, so kernel 10 - kernel 9 is what the
+// product adds.
 //
-// Bound on an H100: kernel 9 by the accurate tanhf (B*N*T*H = 537M a step at
-// B=32, N=128, T=256, H=512; 2.15 GFLOP f32 at 4 per element against 29 MB),
-// kernel 10 by the same plus 17.2 GFLOP of bf16 products at KD=2048 and 67 MB
-// more output.  A block owns (video b, TN=32 proposals, TT=128 frames):
-// eight score warps stage pre and q in HC=32-wide slices and each thread
-// reduces over H for 16 outputs (16 proposals at one frame), with accurate
-// tanhf (no fast math).
+// What bounds them on an H100.  Kernel 9 is B*N*T*H = 537M tanh at the
+// probe's shapes (2.15 GFLOP f32 at 4 per element against 29 MB).  Each tanh
+// is echr_tanh (tanh.cuh): 7 instructions, two of them special-function-unit
+// (SFU) ops, ex2 and rcp, of the SM's 16 a clock, so the SFU floor is 0.26 ms
+// at 1980 MHz.  With the add of q and pre and the multiply-add by w a tanh
+// takes 9 issue slots a warp (the score loop: ~1140 instructions for 128
+// tanh) against the SFU's 16 cycles, so the score warps are bound by the SFU
+// and leave ~7 of every 16 issue slots free.  Kernel 10
+// adds 17.2 GFLOP of bf16 products (0.017 ms at the card's 989 TFLOP/s), 67 MB
+// of f32 output and wd [H, KD] read once a block from L2 (256 MiB at the
+// probe's shapes): tensor-core, memory and L2 work that needs few issue slots
+// if it is issued as warpgroup mma.  The question the pair answers is whether
+// that work hides in the score warps' free slots.
 //
-// The overlap design is warp-specialised.  Kernel 10 adds four dot warps to
-// the block; they never wait on the score warps (each group syncs on its own
-// named barrier, never __syncthreads), so while the score warps keep the FMA
-// and SFU pipes busy the scheduler can issue the dot warps' mma to the tensor
-// pipe.  Interleaving the two in the same warps would tie each mma to a point
-// in the tanh loop and let one stall the other; separate warps let each run
-// at its own pace and let the tanh work hide the product's L2 latency.  The
-// dot warps put the block's 32 q rows in shared memory in bf16 once; then
-// each streams its own 32-column slices of wd through a private DS-stage
-// cp.async ring (no block barrier) into nvcuda::wmma bf16 16x16x16 products
-// with f32 accumulators, which it stores straight to dot.  Ragged N and T are masked; the product needs H a
-// multiple of 16 and KD a multiple of 128.
+// A block owns (video b, TN=64 proposals, TT=128 frames): one copy of the
+// product is 64 rows, wgmma's M, and the probe's grid is 2 x 2 x 32 = 128
+// blocks, one wave on 132 SMs.
+//
+// Score warps (SCORE_WARPS = 8, both kernels).  Warp g owns proposals
+// 8g .. 8g + 7, lane l frames l + 32 j (j < 4): 32 independent accumulators a
+// thread.  pre, q and w are staged HC=16 hidden units at a time by 16-byte
+// cp.async into a ring of three buffers, one named barrier a chunk, so the
+// copy of chunk c + 2 runs under the tanh of chunk c.  A thread reads its 4
+// frames' pre as float4 (rows 80 bytes apart: no bank conflict) and its
+// warp's 8 proposals' q as float4 broadcasts, 13 shared loads for 128 tanh.
+//
+// Product warps (kernel 10 only): a producer warp and a consumer warpgroup,
+// on hopper.cuh.  The producer's one thread streams wd through a ring of
+// STAGES [64 x 128] stages by TMA (two [64 x 64] boxes a stage, 128-byte
+// swizzle), full / empty mbarriers.  The consumer converts the block's 64 q
+// rows to bf16 into a K-major A in shared memory, written by hand in the
+// 128-byte swizzle that sw128_desc reads (16-byte chunk c of row r at
+// c ^ (r % 8)), then for each 128-column tile of KD runs wgmma m64n128k16
+// over H, A and wd's stages both from shared memory (wd MN-major, as it lies:
+// sw128_mn_desc), and stores the f32 accumulators straight to dot, the rows
+// past N masked.  The score warps and the product warps share only the
+// barrier after the mbarriers' init; the score warps sync on named barrier 1,
+// the consumer on 2.  The product warps are a function of their own, not
+// inlined, so ptxas schedules the score loop in kernel 10 as in kernel 9.
+// 13 warps at one block an SM leave 128 registers a thread, enough for both
+// roles without a spill (ptxas: PERF.md), so no setmaxnreg.
+//
+// Ragged N, T and H are masked: cp.async zero-fills rows past N or T and
+// hidden units past H, A is zero past H and TMA reads wd's rows past H as
+// zero.  Both kernels need H a multiple of 4 and 16-byte aligned pre, q and
+// w; kernel 10 also KD a multiple of 128, wd 16-byte aligned, and H <= 896
+// (A, 64 x H bf16, shares the 227 KB with the ring and the staged chunks).
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
 
-#include <cstdint>
+#include "hopper.cuh"
+#include "tanh.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int TN = 32;             // proposals per block
-constexpr int TT = 128;            // frames per block: the probe's TILE_T, one dot copy
-constexpr int HC = 32;             // hidden units of pre and q staged per pass
-constexpr int SCORE_THREADS = 256; // 8 warps: thread (g, t) owns proposals 16g.. at frame t
-constexpr int ROWS = TN * TT / SCORE_THREADS;  // 16 outputs a thread
-constexpr int DOT_WARPS = 4;
-constexpr int DOT_THREADS = 32 * DOT_WARPS;
-constexpr int DN = 32;             // columns of one dot warp's pass: 2 fragments
-constexpr int DS = 8;              // stages of a dot warp's cp.async ring
-constexpr int LDB = DN + 8;        // ring row stride: 80 bytes, a wmma ldm
-constexpr int SCORE_BAR = 1, DOT_BAR = 2;  // named barriers (0 is __syncthreads)
+constexpr int TN = 64;   // proposals per block: wgmma's M
+constexpr int TT = 128;  // frames per block: the probe's TILE_T, one copy of the product
+constexpr int SCORE_WARPS = 8;
+constexpr int SCORE_THREADS = 32 * SCORE_WARPS;
+constexpr int RN = TN / SCORE_WARPS;  // proposals of a score thread: its warp's
+constexpr int RT = TT / 32;           // frames of a score thread: lane + 32 j
+constexpr int HC = 16;                // hidden units of a staged chunk
+constexpr int V4 = HC / 4;            // float4 a staged row
+constexpr int BUFS = 3;               // staged chunks in flight
+constexpr int PRE_LD = HC + 4;        // a staged pre row, floats: 80 bytes
+constexpr int BUF_FLOATS = TT * PRE_LD + TN * HC + HC;  // pre, q, w of a chunk
+constexpr int SCORE_BYTES = BUFS * BUF_FLOATS * 4;
+
+constexpr int KN = 128;                  // columns of a product tile: wgmma's n
+constexpr int BK = SW;                   // hidden units of a ring stage
+constexpr int STAGES = 4;
+constexpr int CHUNK_BYTES = BK * SW * 2;     // one [64 x 64] box of wd
+constexpr int STAGE_BYTES = BK * KN * 2;
+constexpr int A_ATOM = TN * 128;             // 64 rows x 64 hidden units of A, bf16
+constexpr int DOT_THREADS = 128 + 32;        // the consumer warpgroup, the producer warp
+constexpr int SMEM_LIMIT = 232448;           // 227 KB: what one block may use
+constexpr int SCORE_BAR = 1, DOT_BAR = 2;    // named barriers (0 is __syncthreads)
+
+static_assert(TN % SCORE_WARPS == 0 && TT % 32 == 0 && HC % 4 == 0, "score tiling");
+static_assert((PRE_LD / 4) % 2 == 1, "pre rows an odd number of 16-byte chunks apart");
+static_assert(TN == 64 && KN % SW == 0 && KN / 2 <= 128, "one m64nKNk16 consumer");
+static_assert(SCORE_BYTES % 16 == 0, "the barriers follow the staged chunks");
+
+__host__ __device__ constexpr int padded_h(int H) { return (H + SW - 1) / SW * SW; }
+
+// kernel 10: 1024 bytes of alignment slack, the ring, A, the staged chunks,
+// then the full and the empty barriers; kernel 9: the staged chunks
+__host__ __device__ constexpr int smem_bytes(bool dot, int H) {
+  return dot ? 1024 + STAGES * STAGE_BYTES + A_ATOM * (padded_h(H) / SW) + SCORE_BYTES +
+                   16 * STAGES
+             : SCORE_BYTES;
+}
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+// 16 bytes from global to shared; zeros, and no read, where !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
+template <int K>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
 }
 
-// the dynamic shared memory of kernel 10: q rows in bf16, then per dot warp
-// its ring and a 16 x 16 f32 scratch for a ragged edge
-__host__ __device__ constexpr int ldq(int H) { return H + 8; }
-constexpr size_t kRingBytes = sizeof(bf16) * DS * 16 * LDB;
-constexpr size_t kScratchBytes = sizeof(float) * 16 * 16;
-size_t dot_smem(int H) {
-  return sizeof(bf16) * TN * ldq(H) + DOT_WARPS * (kRingBytes + kScratchBytes);
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void score_warps(const float* __restrict__ pre,
                                             const float* __restrict__ q,
                                             const float* __restrict__ w, float* __restrict__ s,
-                                            int b, int n0, int t0, int N, int T, int H) {
-  __shared__ float pre_s[TT][HC + 1];  // +1: the frame's lanes read distinct banks
-  __shared__ float q_s[TN][HC];        // a warp reads one row: a broadcast
-  __shared__ float w_s[HC];
-  const int t = threadIdx.x % TT;
-  const int g = threadIdx.x / TT;
+                                            float* buf, int b, int n0, int t0, int N, int T,
+                                            int H) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* pb = pre + (size_t)b * T * H;
   const float* qb = q + (size_t)b * N * H;
-  float acc[ROWS];
+  const uint32_t buf0 = smem_u32(buf);
+  const int chunks = (H + HC - 1) / HC;
+
+  // chunk c into buffer c % BUFS: TT rows of pre, TN rows of q, then w, V4
+  // 16-byte copies a row; an empty group past the last chunk keeps the count
+  auto stage = [&](int c) {
+    if (c < chunks) {
+      const uint32_t dst = buf0 + (c % BUFS) * (BUF_FLOATS * 4);
+      for (int i = threadIdx.x; i < (TT + TN + 1) * V4; i += SCORE_THREADS) {
+        const int r = i / V4, v = i % V4, h = c * HC + 4 * v;
+        const float* src = w + h;
+        uint32_t d = dst + (TT * PRE_LD + TN * HC + 4 * v) * 4;
+        bool ok = h < H;
+        if (r < TT) {
+          src = pb + (size_t)(t0 + r) * H + h;
+          d = dst + (r * PRE_LD + 4 * v) * 4;
+          ok = ok && t0 + r < T;
+        } else if (r < TT + TN) {
+          src = qb + (size_t)(n0 + r - TT) * H + h;
+          d = dst + (TT * PRE_LD + (r - TT) * HC + 4 * v) * 4;
+          ok = ok && n0 + r - TT < N;
+        }
+        cp_async16(d, ok ? src : w, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[RN][RT];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) acc[i] = 0.f;
-  for (int h0 = 0; h0 < H; h0 += HC) {
-    for (int i = threadIdx.x; i < TT * HC; i += SCORE_THREADS) {
-      const int r = i / HC, c = i % HC;
-      pre_s[r][c] = (t0 + r < T && h0 + c < H) ? pb[(size_t)(t0 + r) * H + h0 + c] : 0.f;
-    }
-    for (int i = threadIdx.x; i < TN * HC; i += SCORE_THREADS) {
-      const int r = i / HC, c = i % HC;
-      q_s[r][c] = (n0 + r < N && h0 + c < H) ? qb[(size_t)(n0 + r) * H + h0 + c] : 0.f;
-    }
-    if (threadIdx.x < HC) w_s[threadIdx.x] = h0 + threadIdx.x < H ? w[h0 + threadIdx.x] : 0.f;
-    named_barrier(SCORE_BAR, SCORE_THREADS);
-    const int hn = min(HC, H - h0);
-    for (int c = 0; c < hn; ++c) {
-      const float p = pre_s[t][c];
-      const float wc = w_s[c];
+  for (int i = 0; i < RN; ++i)
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) acc[i] = fmaf(wc, tanhf(q_s[g * ROWS + i][c] + p), acc[i]);
+    for (int j = 0; j < RT; ++j) acc[i][j] = 0.f;
+  stage(0);
+  stage(1);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<1>();                       // this thread's copies of chunk c landed
+    named_barrier(SCORE_BAR, SCORE_THREADS);  // everyone's; and chunk c - 1 is read
+    stage(c + 2);                             // into chunk c - 1's buffer
+    const float* cur = buf + (c % BUFS) * BUF_FLOATS;
+    const float4* p4 = reinterpret_cast<const float4*>(cur) + lane * (PRE_LD / 4);
+    const float4* q4 = reinterpret_cast<const float4*>(cur + TT * PRE_LD) + warp * RN * V4;
+    const float4* w4 = reinterpret_cast<const float4*>(cur + TT * PRE_LD + TN * HC);
+#pragma unroll 1
+    for (int v = 0; v < V4; ++v) {
+      const float4 wv = w4[v];
+      float4 pv[RT];
+#pragma unroll
+      for (int j = 0; j < RT; ++j) pv[j] = p4[32 * j * (PRE_LD / 4) + v];
+#pragma unroll
+      for (int i = 0; i < RN; ++i) {
+        const float4 qv = q4[i * V4 + v];  // the warp's row: a broadcast
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          float a = acc[i][j];
+          a = fmaf(wv.x, echr_tanh(qv.x + pv[j].x), a);
+          a = fmaf(wv.y, echr_tanh(qv.y + pv[j].y), a);
+          a = fmaf(wv.z, echr_tanh(qv.z + pv[j].z), a);
+          a = fmaf(wv.w, echr_tanh(qv.w + pv[j].w), a);
+          acc[i][j] = a;
+        }
+      }
     }
-    named_barrier(SCORE_BAR, SCORE_THREADS);  // the next pass overwrites the slices
   }
-  if (t0 + t < T) {
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int n = n0 + g * ROWS + i;
-      if (n < N) s[((size_t)b * N + n) * T + t0 + t] = acc[i];
+  for (int i = 0; i < RN; ++i) {
+    const int n = n0 + warp * RN + i;
+    if (n < N) {
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const int t = t0 + lane + 32 * j;
+        if (t < T) s[((size_t)b * N + n) * T + t] = acc[i][j];
+      }
     }
   }
 }
 
-__device__ __forceinline__ void dot_warps(const float* __restrict__ q, const bf16* __restrict__ wd,
-                                          float* __restrict__ dot, unsigned char* smem, int b,
-                                          int n0, int N, int H, int KD) {
+// kernel 10's product warps: warps SCORE_WARPS .. + 3 the consumer
+// warpgroup, the next the producer.  Not inlined: inlined into the kernel,
+// this code led ptxas to schedule the score loop with its tanh chains one
+// after another (the same instructions), and kernel 10 took 1.5x as long
+// (kernel_turns.py's docstring gives the sed that builds the inlined copy).
+__device__ __noinline__ void product_warps(const CUtensorMap* map_wd,
+                                              const float* __restrict__ q,
+                                              float* __restrict__ dot, uint32_t ring,
+                                              uint32_t a_base, uint32_t full0, uint32_t empty0,
+                                              int b, int n0, int N, int H, int KD) {
   const int lt = threadIdx.x - SCORE_THREADS;
-  const int dw = lt >> 5, lane = lt & 31;
-  const int LDQ = ldq(H);
-  bf16* qa = reinterpret_cast<bf16*>(smem);
-  unsigned char* own = smem + sizeof(bf16) * TN * LDQ + dw * (kRingBytes + kScratchBytes);
-  bf16* ring = reinterpret_cast<bf16*>(own);
-  float* scratch = reinterpret_cast<float*>(own + kRingBytes);
-
-  const float* qb = q + (size_t)b * N * H;
-  for (int i = lt; i < TN * H; i += DOT_THREADS) {
-    const int r = i / H, c = i % H;
-    qa[r * LDQ + c] = __float2bfloat16(n0 + r < N ? qb[(size_t)(n0 + r) * H + c] : 0.f);
-  }
-  named_barrier(DOT_BAR, DOT_THREADS);
-
-  // the warp's stream of stages: pass p (columns (p * DOT_WARPS + dw) * DN),
-  // depth slice k (rows 16k .. 16k + 15 of wd)
-  const int KS = H / 16;
-  const int total = (KD / (DN * DOT_WARPS)) * KS;
-  auto issue = [&](int idx) {
-    if (idx < total) {
-      const int p = idx / KS, k = idx % KS;
-      const int col = (p * DOT_WARPS + dw) * DN;
-      bf16* slot = ring + (idx % DS) * 16 * LDB;
+  const int nk = padded_h(H) / BK;
+  const int tiles = KD / KN;
+  if (lt >= 128) {  // the producer
+    if (lt == 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = 0; tile < tiles; ++tile)
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);  // the first round passes
+          const uint32_t full = full0 + 8 * stage;
+          mbar_expect_tx(full, STAGE_BYTES);  // rows past H count: TMA writes them as zeros
 #pragma unroll
-      for (int v = lane; v < 16 * DN / 8; v += 32) {  // 16 rows x 4 vectors of 16 bytes
-        const int row = v / (DN / 8), c = (v % (DN / 8)) * 8;
-        cp_async16(slot + row * LDB + c, wd + (size_t)(16 * k + row) * KD + col + c);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-  for (int idx = 0; idx < DS - 1; ++idx) issue(idx);
-
-  const size_t copy = (size_t)b * gridDim.x + blockIdx.x;  // this block's copy j
-  float* out = dot + (copy * N + n0) * KD;
-  const int live = min(TN, N - n0);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  for (int idx = 0; idx < total; ++idx) {
-    cp_async_wait<DS - 2>();  // stage idx has landed
-    __syncwarp();             // and every lane is done with stage idx - 1's slot
-    issue(idx + DS - 1);      // into that slot
-    const int p = idx / KS, k = idx % KS;
-    if (k == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int n = 0; n < 2; ++n) wmma::fill_fragment(acc[i][n], 0.f);
-    }
-    const bf16* slot = ring + (idx % DS) * 16 * LDB;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], qa + 16 * i * LDQ + 16 * k, LDQ);
-#pragma unroll
-    for (int n = 0; n < 2; ++n) wmma::load_matrix_sync(fb[n], slot + 16 * n, LDB);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) wmma::mma_sync(acc[i][n], fa[i], fb[n], acc[i][n]);
-    if (k == KS - 1) {
-      const int col = (p * DOT_WARPS + dw) * DN;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          float* o = out + (size_t)(16 * i) * KD + col + 16 * n;
-          if (16 * i + 16 <= live) {
-            wmma::store_matrix_sync(o, acc[i][n], KD, wmma::mem_row_major);
-          } else if (16 * i < live) {  // ragged N: only the live rows
-            wmma::store_matrix_sync(scratch, acc[i][n], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int e = lane; e < 16 * 16; e += 32)
-              if (16 * i + e / 16 < live) o[(size_t)(e / 16) * KD + e % 16] = scratch[e];
-            __syncwarp();
+          for (int c = 0; c < KN / SW; ++c)
+            tma_load(ring + stage * STAGE_BYTES + c * CHUNK_BYTES, map_wd, full,
+                     tile * KN + c * SW, kt * BK);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
           }
         }
     }
+    return;
   }
-  cp_async_wait<0>();
+
+  // A: the block's q rows in bf16, K-major, one [64 x 64] swizzle atom per 64
+  // hidden units; thread i writes 16-byte chunk c8 (8 hidden units) of row r
+  const int row_chunks = nk * (SW / 8);
+  const float* qb = q + ((size_t)b * N + n0) * H;
+  for (int i = lt; i < TN * row_chunks; i += 128) {
+    const int r = i / row_chunks, c8 = i % row_chunks, h = 8 * c8;
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    if (n0 + r < N) {
+      const float4* src = reinterpret_cast<const float4*>(qb + (size_t)r * H + h);
+      if (h < H) lo = __ldg(src);
+      if (h + 4 < H) hi = __ldg(src + 1);
+    }
+    const uint32_t dst = a_base + (c8 / 8) * A_ATOM + r * 128 + (((c8 % 8) ^ (r & 7)) << 4);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(bf16x2(lo.x, lo.y)), "r"(bf16x2(lo.z, lo.w)), "r"(bf16x2(hi.x, hi.y)),
+                 "r"(bf16x2(hi.z, hi.w))
+                 : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  named_barrier(DOT_BAR, 128);
+
+  // thread lt holds rows 16 (lt / 32) + (lt % 32) / 4 + 8 h, h < 2; register
+  // 4 jj + 2 h + e column 8 jj + 2 (lt % 4) + e (hopper.cuh, fold_tile)
+  const int lane = lt & 31;
+  const int r0 = 16 * (lt >> 5) + (lane >> 2);
+  float* out = dot + (((size_t)b * gridDim.x + blockIdx.x) * N + n0) * KD + 2 * (lane & 3);
+  float acc[KN / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = 0; tile < tiles; ++tile) {
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t a = a_base + kt * A_ATOM;
+      const uint32_t bw = ring + stage * STAGE_BYTES;
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)  // 16 deeper: 32 bytes along A's rows, 16 rows of wd
+        wgmma<1>(acc, sw128_desc(a + 32 * k), sw128_mn_desc(bw + 16 * 128 * k, CHUNK_BYTES),
+                 kt > 0 || k > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if (lt == 0) mbar_arrive(empty0 + 8 * stage);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (n0 + r < N) {
+        float* o = out + (size_t)r * KD + tile * KN;
+#pragma unroll
+        for (int jj = 0; jj < KN / 8; ++jj)
+          __stcs(reinterpret_cast<float2*>(o + 8 * jj),
+                 make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]));
+      }
+    }
+  }
 }
 
 template <bool DOT>
-__global__ void __launch_bounds__(SCORE_THREADS + DOT_THREADS, 2)
-probe_scores_kernel(const float* __restrict__ pre, const float* __restrict__ q,
-                    const float* __restrict__ w, const bf16* __restrict__ wd,
+__global__ void __launch_bounds__(DOT ? SCORE_THREADS + DOT_THREADS : SCORE_THREADS, 1)
+probe_scores_kernel(const __grid_constant__ CUtensorMap map_wd, const float* __restrict__ pre,
+                    const float* __restrict__ q, const float* __restrict__ w,
                     float* __restrict__ s, float* __restrict__ dot, int N, int T, int H, int KD,
                     bool scores) {
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, n0 = blockIdx.y * TN, t0 = blockIdx.x * TT;
-  if (!DOT || threadIdx.x < SCORE_THREADS) {
-    if (scores) score_warps(pre, q, w, s, b, n0, t0, N, T, H);
-  } else if constexpr (DOT) {
-    dot_warps(q, wd, dot, smem, b, n0, N, H, KD);
+  if constexpr (!DOT) {
+    score_warps(pre, q, w, s, reinterpret_cast<float*>(smem), b, n0, t0, N, T, H);
+  } else {
+    const uint32_t raw = smem_u32(smem);
+    const uint32_t ring = (raw + 1023u) & ~1023u;
+    const uint32_t a_base = ring + STAGES * STAGE_BYTES;
+    const uint32_t staged = a_base + A_ATOM * (padded_h(H) / SW);
+    const uint32_t full0 = staged + SCORE_BYTES, empty0 = full0 + 8 * STAGES;
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < STAGES; ++st) {
+        mbar_init(full0 + 8 * st, 1);   // the producer's arrival, then the bytes
+        mbar_init(empty0 + 8 * st, 1);  // the consumer warpgroup
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();  // the only barrier the two groups share
+    if (threadIdx.x < SCORE_THREADS) {
+      if (scores)
+        score_warps(pre, q, w, s, reinterpret_cast<float*>(smem + (staged - raw)), b, n0, t0,
+                    N, T, H);
+    } else {
+      product_warps(&map_wd, q, dot, ring, a_base, full0, empty0, b, n0, N, H, KD);
+    }
   }
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // pre [B, T, H], q [B, N, H], w [H] f32 -> s [B, N, T] f32 (kernel 9, wd and
 // dot null); with wd [H, KD] bf16 also dot [B, ceil(T/128), N, KD] f32
-// (kernel 10; H a multiple of 16, KD of 128).  scores = 0 runs kernel 10's
-// dot warps alone, s untouched: the product's own time in the same kernel.
+// (kernel 10).  H a multiple of 4, pre, q, w (and wd) 16-byte aligned; kernel
+// 10 also KD a multiple of 128 and H <= 896; else cudaErrorInvalidValue.
+// scores = 0 runs kernel 10's product warps alone, s untouched: the product's
+// own time in the same kernel.
 extern "C" int echr_probe_scores(const void* pre, const void* q, const void* w, const void* wd,
                                  void* s, void* dot, int B, int N, int T, int H, int KD,
                                  int scores, void* stream) {
+  if (H < 1 || H % 4 != 0 || !aligned16(pre) || !aligned16(q) || !aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + TT - 1) / TT, (N + TN - 1) / TN, B);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const float*>(pre);
   const auto* qq = static_cast<const float*>(q);
   const auto* ww = static_cast<const float*>(w);
   auto* ss = static_cast<float*>(s);
-  if (wd == nullptr) {
-    probe_scores_kernel<false><<<grid, SCORE_THREADS, 0, st>>>(p, qq, ww, nullptr, ss, nullptr,
-                                                              N, T, H, 0, true);
-    return static_cast<int>(cudaGetLastError());
+  const bool with_dot = wd != nullptr;
+  const int smem = smem_bytes(with_dot, H);
+  CUtensorMap map{};
+  if (with_dot) {
+    if (KD < KN || KD % KN != 0 || smem > SMEM_LIMIT || !aligned16(wd))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    if (!encode_rows(encode, &map, wd, H, KD, BK)) return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (H % 16 != 0 || KD % (DN * DOT_WARPS) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = dot_smem(H);
-  cudaError_t err = cudaFuncSetAttribute(probe_scores_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = with_dot ? probe_scores_kernel<true> : probe_scores_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  probe_scores_kernel<true><<<grid, SCORE_THREADS + DOT_THREADS, smem, st>>>(
-      p, qq, ww, static_cast<const bf16*>(wd), ss, static_cast<float*>(dot), N, T, H, KD,
-      scores != 0);
+  kernel<<<grid, with_dot ? SCORE_THREADS + DOT_THREADS : SCORE_THREADS, smem, st>>>(
+      map, p, qq, ww, ss, static_cast<float*>(dot), N, T, H, KD, with_dot ? scores != 0 : true);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,8 @@ At the batched decode's shapes (B=32, N=128, T=256, H=512), over a loop of
 
   S0  kernel 9: the scores alone                          [the tanh floor]
   S1  kernel 10: the same scores, and in every block the
-      bf16 product of its 32 q rows with wd [H, KD]       [fused: overlap?]
+      bf16 product of its 64 q rows with wd [H, KD] on
+      wgmma, beside the score warps                       [fused: overlap?]
   SD  kernel 10's product warps alone                     [the product's own time]
   S2  kernel 9 + the same total product work as two bf16
       torch.matmul with distinct weights (cuBLAS)         [serial reference]

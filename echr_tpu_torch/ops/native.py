@@ -11,10 +11,11 @@ entry point returns ``cudaGetLastError()`` after its launches.
 No fast-math flag: the kernels' tanhf, expf, exp2f and logf are the
 accurate ones (an approximate tanh changes greedy tokens).  Kernels 1, 3
 and 4 take their tanh from csrc/tanh.cuh, held within 2.4e-7 of float64
-(2 ulp of 1.0).  Kernel 2's bf16 path and kernels 7-8 take their TMA,
-mbarrier and wgmma pieces from csrc/hopper.cuh and find the CUDA driver
-library's cuTensorMapEncodeTiled through the runtime
-(cudaGetDriverEntryPoint), so the library needs no -lcuda.
+(2 ulp of 1.0), and so do kernels 9 and 10.  Kernel 2's bf16 path,
+kernels 7-8 and kernel 10 take their TMA, mbarrier and wgmma pieces from
+csrc/hopper.cuh and find the CUDA driver library's cuTensorMapEncodeTiled
+through the runtime (cudaGetDriverEntryPoint), so the library needs no
+-lcuda.
 """
 from __future__ import annotations
 

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Time kernels 1-4 and 7-8 of this checkout beside another build of their
+"""Time kernels 1-4 and 7-10 of this checkout beside another build of their
 sources, in turns on one NVIDIA GPU; kernels 1 and 3 on the paths' masks
 with the proposals sorted by window start and unsorted.
 
-    python3 kernel_turns.py [--earlier CSRC]
+    python3 kernel_turns.py [--earlier CSRC [--earlier CSRC2 ...]]
 
 The builds, each a library with the same C entry points: "this", the
-package's own (echr_tpu_torch/csrc), and with --earlier "earlier", every
-*.cu of CSRC, for example the parent commit's kernel sources unpacked
-into a gitignored directory:
+package's own (echr_tpu_torch/csrc), and with --earlier "earlier" (then
+"earlier2", ... for more), every *.cu of CSRC, for example the parent
+commit's kernel sources unpacked into a gitignored directory:
 
     mkdir -p echr_tpu_torch/_build/parent
     git archive HEAD~1 echr_tpu_torch/csrc | tar -x -C echr_tpu_torch/_build/parent
     python3 kernel_turns.py --earlier echr_tpu_torch/_build/parent/echr_tpu_torch/csrc
+
+or a copy of the package's sources changed with sed, for example kernel
+10 with its product warps inlined into the kernel:
+
+    cp -r echr_tpu_torch/csrc echr_tpu_torch/_build/inlined
+    sed -i 's/__noinline__ void product_warps(/__forceinline__ void product_warps(/' \
+        echr_tpu_torch/_build/inlined/probe_score_overlap.cu
+    python3 kernel_turns.py --earlier echr_tpu_torch/_build/inlined
 
 Kernel 1 runs at chip_smoke.py's four inputs (phase 2's synthetic
 windows, one greedy step, the beam step, the beam step with short
@@ -23,9 +31,11 @@ masks of that training step), kernel 2 at the serving shapes in bf16
 (R=4096, C=1536, V1=6001; also its host time a call), kernels 7 and 8 at
 the head probes' shapes (R=4096, C=1536, V1=6001 padded to the vocab
 tile, bf16) at every tiling (kernel 7 is the (64, 512) one; also its host
-time a call).  Every build is held against the plain version (kernels 1
-and 3 within 5e-4 where mask == 1; kernel 4 within phase 8's gates;
-kernel 2 within phase 3's; kernels 7-8 tokens bit-equal, max and lse
+time a call), kernels 9 and 10 and kernel 10's product warps alone at the
+overlap probe's shapes (B=32, N=128, T=256, H=512, KD=2048).  Every build
+is held against the plain version (kernels 1 and 3 within 5e-4 where
+mask == 1; kernel 4 within phase 8's gates; kernel 2 within phase 3's;
+kernels 7-8 tokens bit-equal, max and lse within 5e-4; kernels 9-10
 within 5e-4), then all are timed in turns: each build in order, then in
 reverse (CUDA events).  Last, kernel 1 of this build on
 the greedy and the beam step with runtime.sort_decode_props on (as the
@@ -46,15 +56,16 @@ import torch
 import chip_smoke as cs
 
 def builds(earlier):
-    """{name: library}, in the order they are timed."""
+    """{name: library}, in the order they are timed: "earlier",
+    "earlier2", ... for the directories of ``earlier``, then "this"."""
     from echr_tpu_torch.ops import native
 
     libs = {}
-    if earlier:
-        cu = sorted(Path(earlier).glob("*.cu"))
+    for i, csrc in enumerate(earlier or ()):
+        cu = sorted(Path(csrc).glob("*.cu"))
         if not cu:
-            cs.fail(f"no *.cu in {earlier}")
-        libs["earlier"] = native.load(native.build(cu))
+            cs.fail(f"no *.cu in {csrc}")
+        libs["earlier" + (str(i + 1) if i else "")] = native.load(native.build(cu))
     libs["this"] = native.library()
     return libs
 
@@ -224,6 +235,42 @@ def stream_builds(card, libs):
 
 
 @torch.inference_mode()
+def scores_builds(card, libs):
+    """Every build of kernels 9 and 10, and of kernel 10's product warps
+    alone, at the overlap probe's shapes (B=32, N=128, T=256, H=512,
+    KD=2048) against the plain versions (within 5e-4), then timed in
+    turns."""
+    from echr_tpu_torch.experiments import probe_mxu_vpu_overlap as pm
+    from echr_tpu_torch.ops.kernel_probe_scores import (probe_dot_plain, probe_scores_on,
+                                                        probe_scores_plain)
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(17)  # chip_smoke phase 17's draw
+    pre, q = cs._rand(rng, (pm.B, pm.T, pm.H), 0.5, dev), cs._rand(rng, (pm.B, pm.N, pm.H), 0.5,
+                                                                   dev)
+    w, wd = cs._rand(rng, (pm.H,), 0.05, dev), cs._rand(rng, (pm.H, pm.KD), 0.05,
+                                                        dev).to(torch.bfloat16)
+    want_s, want_d = probe_scores_plain(pre, q, w), probe_dot_plain(q, wd, pm.T)
+    cases = {"kernel 9": (pre, q, w), "kernel 10": (pre, q, w, wd),
+             "kernel 10's product alone": (pre, q, w, wd, False)}
+    rec = {}
+    for what, args in cases.items():
+        errs = {}
+        for name, lib in libs.items():
+            s, d = probe_scores_on(lib, *args)
+            errs[name] = max(0.0 if s is None else float((s - want_s).abs().max()),
+                             0.0 if d is None else float((d - want_d).abs().max()))
+            if not errs[name] <= cs.TOL:
+                cs.fail(f"{what}, build {name}: max|d| {errs[name]:.3e} > {cs.TOL}")
+        print(f"[k9-10] {what} B={pm.B} N={pm.N} T={pm.T} H={pm.H} KD={pm.KD}: max|d| "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        calls = {k: (lambda lib=lib, args=args: probe_scores_on(lib, *args))
+                 for k, lib in libs.items()}
+        rec[what] = {"max_abs_err": errs, "turns_ms": turns_of(card, what, calls)}
+    return rec
+
+
+@torch.inference_mode()
 def sort_turns(card, name, sorted_args, unsorted_args, kernel=1):
     """Kernel 1 or 3 (this build) on a step's tensors, lists of (pre, q,
     w, b, mask), with the proposals sorted by window start and without:
@@ -278,8 +325,9 @@ def take_rows(args, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--earlier", default=None,
-                    help="a directory of kernel sources (*.cu) with the same C entry points")
+    ap.add_argument("--earlier", action="append",
+                    help="a directory of kernel sources (*.cu) with the same C entry points; "
+                         "may be given more than once")
     opts = ap.parse_args()
     card = cs.phase_device()
     libs = builds(opts.earlier)
@@ -289,6 +337,7 @@ def main():
            "sort": {}}
     rec["kernel2"] = kernel2_builds(card, libs)
     rec["kernel78"] = stream_builds(card, libs)
+    rec["kernel9_10"] = scores_builds(card, libs)
 
     k1 = rec["kernel1"]
     k1["phase2_synthetic"] = kernel1_builds(
