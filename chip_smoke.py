@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive echr_tpu_torch's batched greedy and beam serving paths, its XE
-training path and its three probes once on one NVIDIA GPU, and hold every
-kernel against its plain PyTorch version.
+training path, its three probes and its batched eval loop once on one
+NVIDIA GPU, and hold every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -105,7 +105,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      clocks.max.sm: modelled, printed and kept out of the record) and, at
      the end, the tanh-rate floor (phase 2's rate); then probe_mxu_vpu_overlap: S0, S1,
      SD and S2 at KD=2048 and 8192.  In 15-17 each kernel's launches over
-     the probe's run must equal the calls the probe made.
+     the probe's run must equal the calls the probe made;
+  18. the eval slice: engine.evaluate.eval_split_batched over the 64-video
+     val split of train_cfg()'s 256 synthetic videos (the flagship width,
+     random weights from a seed), tap_cg, top-128, 32 videos a group,
+     every metric: greedy with val losses, then beam 4 decode-only.  Every
+     usable val video has predictions (at most 128, well-formed timestamps,
+     sentences in the vocab, re_score = 10 x proposal_score +
+     sentence_confidence), the val losses are finite, the scores hold every
+     metric at the four tIoUs; kernel 1's launches equal the decode steps
+     plus the val losses' teacher-forced steps (29 a group), kernel 2's the
+     greedy decode steps; TF32 is still off after each pass (the prep
+     thread's bf16 products and the caller's overlap).  For each pass,
+     after a warm-up group: eval videos/s and captions/s without scoring,
+     the timing_out breakdown, the seconds in eval_score and its stemmer,
+     peak device memory;
+  19. eval parity: at f32 with TF32 off and phase 5's sharpened logit
+     weights, the greedy eval with the kernels and under force_plain()
+     gives the same sentences, timestamps and proposal scores for every
+     video, sentence confidences within 5e-4 a token and val losses within
+     1e-5 relative.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -115,6 +134,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,6 +144,7 @@ TOL = 5e-4
 FUSED_TOL = 2e-3  # kernel 5: bf16 weights from the running max (echr_tpu's gate)
 T_BUCKET, VIDEO_DIM, VOCAB, SEQ_LEN, TOP_N = 256, 500, 6000, 30, 128
 TRAIN_B, TRAIN_N, TRAIN_STEPS = 32, 64, 6  # videos, sampled proposals, steps (1 warm-up)
+EVAL_B = 32  # videos a group of the batched eval
 BEAM, WINDOW = 4, 64  # beam width; kernel 6's W
 # published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1591,6 +1612,200 @@ def phase_probe_overlap(card):
     return records
 
 
+def eval_setup(**runtime):
+    """train_cfg()'s data (256 synthetic videos at the flagship width, the
+    64-video val split) for the batched eval: the seeded random init, the
+    dataset and a Loader whose prefetch covers two groups of 32."""
+    from echr_tpu_torch.data.dataset import build_dataset
+    from echr_tpu_torch.data.loader import Loader
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+
+    cfg = train_cfg(**runtime).replace_in("decoder", CG_vocab_size=VOCAB, CG_seq_length=SEQ_LEN)
+    cfg = cfg.replace_in("data", prefetch=2 * EVAL_B, nthreads=4)
+    ds = build_dataset(cfg)
+    gen = torch.Generator().manual_seed(0)
+    tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
+    return cfg, tap, cg, ds, Loader(ds, cfg, process_index=0, process_count=1, seed=0)
+
+
+def usable_val_videos(cfg, ds):
+    """The val videos eval counts (proposal_num > 0, n_frames > 1), from the
+    labels-off batch."""
+    from echr_tpu_torch.data.batcher import make_batch
+
+    out = []
+    for ix in ds.split_ix["val"]:
+        _, m = make_batch(ds.get_example(ix), cfg, np.random.RandomState(0), labels=False)
+        if m.proposal_num > 0 and m.n_frames > 1:
+            out.append(m.vid)
+    return out
+
+
+def check_predictions(preds, usable, vocab, durations):
+    """Every usable val video has predictions, at most TOP_N each, with
+    well-formed timestamps, sentences in the vocab and re_score = 10 x
+    proposal_score + sentence_confidence."""
+    if sorted(preds) != sorted(usable):
+        fail(f"predictions for {len(preds)} videos, {len(usable)} usable val videos")
+    words = set(vocab.values())
+    for vid, caps in preds.items():
+        if not 0 < len(caps) <= TOP_N:
+            fail(f"{vid}: {len(caps)} predictions")
+        for c in caps:
+            s, e = c["timestamp"]
+            if not (0.0 <= s < e <= durations[vid] + 1e-6 and 0.0 <= c["proposal_score"] <= 1.0
+                    and np.isfinite(c["sentence_confidence"])
+                    and abs(c["re_score"] - 10 * c["proposal_score"]
+                            - c["sentence_confidence"]) <= 1e-9):
+                fail(f"{vid}: malformed prediction {c}")
+            if not set(c["sentence"].split()) <= words:
+                fail(f"{vid}: sentence outside the vocab: {c['sentence']!r}")
+
+
+@contextlib.contextmanager
+def timed_scoring(seconds):
+    """Within the block, the batched eval's eval_score calls add their wall
+    time to ``seconds``."""
+    from echr_tpu_torch.engine import evaluate
+
+    fn = evaluate.eval_score
+
+    def timed(*args, **kw):
+        t0 = time.time()
+        try:
+            return fn(*args, **kw)
+        finally:
+            seconds.append(time.time() - t0)
+    evaluate.eval_score = timed
+    try:
+        yield
+    finally:
+        evaluate.eval_score = fn
+
+
+def phase_eval(card):
+    """The eval slice: eval_split_batched over the 64-video val split,
+    tap_cg, top-128, batch 32, every metric: greedy with val losses, then
+    beam 4 decode-only (no val losses)."""
+    cfg, tap, cg, ds, loader = eval_setup()
+    usable = usable_val_videos(cfg, ds)
+    durations = {ds.get_example(ix).vid: ds.get_example(ix).duration for ix in ds.split_ix["val"]}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            return {name: eval_pass(card, name, beam, (tap, cg, loader, cfg), usable, durations,
+                                    f"{tmp}/{name}.json")
+                    for name, beam in (("eval_greedy", 1), ("eval_beam", BEAM))}
+    finally:
+        loader.load_state(loader.state())  # stops and joins the prefetch threads
+
+
+def eval_pass(card, name, beam, args, usable, durations, json_path):
+    """One pass of phase 18.  Kernel 1's launches must equal the decode steps
+    plus the val losses' teacher-forced steps (29 a group), kernel 2's the
+    greedy decode steps."""
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    from echr_tpu_torch.metrics import scorers
+    from echr_tpu_torch.models.beam import beam_search_batched
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    tap, cg, loader, cfg = args
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": True, "val_all_metrics": True,
+          "get_eval_loss": beam == 1, "beam_size": beam}
+    # warm-up: one group, unscored (a first val-loss call takes seconds)
+    eval_split_batched(tap, cg, loader, cfg, json_path,
+                       dict(kw, num_vids_eval=EVAL_B, language_eval=False),
+                       flag_eval_what="tap_cg", batch_videos=EVAL_B, device="cuda")
+    torch.cuda.synchronize()
+    timing, score_s = {}, []
+    for fn in (attention_scores_masked, greedy_head):
+        fn.launches = 0
+    for fn in (decoder_sample_batched, beam_search_batched):
+        fn.steps = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with timed_scoring(score_s):
+        preds, score, losses = eval_split_batched(
+            tap, cg, loader, cfg, json_path, dict(kw, timing_out=timing),
+            flag_eval_what="tap_cg", batch_videos=EVAL_B, device="cuda")
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if torch.backends.cuda.matmul.allow_tf32:  # phase 1 turned it off
+        fail(f"{name}: the eval's two threads left TF32 on")
+    k1, k2 = attention_scores_masked.launches, greedy_head.launches
+    steps = decoder_sample_batched.steps if beam == 1 else beam_search_batched.steps
+    check_predictions(preds, usable, loader.dataset.ix_to_word, durations)
+    want_k1 = steps + ((SEQ_LEN - 1) * timing["groups"] if beam == 1 else 0)
+    want_k2 = steps if beam == 1 else 0
+    if not (steps > 0 and k1 == want_k1 and k2 == want_k2):
+        fail(f"{name}: kernel 1 launched {k1} times (want {want_k1}), kernel 2 {k2} "
+             f"(want {want_k2}) in {steps} decode steps")
+    if beam == 1 and not (np.isfinite(losses).all() and (losses[:3] > 0).all()):
+        fail(f"{name}: val losses {losses}")
+    metrics = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr",
+               "Recall", "Precision")
+    if not all(np.shape(score.get(m)) == (4,) and np.isfinite(score[m]).all() for m in metrics):
+        fail(f"{name}: scores {score}")
+    stemmer = ("nltk PorterStemmer" if getattr(scorers._STEM, "__self__", None) is not None
+               else "identity (nltk absent)")
+    n_caps = sum(len(c) for c in preds.values())
+    run = wall - sum(score_s)
+    print(f"[18] {name}: {len(preds)} videos (of {len(usable)} usable), {n_caps} captions, "
+          f"{timing['groups']} groups of {EVAL_B}, {steps} decode steps, kernel 1 launches "
+          f"{k1}, kernel 2 {k2}; val losses {np.round(losses[:3], 4).tolist()}; all scored")
+    print(f"[18] {name}: {len(preds) / run:.2f} eval videos/s, {n_caps / run:.1f} captions/s "
+          f"over {run:.3f} s without scoring; eval_score {sum(score_s):.3f} s (stemmer: "
+          f"{stemmer}); peak device memory {peak / 2**30:.2f} GiB, bf16 compute [{card}]")
+    print(f"[18] {name} timing_out: "
+          f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in timing.items()} }")
+    print(f"[18] {name} scores: { {m: np.round(score[m], 4).tolist() for m in metrics} }")
+    return {"attention_scores_masked": k1, "greedy_head": k2}
+
+
+def phase_eval_parity():
+    """f32, TF32 off, phase 5's sharpened logit weights: the greedy eval with
+    the kernels and under force_plain() gives the same videos, sentences,
+    timestamps and proposal scores, sentence confidences within 5e-4 a
+    token (the caption's words and its end token) and val losses within
+    1e-5 relative."""
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    from echr_tpu_torch.ops import force_plain
+
+    cfg, tap, cg, ds, loader = eval_setup(compute_dtype="float32")
+    with torch.no_grad():
+        cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False, "get_eval_loss": True}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            got, _, got_loss = eval_split_batched(tap, cg, loader, cfg, f"{tmp}/k.json", dict(kw),
+                                                  batch_videos=EVAL_B, device="cuda")
+            with force_plain():
+                want, _, want_loss = eval_split_batched(tap, cg, loader, cfg,
+                                                        f"{tmp}/p.json", dict(kw),
+                                                        batch_videos=EVAL_B, device="cuda")
+    finally:
+        loader.load_state(loader.state())
+    if sorted(got) != sorted(want) or not want:
+        fail("eval parity: the kernels and the plain versions predicted for other videos")
+    bad, worst, n = 0, 0.0, 0
+    for vid, preds in want.items():
+        if len(got[vid]) != len(preds):
+            fail(f"eval parity: {vid} has {len(got[vid])} predictions against {len(preds)}")
+        for g, w in zip(got[vid], preds):
+            n += 1
+            bad += (g["sentence"], g["timestamp"], g["proposal_score"]) != \
+                (w["sentence"], w["timestamp"], w["proposal_score"])
+            err = abs(g["sentence_confidence"] - w["sentence_confidence"])
+            worst = max(worst, err / (len(w["sentence"].split()) + 1))
+    rel = np.abs(got_loss[:3] - want_loss[:3]) / np.abs(want_loss[:3])
+    print(f"[19] f32 eval, kernels vs plain: {len(want)} videos, {n} captions, {bad} differ in "
+          f"sentence, timestamp or proposal score; max|d| confidence {worst:.3e} a token; val "
+          f"losses {np.round(want_loss[:3], 6).tolist()} (rel {float(rel.max()):.2e})")
+    if bad or not worst <= TOL or not float(rel.max()) <= 1e-5:
+        fail("the eval pass with the kernels disagrees with its plain version")
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -1636,6 +1851,8 @@ def main():
     probe_head = phase_probe_head(card)
     probe_sweep = phase_probe_sweep(card)
     overlap = phase_probe_overlap(card)
+    evals = phase_eval(card)
+    phase_eval_parity()
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -1652,7 +1869,9 @@ def main():
         print(f"[8] kernel 4, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
               f"{rec['tanh_floor_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms [{card}]")
     k1_paths = {"greedy": launches["attention_scores_masked"],
-                "beam": beam_launches["attention_scores_masked"]}
+                "beam": beam_launches["attention_scores_masked"],
+                **{name: n["attention_scores_masked"] for name, n in evals.items()}}
+    k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"]}
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_scores.cu",
@@ -1661,7 +1880,7 @@ def main():
         {"name": "greedy_head", "route": "cuda",
          "source": "echr_tpu_torch/csrc/greedy_head.cu",
          "replaces": "echr_tpu/ops/pallas_head.py:92",
-         "launches": launches["greedy_head"], **head},
+         "launches": sum(k2_paths.values()), "launches_by_path": k2_paths, **head},
         {"name": "attention_scores_dense", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_scores.cu",
          "replaces": "echr_tpu/ops/pallas_attention.py:31",

@@ -9,10 +9,11 @@ properties, as in echr_tpu.
 RuntimeConfig holds only the runtime fields the port reads:
 ``compute_dtype``, ``transfer_dtype``, ``use_pallas`` (the decode kernels),
 ``use_pallas_train`` (the training kernels), ``sort_decode_props``,
-``decode_early_exit_batched`` and ``fused_loss_head``.  echr_tpu's other
-runtime fields are TPU knobs (meshes, SPMD mode, buffer donation,
-pipelining, the Pallas T ceilings, the streaming-head gate, preemption and
-hang checks) or options of paths not ported yet; they are dropped.
+``decode_early_exit_batched``, ``fused_loss_head`` and ``hang_warn_s`` (the
+eval loop's watchdog).  echr_tpu's other runtime fields are TPU knobs
+(meshes, SPMD mode, buffer donation, pipelining, the Pallas T ceilings,
+the streaming-head gate, preemption checks) or options of paths not ported
+yet; they are dropped.
 ``from_json`` ignores them in echr_tpu's JSON, and ``replace_in`` rejects
 them, so setting one fails instead of doing nothing.  echr_tpu reads the
 port's JSON with its defaults for them.  The CLI parser
@@ -205,6 +206,7 @@ class RuntimeConfig:
     sort_decode_props: bool = True  # decode sorts proposals by window start
     decode_early_exit_batched: bool = True  # batched decode: one batch-wide exit
     fused_loss_head: bool = True
+    hang_warn_s: float = 600.0  # watchdog deadline of the eval loop; <= 0 disables it
 
 
 @dataclass(frozen=True)

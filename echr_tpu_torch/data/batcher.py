@@ -3,9 +3,10 @@
 Fixed-shape numpy arrays replace the reference's ragged per-video batch
 dict (reference: dataloader.py:367-572): the frame axis is padded to a
 length bucket, the proposal axis to ``prop_sample_num``, captions to the
-dataset's seq_length, and every padded entry carries a 0 mask.  The
-decode-only (labels off) and external-proposal forms are not copied: no
-path of the port builds them yet.
+dataset's seq_length, and every padded entry carries a 0 mask.
+``make_batch(..., labels=False)`` is the decode-only form the eval's fast
+path takes.  The external-proposal (SOTA_TEP) fields are not copied:
+no path of the port reads them (ROADMAP.md A.6).
 """
 from __future__ import annotations
 
@@ -111,10 +112,54 @@ def caption_masks(cap_labels: np.ndarray, mode: str, rng: np.random.RandomState)
     return lab.astype(np.int32), mask
 
 
+def _make_batch_nolabels(ex: VideoExample, cfg: Config, feats, frame_mask, featstamps,
+                         grid_featstamps, T_use: int, T_pad: int, dur_use: float
+                         ) -> Tuple[VideoBatch, BatchMeta]:
+    """Decode-only batch: the geometry and an exact proposal_num, no label
+    grids; every label field is zero."""
+    tapc = cfg.tap
+    K, N = tapc.K, tapc.prop_sample_num
+    tap_masks = np.zeros((T_pad, K), np.float32)
+    tap_masks[:T_use] = L.anchor_mask(T_use, K)
+    proposal_num = L.good_proposal_count(grid_featstamps, T_use, K,
+                                         tapc.iou_threshold_for_good_proposal)
+    Lw = ex.cap_labels.shape[1]
+    zi = np.zeros((N,), np.int32)
+    zs = np.tile(np.array([[0, 1]], np.int32), (N, 1))
+    zm = np.zeros((N,), np.float32)
+    zl = np.zeros((N, Lw), np.int32)
+    zk = np.zeros((N, Lw), np.float32)
+    batch = VideoBatch(
+        feats=feats, frame_mask=frame_mask, n_frames=np.float32(T_use),
+        lda=ex.lda.astype(np.float32), tap_labels=np.zeros((T_pad, K), np.float32),
+        tap_masks=tap_masks, w1=np.zeros((K,), np.float32),
+        ind_select=zi, soi=zs, prop_mask=zm, cg_labels=zl, cg_masks=zk,
+        gts_ind=zi.copy(), gts_soi=zs.copy(), gts_mask=zm.copy(),
+        gts_cg_labels=zl.copy(), gts_cg_masks=zk.copy())
+    meta = BatchMeta(
+        vid=ex.vid, duration=dur_use, timestamps=ex.timestamps, sentences=ex.sentences,
+        gt_featstamps=featstamps, proposal_num=proposal_num, n_frames=T_use,
+        t_bucket=T_pad, ncap=ex.cap_labels.shape[0],
+        iou_scores=np.zeros((T_use, K), np.float32),
+        gts_index=np.zeros((T_use, K), np.int64),
+        cg_select=np.zeros((0,), np.int64), sampled_ids=np.zeros((0,), np.int64))
+    return batch, meta
+
+
 def make_batch(ex: VideoExample, cfg: Config, rng: np.random.RandomState,
-               w1: Optional[np.ndarray] = None) -> Tuple[VideoBatch, BatchMeta]:
+               w1: Optional[np.ndarray] = None, labels: bool = True
+               ) -> Tuple[VideoBatch, BatchMeta]:
     """One video's training batch: the padded features, the TAP label grid,
-    the sampled good proposals and the GT proposals with their captions."""
+    the sampled good proposals and the GT proposals with their captions.
+
+    ``labels=False`` is the decode-only eval path: the IoU grid, the
+    proposal sampling and the caption packing are skipped; the geometry
+    mask and an exact ``proposal_num`` (the bad-video check) remain, and
+    the label fields come back zeroed.  Valid only for the eval modes
+    'tap' and 'tap_cg' without val losses.  It draws nothing from ``rng``,
+    and no draw of the labels path comes before the fork, so both paths
+    give the same features and geometry (echr_tpu draws its external
+    proposals' crop substream before the fork; the port has none)."""
     tapc = cfg.tap
     K, N = tapc.K, tapc.prop_sample_num
     T_real = int(ex.feats.shape[0])
@@ -135,6 +180,9 @@ def make_batch(ex: VideoExample, cfg: Config, rng: np.random.RandomState,
     if T_use < T_real:
         grid_featstamps = [(T_use + 1, T_use + 2) if t[0] >= dur_use else f
                            for f, t in zip(featstamps, ex.timestamps)]
+    if not labels:
+        return _make_batch_nolabels(ex, cfg, feats, frame_mask, featstamps, grid_featstamps,
+                                    T_use, T_pad, dur_use)
     iou_scores, gts_index_f, tap_masks_r = L.iou_grid(grid_featstamps, T_use, K)
     gts_index = gts_index_f.astype(np.int64)
 

@@ -110,3 +110,46 @@ def sample_proposals(proposal_num: int, prop_sample_num: int,
     ids = np.arange(proposal_num, dtype=np.int64)
     rng.shuffle(ids)
     return ids[: min(proposal_num, prop_sample_num)]
+
+
+def good_proposal_count(featstamps: Sequence[Sequence[int]], nfeats: int, K: int,
+                        thr: float) -> int:
+    """The number of valid anchors whose best IoU with a GT is >= thr, without
+    the [T, K, G] grid: the labels-off batch's bad-video check (equal to
+    counting iou_grid's scores >= thr).
+
+    An anchor of length la reaches IoU >= thr with a GT of length lg only
+    when thr*lg <= la <= lg/thr and its end lies within lg*(1-thr^2)/thr of
+    the GT, so each GT yields a small candidate sub-grid; exact IoUs are
+    computed there and the per-GT hits unioned.  At thr <= 0.65 the windows
+    are not small and the full grid is counted."""
+    T, G = int(nfeats), len(featstamps)
+    if G == 0:
+        return 0
+    if thr <= 0.65:
+        iou, _, _ = iou_grid(featstamps, T, K)
+        return int((iou >= thr).sum())
+    hits = []
+    for s, e in featstamps:
+        gs, ge = s - 0.01, e + 0.01  # iou_grid's nudges
+        lg = ge - gs
+        k_lo = max(0, int(thr * lg) - 4)
+        k_hi = min(K, int(lg / thr) + 5)
+        m = lg * (1.0 - thr * thr) / thr
+        t_lo = max(1, int(gs) - 4)
+        t_hi = min(T, int(ge + m) + 5)
+        if k_lo >= k_hi or t_lo >= t_hi:
+            continue
+        t = np.arange(t_lo, t_hi, dtype=np.float64)[:, None]
+        k = np.arange(k_lo, k_hi, dtype=np.float64)[None, :]
+        a_start = t - k - 1.0
+        inter = np.clip(np.minimum(ge, t) - np.maximum(gs, a_start), 0.0, None)
+        union = np.minimum(np.maximum(ge, t) - np.minimum(gs, a_start), lg + k + 1.0)
+        iou = (inter / (union + 1e-8)).astype(np.float32)  # the grid compares in f32
+        valid = k < np.minimum(K, t)
+        tt, kk = np.nonzero((iou >= thr) & valid)
+        if len(tt):
+            hits.append((tt + t_lo) * K + (kk + k_lo))
+    if not hits:
+        return 0
+    return int(np.unique(np.concatenate(hits)).size)

@@ -8,9 +8,10 @@ batch, and a restorable iterator / order state for resume.  That state is
 tracked on the consumer side, since the prefetch threads run ahead.
 
 The process rank and count are arguments: the port has no runtime to ask.
-What only echr_tpu's eval pipelines call (the decode-only fetch, the
-feature-dtype cast in the workers, external proposals, iterator resets)
-is not copied yet.
+The eval loop toggles two settings per split and restores them after the
+pass: the decode-only fetch (``set_labels``) and the feature dtype the
+workers emit (``set_feats_dtype``).  External proposals are not copied
+(ROADMAP.md A.6).
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ import logging
 import queue
 import threading
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from echr_tpu_torch.config import Config
 from echr_tpu_torch.data.batcher import BatchMeta, VideoBatch, make_batch
@@ -43,6 +45,9 @@ class Loader:
         self.prefetch = max(1, int(cfg.data.prefetch))
         self.base_seed = int(seed)
         self.process_index, self.process_count = process_index, process_count
+        # per split, so a decode-only eval never reaches a train fetcher
+        self._labels: Dict[str, bool] = {}
+        self._feats_dtype: Dict[str, Optional[torch.dtype]] = {}
         # producer-side state
         self.iterators: Dict[str, int] = {s: 0 for s in dataset.split_ix}
         self.split_order: Dict[str, List[int]] = {
@@ -84,14 +89,46 @@ class Loader:
                 _derived_seed(self.base_seed, split + "/order", epoch, 0)
             ).shuffle(self.split_order[split])
 
+    def reset_iterator(self, split: str) -> None:
+        """Back to the start of epoch 0 of ``split``; its fetcher is stopped
+        and joined first (see load_state)."""
+        if split in self._fetchers:
+            self._fetchers.pop(split).stop()
+        self.iterators[split] = 0
+        self.epochs[split] = 0
+        self._consumed.pop(split, None)
+
     def _restart_fetchers(self) -> None:
         for f in self._fetchers.values():
             f.stop()
         self._fetchers.clear()
 
-    def _make(self, ix: int, seed: int) -> Tuple[VideoBatch, BatchMeta]:
+    def split_size(self, split: str) -> int:
+        return len(self.split_order[split])
+
+    def _make(self, ix: int, seed: int, labels: bool = True) -> Tuple[VideoBatch, BatchMeta]:
         ex = self.dataset.get_example(ix)
-        return make_batch(ex, self.cfg, np.random.RandomState(seed), w1=self.dataset.w1)
+        return make_batch(ex, self.cfg, np.random.RandomState(seed), w1=self.dataset.w1,
+                          labels=labels)
+
+    def set_labels(self, labels: bool, split: str) -> None:
+        """The decode-only fetch (make_batch labels=False) for one split.
+        Items already in flight keep the previous setting."""
+        self._labels[split] = bool(labels)
+
+    def labels_for(self, split: str) -> bool:
+        return self._labels.get(split, True)
+
+    def set_feats_dtype(self, dtype: Optional[torch.dtype], split: str) -> None:
+        """Emit batch.feats of one split as a CPU tensor of ``dtype`` (e.g.
+        torch.bfloat16, which numpy lacks): the transfer-dtype cast in the
+        prefetch workers, off the consumer thread.  None restores the f32
+        numpy array.  Items already in flight keep the previous form, so
+        consumers take either."""
+        self._feats_dtype[split] = dtype
+
+    def feats_dtype_for(self, split: str) -> Optional[torch.dtype]:
+        return self._feats_dtype.get(split)
 
     def get_batch(self, split: str) -> Tuple[VideoBatch, BatchMeta]:
         if split not in self._fetchers:
@@ -168,7 +205,10 @@ class _Prefetcher:
             if self._stop.is_set():
                 return
             seq, ix, wrapped, seed, resume = self._next_position()
-            batch, meta = ld._make(ix, seed)
+            batch, meta = ld._make(ix, seed, labels=ld.labels_for(self.split))
+            fdt = ld.feats_dtype_for(self.split)
+            if fdt is not None:  # round to nearest even, as a numpy astype would
+                batch = batch._replace(feats=torch.from_numpy(batch.feats).to(fdt))
             meta.wrapped = wrapped
             with self._buf_cv:
                 self._buf[seq] = (batch, meta, resume)

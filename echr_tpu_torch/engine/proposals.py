@@ -1,12 +1,14 @@
 """Host-side proposal selection (echr_tpu/engine/proposals.py), the port's
-numpy copy: score-threshold top-N selection over the [T, K] anchor grid
-and greedy temporal NMS (reference: eval_utils.py:259-331), with the
-reference's order and tie-breaks.  echr_tpu's optional C++ NMS is not
-copied: the numpy loop is its reference and selects the same anchors.
+numpy copy: score-threshold top-N selection over the [T, K] anchor grid,
+greedy temporal NMS (reference: eval_utils.py:259-331) and the top-10
+reranking (eval_utils.py:334-345), with the reference's order and
+tie-breaks.  echr_tpu's optional C++ NMS is not copied: the numpy loop is
+its reference and selects the same anchors.  Nor is the external
+proposals' NMS (ROADMAP.md A.6).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -70,3 +72,11 @@ def top_proposals_nms(pred_proposals: np.ndarray, tap_masks: np.ndarray,
     return ((nms_props[:, 1] - 1).astype(np.int64).tolist(), nms_props.tolist(),
             prop_gts[pick].tolist() if prop_gts is not None else [], timestamps,
             scores[pick].tolist())
+
+
+def rerank_top10(vid_info: List[dict]) -> List[dict]:
+    """The predictions whose re_score is at least the 10th largest, in
+    their order (reference: reranking, eval_utils.py:334-345)."""
+    rs = np.sort(np.array([v["re_score"] for v in vid_info]))
+    thr = rs[-min(len(rs), 10)]
+    return [v for v in vid_info if v["re_score"] >= thr]

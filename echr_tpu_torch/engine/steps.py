@@ -10,8 +10,10 @@ parameters and the two Adam states are updated in place.
 Eval / serving (greedy ``decode_step_batched`` and
 ``beam_decode_step_batched``): each step takes modules already cast once with
 ``ops.core.cast_compute_dtype(module, cfg.runtime.compute_dtype)`` (the
-reference casts inside every jitted step; here CaptionService casts at
-construction) and runs under ``torch.inference_mode``.
+reference casts inside every jitted step; here CaptionService and
+``engine.evaluate.eval_split_batched`` cast at entry) and runs under
+``torch.inference_mode``; ``val_loss_step_batched`` takes them cast too
+and runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -81,12 +83,14 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
 def batch_to_device(batch: VideoBatch, device) -> VideoBatch:
     """A numpy VideoBatch stacked over [B] -> tensors on ``device``: integer
     fields as int64, every other field as f32 (uint8 grids and bf16 features
-    are lifted to f32, as the reference's decompress_batch does)."""
+    are lifted to f32, as the reference's decompress_batch does).  The
+    copies are queued without a stream sync: each source is a fresh
+    pageable array, which the copy stages before it returns."""
     def up(x):
         a = np.asarray(x)
         if np.issubdtype(a.dtype, np.integer) and a.dtype != np.uint8:
-            return torch.from_numpy(a.astype(np.int64)).to(device)
-        return torch.from_numpy(a.astype(np.float32)).to(device)
+            return torch.from_numpy(a.astype(np.int64)).to(device, non_blocking=True)
+        return torch.from_numpy(a.astype(np.float32)).to(device, non_blocking=True)
 
     return VideoBatch(*(up(x) for x in batch))
 
@@ -191,6 +195,20 @@ def train_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generat
     device (``batch_to_device``)."""
     (tap_g, cg_g), metrics = grad_step(state, batch, gen, cfg, phase, ss_prob)
     return apply_grads(state, tap_g, cg_g, cfg, phase), metrics
+
+
+@torch.no_grad()
+def val_loss_step_batched(tap: SST, cg: Captioner, batch: VideoBatch, cfg: Config,
+                          phase: str = "tap_cg") -> Dict[str, torch.Tensor]:
+    """Eval-mode losses of a [B]-video batch of tensors on the models'
+    device: tap_loss, and cg_loss and total_loss unless phase is 'tap',
+    [B] each (echr_tpu's vmapped _one_video_losses; reference:
+    eval_utils.py:139-155), without dropout.  ``tap`` and ``cg`` are cast
+    to the compute dtype already, as the decode steps take them: a cast
+    inside (call_in_compute_dtype, as grad_step does) would swap the
+    modules' parameters while the eval loop's other thread decodes with
+    them."""
+    return _one_video_losses(tap, cg, cfg, batch, phase, None, False, 0.0)
 
 
 @torch.inference_mode()

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 
 _FORCE_PLAIN = contextvars.ContextVar("echr_tpu_torch_force_plain", default=False)
 
@@ -32,3 +33,14 @@ def use_plain(x) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     return False
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """wrapper.launches += 1, under a lock: the eval loop launches kernel 1
+    from two threads (the val losses on its prep thread, the decode on the
+    caller's)."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

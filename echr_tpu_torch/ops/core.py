@@ -14,8 +14,10 @@ bf16, which is not the reference's semantics.  Biases stay f32.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -39,22 +41,50 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
+class _TF32:
+    """TF32 on while any bf16 product runs.  The flag is process-wide and
+    the eval loop multiplies on two threads at once, so the blocks are
+    counted under a lock: the first one in turns TF32 on, the last one out
+    restores the flag as the first one found it.  A save-and-restore per
+    block would let overlapping blocks leave TF32 on for good."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._users = 0
+        self._before = False
+
+    @contextlib.contextmanager
+    def on(self):
+        flags = torch.backends.cuda.matmul
+        with self._lock:
+            if self._users == 0:
+                self._before = flags.allow_tf32
+                flags.allow_tf32 = True
+            self._users += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._users -= 1
+                if self._users == 0:
+                    flags.allow_tf32 = self._before
+
+
+_TF32_BLOCKS = _TF32()
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """a @ b in f32 for operands already rounded to ``dtype``.
 
     A bf16 value has 8 significant bits and TF32 keeps 11, so for bf16
     operands on CUDA the TF32 tensor cores multiply exactly and accumulate
     in f32: the numbers of bf16 x bf16 -> f32, at tensor-core speed.  f32
-    operands always take full-f32 matmuls."""
+    operands always take full-f32 matmuls, except while another thread
+    runs a bf16 product (the flag is process-wide)."""
     if dtype != torch.bfloat16 or not a.is_cuda:
         return torch.matmul(a, b)
-    flags = torch.backends.cuda.matmul
-    prev = flags.allow_tf32
-    flags.allow_tf32 = True
-    try:
+    with _TF32_BLOCKS.on():
         return torch.matmul(a, b)
-    finally:
-        flags.allow_tf32 = prev
 
 
 def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> torch.Tensor:

@@ -55,7 +55,7 @@ import torch
 
 from typing import Tuple
 
-from echr_tpu_torch.ops import native, use_plain
+from echr_tpu_torch.ops import count_launch, native, use_plain
 
 _FN = "attention_scores_masked"
 
@@ -76,7 +76,7 @@ def attention_scores_masked(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
         return attention_scores_plain(pre, q, w, b, mask)
     out = masked_scores_on(native.library(), pre, q, w, b, mask)
     if out.numel():
-        attention_scores_masked.launches += 1
+        count_launch(attention_scores_masked)
     return out
 
 
@@ -134,7 +134,7 @@ def attention_scores_dense(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
         return attention_scores_dense_plain(pre, q, w, b)
     out = dense_scores_on(native.library(), pre, q, w, b, mask)
     if out.numel():
-        attention_scores_dense.launches += 1
+        count_launch(attention_scores_dense)
     return out
 
 
@@ -175,7 +175,7 @@ def attention_scores_bwd(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
         return attention_scores_bwd_plain(pre, q, w, g)
     grads = scores_bwd_on(native.library(), pre, q, w, g)
     if min(g.shape) and pre.shape[2]:
-        attention_scores_bwd.launches += 1
+        count_launch(attention_scores_bwd)
     return grads
 
 

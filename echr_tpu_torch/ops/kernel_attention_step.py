@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from echr_tpu_torch.ops import native, use_plain
+from echr_tpu_torch.ops import count_launch, native, use_plain
 from echr_tpu_torch.ops.core import round_to
 from echr_tpu_torch.ops.kernel_attention import attention_scores_plain
 from echr_tpu_torch.ops.masked import masked_softmax, segment_window_mask
@@ -78,7 +78,7 @@ def attention_fused(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor, b: torc
         feats.data_ptr(), out.data_ptr(), B, N, T, H, D,
         torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "echr_attention_fused")
-    attention_fused.launches += 1
+    count_launch(attention_fused)
     return out
 
 
@@ -128,7 +128,7 @@ def windowed_attention(pre: torch.Tensor, feats: torch.Tensor, q: torch.Tensor,
         soi.data_ptr(), out.data_ptr(), B, N, T, H, D,
         torch.cuda.current_stream(dev).cuda_stream)
     native.check(rc, "echr_windowed_attention")
-    windowed_attention.launches += 1
+    count_launch(windowed_attention)
     return out
 
 

@@ -42,7 +42,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from echr_tpu_torch.ops import native, use_plain
+from echr_tpu_torch.ops import count_launch, native, use_plain
 from echr_tpu_torch.ops.core import Dense
 
 _FN = "greedy_head"
@@ -95,7 +95,7 @@ def greedy_head(out: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     if use_plain(out):
         return greedy_head_plain(out, w, b)
     res = head_on(native.library(), out, w, b)
-    greedy_head.launches += 1
+    count_launch(greedy_head)
     return res
 
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from echr_tpu_torch.ops import native, use_plain
+from echr_tpu_torch.ops import count_launch, native, use_plain
 
 _FN = "stream_head"
 # (TR, TV) pairs instantiated in csrc/probe_stream_head.cu
@@ -75,7 +75,7 @@ def stream_head(out: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, tr: int =
     if use_plain(out):
         return stream_head_plain(out, wp, bp)
     res = stream_head_on(native.library(), out, wp, bp, tr, tv)
-    stream_head.launches += 1
+    count_launch(stream_head)
     return res
 
 

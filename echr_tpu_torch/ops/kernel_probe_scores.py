@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from echr_tpu_torch.ops import native, use_plain
+from echr_tpu_torch.ops import count_launch, native, use_plain
 
 # csrc/probe_score_overlap.cu: TN, TT, SCORE_WARPS, HC, BUFS, KN, STAGES
 TILE_N = 64  # proposals of a block: wgmma's M
@@ -169,7 +169,7 @@ def probe_scores(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.T
         return probe_scores_plain(pre, q, w)
     s, _ = probe_scores_on(native.library(), pre, q, w)
     if s.numel():  # an empty s launched nothing
-        probe_scores.launches += 1
+        count_launch(probe_scores)
     return s
 
 
@@ -190,7 +190,7 @@ def probe_scores_plus_dot(pre: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
         return s, probe_dot_plain(q, wd, pre.shape[1])
     s, dot = probe_scores_on(native.library(), pre, q, w, wd, scores)
     if dot.numel():  # an empty dot launched nothing
-        probe_scores_plus_dot.launches += 1
+        count_launch(probe_scores_plus_dot)
     return s, dot
 
 

@@ -19,6 +19,7 @@ from echr_tpu_torch.config import Config
 from echr_tpu_torch.data.batcher import pick_bucket
 from echr_tpu_torch.data.labels import anchor_mask, featstamp_to_time
 from echr_tpu_torch.engine import proposals as P
+from echr_tpu_torch.engine.evaluate import PROP_BUCKETS, _prop_bucket
 from echr_tpu_torch.utils.text import decode_sequence
 from echr_tpu_torch.bridge import captioner_from_jax, tap_from_jax
 from echr_tpu_torch.engine.steps import (
@@ -31,16 +32,6 @@ from echr_tpu_torch.engine.steps import (
 from echr_tpu_torch.models.captioner import Captioner, ProposalBatch
 from echr_tpu_torch.models.sst import SST
 from echr_tpu_torch.ops.core import cast_compute_dtype
-
-# proposal-count buckets of the decode batch (echr_tpu/engine/evaluate.py)
-PROP_BUCKETS = (64, 128, 256, 512, 1024)
-
-
-def _prop_bucket(n: int) -> int:
-    for b in PROP_BUCKETS:
-        if n <= b:
-            return b
-    return PROP_BUCKETS[-1]
 
 
 @dataclasses.dataclass

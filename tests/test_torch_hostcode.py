@@ -1,6 +1,8 @@
 """The port's own copies of echr_tpu's host code give echr_tpu's outputs:
-labels, the synthetic dataset and batcher, the loader, proposal
-selection, caption rendering and the Config JSON.
+labels, the synthetic dataset and batcher (the labels-off form included),
+the loader and its per-split eval state, proposal selection and
+reranking, caption rendering, the Config JSON, the metrics (tokenizer,
+scorers, eval_score) and the hang watchdog.
 
 echr_tpu's optional C++ paths (IoU grid, NMS, caption joiner) are its own
 numpy paths' equals, so the comparisons are exact; the label grids are
@@ -8,9 +10,13 @@ compared with echr_tpu's numpy grid (the C++ one differs by <= 2e-7,
 tests/test_native.py).
 """
 import dataclasses
+import json
+import logging
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from echr_tpu import config as jconfig
 from echr_tpu import native as jnative
@@ -19,12 +25,18 @@ from echr_tpu.data import dataset as jdataset
 from echr_tpu.data import labels as jlabels
 from echr_tpu.data import loader as jloader
 from echr_tpu.engine import proposals as jproposals
+from echr_tpu.metrics.eval_score import eval_score as jax_eval_score
+from echr_tpu.metrics import scorers as jscorers
+from echr_tpu.metrics import tokenizer as jtokenizer
 from echr_tpu.utils import text as jtext
+from echr_tpu.utils import watchdog as jwatchdog
 
 from echr_tpu_torch import config
 from echr_tpu_torch.data import batcher, dataset, labels, loader
 from echr_tpu_torch.engine import proposals
-from echr_tpu_torch.utils import text
+from echr_tpu_torch.metrics import scorers, tokenizer
+from echr_tpu_torch.metrics.eval_score import eval_score
+from echr_tpu_torch.utils import text, watchdog
 
 
 @pytest.fixture
@@ -164,3 +176,180 @@ def test_config_json_round_trip_both_ways():
     # sections and fields this tree does not know are ignored when loading
     assert config.Config.from_dict({"decoder": {"CG_rnn_size": 8, "gone": 1},
                                     "other": {}}).decoder.CG_rnn_size == 8
+
+
+def _assert_batches_equal(b, m, jb, jm):
+    for name, x, y in zip(b._fields, b, jb):
+        np.testing.assert_array_equal(x, y, err_msg=name)
+        assert np.asarray(x).dtype == np.asarray(y).dtype, name
+    for f in dataclasses.fields(m):
+        np.testing.assert_equal(getattr(m, f.name), getattr(jm, f.name), err_msg=f.name)
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.7, 0.8, 0.95])
+def test_good_proposal_count_matches(thr):
+    r = np.random.RandomState(4)
+    for T, K in ((40, 16), (130, 32), (5, 8)):
+        for _ in range(6):
+            gts = [tuple(sorted(r.randint(0, T + 2, size=2))) for _ in range(r.randint(0, 5))]
+            assert labels.good_proposal_count(gts, T, K, thr) == \
+                jlabels.good_proposal_count(gts, T, K, thr)
+
+
+def test_make_batch_labels_off_matches(numpy_grid):
+    """The decode-only batch, for videos that fit a bucket and ones cut to
+    the largest, and its geometry equal to the labels-on batch's."""
+    cfg = _cfg()
+    ds, jds = dataset.SyntheticDataset(cfg, num_videos=12, seed=7), \
+        jdataset.SyntheticDataset(cfg, num_videos=12, seed=7)
+    for ix in range(12):
+        ex, jex = ds.get_example(ix), jds.get_example(ix)
+        b, m = batcher.make_batch(ex, cfg, np.random.RandomState(ix), w1=ds.w1, labels=False)
+        jb, jm = jbatcher.make_batch(jex, cfg, np.random.RandomState(ix), w1=jds.w1, labels=False)
+        _assert_batches_equal(b, m, jb, jm)
+        full, fm = batcher.make_batch(ex, cfg, np.random.RandomState(ix), w1=ds.w1)
+        for name in ("feats", "frame_mask", "n_frames", "lda", "tap_masks"):
+            np.testing.assert_array_equal(getattr(b, name), getattr(full, name), err_msg=name)
+        assert (m.proposal_num, m.n_frames, m.duration) == \
+            (fm.proposal_num, fm.n_frames, fm.duration)
+
+
+def test_loader_eval_state_matches(numpy_grid):
+    """set_labels / set_feats_dtype / reset_iterator / split_size on the val
+    split: the decode-only batches with bf16 features (a torch tensor in the
+    port, an ml_dtypes array in echr_tpu, the same values), then the full
+    batches again after a reset; the train split keeps its labels."""
+    import jax.numpy as jnp
+
+    cfg = _cfg().replace_in("data", nthreads=2, prefetch=3)
+    ld = loader.Loader(dataset.SyntheticDataset(cfg, num_videos=12, seed=3), cfg,
+                       process_index=0, process_count=1, seed=5)
+    jld = jloader.Loader(jdataset.SyntheticDataset(cfg, num_videos=12, seed=3), cfg, seed=5,
+                         process_index=0, process_count=1)
+    try:
+        assert ld.split_size("val") == jld.split_size("val") == 3
+        assert ld.split_size("train") == jld.split_size("train") == 9
+        assert ld.labels_for("val") and ld.feats_dtype_for("val") is None
+        ld.set_labels(False, "val")
+        jld.set_labels(False, "val")
+        ld.set_feats_dtype(torch.bfloat16, "val")
+        jld.set_feats_dtype(np.dtype(jnp.bfloat16), "val")
+        assert not ld.labels_for("val") and ld.labels_for("train")
+        assert ld.feats_dtype_for("val") == torch.bfloat16
+        for _ in range(4):  # past the wrap
+            (b, m), (jb, jm) = ld.get_batch("val"), jld.get_batch("val")
+            assert (m.vid, m.wrapped) == (jm.vid, jm.wrapped)
+            assert b.feats.dtype == torch.bfloat16
+            np.testing.assert_array_equal(b.feats.float().numpy(),
+                                          np.asarray(jb.feats).astype(np.float32))
+            _assert_batches_equal(b._replace(feats=0), m, jb._replace(feats=0), jm)
+        for x in (ld, jld):
+            x.set_labels(True, "val")
+            x.set_feats_dtype(None, "val")
+            x.reset_iterator("val")
+        assert ld.state() == jld.state()
+        for i in range(2):
+            (b, m), (jb, jm) = ld.get_batch("val"), jld.get_batch("val")
+            assert m.vid == jm.vid == f"v_synth{9 + i:05d}"
+            _assert_batches_equal(b, m, jb, jm)
+        (b, m), (jb, jm) = ld.get_batch("train"), jld.get_batch("train")
+        _assert_batches_equal(b, m, jb, jm)
+    finally:
+        ld.load_state(ld.state())  # stops and joins the prefetch threads
+        jld.load_state(jld.state())
+
+
+def test_rerank_top10_matches():
+    r = np.random.RandomState(6)
+    for n in (1, 5, 10, 11, 40):
+        rs = np.round(r.randn(n), 1)  # rounded: ties at the 10th score
+        infos = [{"re_score": float(x), "num": [i, n]} for i, x in enumerate(rs)]
+        assert proposals.rerank_top10(infos) == jproposals.rerank_top10(infos)
+
+
+CAPTIONS = [
+    "A man's dog can't run, won't stop.",
+    "they'll say \u201cyes\u201d \u2014 gonna be 100% of the $5 weights...",
+    "Twenty-one people and/or 1,000 caf\u00e9 tables (3.5 m) o'clock",
+    "",
+]
+
+
+@pytest.mark.parametrize("caption", CAPTIONS)
+def test_tokenizer_matches(caption):
+    assert tokenizer.tokenize_caption(caption) == jtokenizer.tokenize_caption(caption)
+    caps = {0: [{"caption": caption}], 1: [{"caption": caption.upper()}]}
+    assert tokenizer.tokenize(caps) == jtokenizer.tokenize(caps)
+
+
+GTS = {0: ["a man is playing a guitar on the stage", "someone plays guitar"],
+       1: ["the dogs are running in the park", "dogs run across a green park"],
+       2: ["a woman cuts vegetables in a kitchen"]}
+RES = {0: ["a man plays the guitar"], 1: ["two dogs running through the park"],
+       2: ["a woman is cutting onions"]}
+
+
+@pytest.mark.parametrize("name", ["Bleu", "Rouge", "Cider", "Meteor"])
+def test_scorer_matches(name):
+    """Both copies under the same stemmer (scorers' nltk PorterStemmer, or the
+    identity where nltk is absent)."""
+    port = scorers.Bleu(4) if name == "Bleu" else getattr(scorers, name)()
+    ref = jscorers.Bleu(4) if name == "Bleu" else getattr(jscorers, name)()
+    got, got_each = port.compute_score(GTS, RES)
+    want, want_each = ref.compute_score(GTS, RES)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(got_each, dtype=float),
+                                  np.asarray(want_each, dtype=float))
+    assert np.all(np.asarray(got) > 0)
+
+
+def test_eval_score_matches(tmp_path):
+    """One predictions file against one reference file, every metric at the
+    four tIoUs, top-N capping and a prediction that overlaps no GT."""
+    gt = {"v1": {"duration": 30.0, "timestamps": [[0.0, 10.0], [8.0, 20.0]],
+                 "sentences": ["a man plays a guitar", "the man sings a song"]},
+          "v2": {"duration": 12.0, "timestamps": [[1.0, 5.0]],
+                 "sentences": ["a dog runs in the park"]}}
+    preds = {"v1": [{"sentence": "a man plays guitar", "timestamp": [0.5, 9.0],
+                     "proposal_score": 0.9, "re_score": 1.0, "sentence_confidence": -1.0},
+                    {"sentence": "a man is singing", "timestamp": [7.0, 21.0],
+                     "proposal_score": 0.8, "re_score": 0.5, "sentence_confidence": -2.0},
+                    {"sentence": "nothing here", "timestamp": [25.0, 29.0],
+                     "proposal_score": 0.1, "re_score": 0.1, "sentence_confidence": -3.0}],
+             "v2": [{"sentence": "a dog runs", "timestamp": [1.2, 4.0],
+                     "proposal_score": 0.7, "re_score": 0.2, "sentence_confidence": -1.5}]}
+    (tmp_path / "ref.json").write_text(json.dumps(gt))
+    (tmp_path / "pred.json").write_text(json.dumps({"results": preds, "version": "VERSION 1.0",
+                                                    "external_data": {}}))
+    for only_recall in (False, True):
+        kw = dict(only_recall=only_recall, verbose=True, topN=2,
+                  references=[str(tmp_path / "ref.json")])
+        got = eval_score(str(tmp_path / "pred.json"), **kw)
+        want = jax_eval_score(str(tmp_path / "pred.json"), **kw)
+        assert got == want
+    assert got["Recall"][0] > 0 and len(got["Recall"]) == 4
+
+
+@pytest.mark.parametrize("mod", [watchdog, jwatchdog], ids=["port", "echr_tpu"])
+def test_watchdog_trips_on_a_stall(mod, caplog):
+    """A stalled loop trips the watchdog (a warning each deadline), a beating
+    loop does not, stop() joins its thread, and deadline 0 starts none."""
+    wd = mod.HangWatchdog("t", 0.2, dump_stacks=False).start()
+    try:
+        for _ in range(5):
+            wd.beat()
+            time.sleep(0.05)
+        assert wd.trips == 0
+        with caplog.at_level(logging.WARNING):
+            deadline = time.time() + 5.0
+            while wd.trips == 0 and time.time() < deadline:
+                time.sleep(0.05)
+        assert wd.trips >= 1
+        assert any("no progress" in r.getMessage() for r in caplog.records)
+    finally:
+        thread = wd._thread
+        wd.stop()
+    assert thread is not None and not thread.is_alive()
+    off = mod.HangWatchdog("off", 0).start()
+    assert off._thread is None
+    off.stop()

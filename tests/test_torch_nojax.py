@@ -4,8 +4,9 @@ init builds the same param tree as echr_tpu.models.registry.
 The subprocess imports every module of the port (its probes included),
 builds its configuration and data from the port alone, serves a tiny CPU
 slice (greedy and beam) from the port's own init and from a JAX format-v2
-checkpoint, takes one tiny training step, and checks that neither jax nor
-any echr_tpu or experiments module entered sys.modules.
+checkpoint, takes one tiny training step, evaluates a split with its
+metrics, and checks that neither jax nor any echr_tpu or experiments
+module entered sys.modules.
 """
 import os
 import pkgutil
@@ -134,6 +135,12 @@ _CHILD = textwrap.dedent("""
     st, m = steps.train_step(st, steps.batch_to_device(batch, "cpu"),
                              torch.Generator().manual_seed(0), cfg, "tap_cg")
     assert st.step == 1 and np.isfinite(m["loss"]), m
+    from echr_tpu_torch.data.loader import Loader
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    preds, score, loss = eval_split_batched(
+        st.tap, st.cg, Loader(ds, cfg, process_index=0, process_count=1), cfg, "eval.json",
+        {{"topN": 6, "val_all_metrics": True}}, batch_videos=2, device="cpu")
+    assert preds and np.isfinite(loss).all() and len(score["METEOR"]) == 4, (preds, score)
     foreign = sorted(m for m in sys.modules if m in ("jax", "echr_tpu", "experiments")
                      or m.startswith(("jax.", "echr_tpu.", "experiments.")))
     assert not foreign, foreign

@@ -194,3 +194,37 @@ def test_sst_forward(dtype):
     jth1, jsc1 = jax_sst_forward(jcast, jnp.asarray(feats[1]))
     close(th1, jth1, atol)
     close(sc1, jsc1, atol)
+
+
+def test_tf32_blocks_restore_the_flag_across_threads():
+    """ops.core.matmul's TF32 blocks, overlapping on more threads than cores
+    with a short switch interval: TF32 is on inside every block, and the
+    process-wide flag ends as it began (a save and restore per block can
+    leave it on)."""
+    import sys
+    import threading
+
+    flags = torch.backends.cuda.matmul
+    orig, switch = flags.allow_tf32, sys.getswitchinterval()
+    blocks = core._TF32()
+    off_inside = []
+
+    def run():
+        for _ in range(300):
+            with blocks.on():
+                if not flags.allow_tf32:
+                    off_inside.append(1)
+    sys.setswitchinterval(1e-6)
+    try:
+        for before in (False, True):
+            flags.allow_tf32 = before
+            threads = [threading.Thread(target=run) for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+            assert flags.allow_tf32 == before and not off_inside
+    finally:
+        sys.setswitchinterval(switch)
+        flags.allow_tf32 = orig
