@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive echr_tpu_torch's batched greedy and beam serving paths, its XE
-training path, its three probes and its batched eval loop once on one
-NVIDIA GPU, and hold every kernel against its plain PyTorch version.
+training path, its three probes, its batched eval loop and its
+checkpointed training once on one NVIDIA GPU, and hold every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -124,7 +125,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      weights, the greedy eval with the kernels and under force_plain()
      gives the same sentences, timestamps and proposal scores for every
      video, sentence confidences within 5e-4 a token and val losses within
-     1e-5 relative.
+     1e-5 relative;
+  20. checkpointed training: engine.train.train on train_cfg() (nothing
+     cut) for 8 steps with save_checkpoint_every 4 from epoch 0, so the
+     gate runs at 4 and 8, each over one group of 32 val videos, the cg
+     pass and then the tap_cg pass, every metric scored.  Kernels 3 and
+     4 launch 29 times a step and a histogram step, kernel 1 once a gate
+     decode step and 29 times a val-loss group, kernel 2 once a decode
+     step; the best score is the gates' highest, model-best.ckpt holds it;
+     TF32 is off after the gates; model-last.ckpt read back onto the card
+     equals the run's state, parameters and Adam state; serve's
+     from_checkpoint on model-best.ckpt captions phase 6's requests.
+     ms/step outside the gate, each gate's seconds by pass and in
+     eval_score, the checkpoints' bytes and seconds to write and to read,
+     peak device memory with the gate inside the run;
+  21. preemption: a hook on train_step sends the process SIGTERM before
+     step 3; train() returns at step 3 with a readable model-last.ckpt
+     and its handler restored, and start_from runs on to step 5;
+  22. resume parity: at f32 with TF32 off, dropout and scheduled sampling
+     off (steps without a generator), 3 steps then a resume to 6 against 6
+     straight: the losses of steps 4-6 within 1e-5 relative, the
+     parameters within atol 1e-5.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -188,18 +209,29 @@ def in_turns(calls):
 
 @contextlib.contextmanager
 def wrapped(module, name, hook):
-    """Within the block, module.name(*args) first calls hook(*args)."""
+    """Within the block, module.name(*args, **kw) first calls hook(*args)."""
     fn = getattr(module, name)
 
     @functools.wraps(fn)  # with its attributes: fn counts its launches on its global name
-    def wrapper(*args):
+    def wrapper(*args, **kw):
         hook(*args)
-        return fn(*args)
+        return fn(*args, **kw)
     setattr(module, name, wrapper)
     try:
         yield
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """Within the block, module.name is fn."""
+    before = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, before)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -446,35 +478,42 @@ def head_inputs(rng, R, C, V1, dtype, dev):
     return out, w.contiguous(), b
 
 
-def phase_head(card):
+def head_check(tag, name, args):
+    """Kernel 2 on args (out, w, b) against its plain version: the same
+    token on every row whose top two logits are more than 1e-3 apart, max
+    and logsumexp within TOL.  Returns (max |d|, the kernel's outputs)."""
     from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    tok, mx, lse = outs = greedy_head(*args)
+    torch.cuda.synchronize()
+    with force_plain():
+        ptok, pmx, plse = greedy_head(*args)
+        C = args[0].shape[1]
+        logits = torch.matmul(args[0].to(args[1].dtype).float(),
+                              args[1][:, :C].float().t()) + args[2]
+    top2 = torch.topk(logits, 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    bad = int((tok != ptok)[clear].sum())
+    err = max(float((mx - pmx).abs().max()), float((lse - plse).abs().max()))
+    print(f"[{tag}] head {name}: {bad} token mismatches on {int(clear.sum())}/{len(clear)} "
+          f"rows with top-2 gap > 1e-3; max|d| max/lse {err:.3e}")
+    if bad or not err <= TOL:
+        fail(f"kernel 2 {name} disagrees with its plain version")
+    return err, outs
+
+
+def phase_head(card):
     from echr_tpu_torch.ops.kernel_head import greedy_head, split_plan
 
     rng = np.random.RandomState(1)
     dev = torch.device("cuda")
-
-    def compare(name, args):
-        tok, mx, lse = outs = greedy_head(*args)
-        torch.cuda.synchronize()
-        with force_plain():
-            ptok, pmx, plse = greedy_head(*args)
-            C = args[0].shape[1]
-            logits = torch.matmul(args[0].to(args[1].dtype).float(),
-                                  args[1][:, :C].float().t()) + args[2]
-        top2 = torch.topk(logits, 2, dim=1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-3
-        bad = int((tok != ptok)[clear].sum())
-        err = max(float((mx - pmx).abs().max()), float((lse - plse).abs().max()))
-        print(f"[3] head {name}: {bad} token mismatches on {int(clear.sum())}/{len(clear)} "
-              f"rows with top-2 gap > 1e-3; max|d| max/lse {err:.3e}")
-        if bad or not err <= TOL:
-            fail(f"kernel 2 {name} disagrees with its plain version")
-        return err, outs
-
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for name, (R, C, V1, dtype) in {
         "serving_bf16": (4096, 1536, 6001, torch.bfloat16),
+        # the gate's cg pass: 32 videos x bucket 64 (another vocab split)
+        "gate_cg_bf16": (2048, 1536, 6001, torch.bfloat16),
         "serving_f32": (4096, 1536, 6001, torch.float32),
         "ragged_bf16": (1000, 200, 777, torch.bfloat16),
         "ragged_unaligned_bf16": (77, 36, 130, torch.bfloat16),
@@ -482,7 +521,8 @@ def phase_head(card):
         "ragged_unaligned_f32": (33, 30, 70, torch.float32),
     }.items():
         args = head_inputs(rng, R, C, V1, dtype, dev)
-        err, outs = compare(name, args)
+        err, outs = head_check("3", f"{name} ({split_plan(R, V1, sms, dtype)[1]} splits)",
+                               args)
         worst = max(worst, err)
         if name == "serving_bf16":
             record = head_timing(card, args, outs, split_plan(R, V1, sms, dtype))
@@ -563,15 +603,22 @@ def requests(n, seed):
             for i in range(n)]
 
 
-def check_captions(res, reqs):
-    """Every request captioned, TOP_N captions each, well-formed timestamps,
-    scores and sentences."""
+def check_captions(res, reqs, ties=False):
+    """Every request captioned, TOP_N captions each (with ``ties``, also
+    more: proposals tied at the top-N threshold are all kept, as in
+    echr_tpu, so every caption past the TOP_N-th scores exactly the TOP_N-th
+    largest proposal score), well-formed timestamps, scores and
+    sentences."""
     if sorted(res) != sorted(r.vid for r in reqs):
         fail("not every request was captioned")
     for r in reqs:
         caps = res[r.vid]
-        if len(caps) != TOP_N:
-            fail(f"{r.vid}: {len(caps)} captions, expected {TOP_N}")
+        scores = sorted((c.proposal_score for c in caps), reverse=True)
+        tied = len(caps) > TOP_N and all(x == scores[TOP_N - 1] for x in scores[TOP_N:])
+        if not (len(caps) == TOP_N or ties and tied):
+            fail(f"{r.vid}: {len(caps)} captions, expected {TOP_N}"
+                 + (" and threshold ties past it" if ties else "")
+                 + f"; scores from the {TOP_N}-th on {scores[TOP_N - 1:TOP_N + 3]}")
         for c in caps:
             s, e = c.timestamp
             if not (0.0 <= s < e <= r.duration + 1e-6 and 0.0 <= c.proposal_score <= 1.0
@@ -1676,11 +1723,8 @@ def timed_scoring(seconds):
             return fn(*args, **kw)
         finally:
             seconds.append(time.time() - t0)
-    evaluate.eval_score = timed
-    try:
+    with patched(evaluate, "eval_score", timed):
         yield
-    finally:
-        evaluate.eval_score = fn
 
 
 def phase_eval(card):
@@ -1765,27 +1809,34 @@ def eval_pass(card, name, beam, args, usable, durations, json_path):
 
 def phase_eval_parity():
     """f32, TF32 off, phase 5's sharpened logit weights: the greedy eval with
-    the kernels and under force_plain() gives the same videos, sentences,
-    timestamps and proposal scores, sentence confidences within 5e-4 a
-    token (the caption's words and its end token) and val losses within
-    1e-5 relative."""
-    from echr_tpu_torch.engine.evaluate import eval_split_batched
-    from echr_tpu_torch.ops import force_plain
-
+    the kernels and under force_plain(), in the tap_cg mode and in the cg
+    mode that phase 20's gate runs first (GT proposals, bucket 64), gives
+    the same videos, sentences, timestamps and proposal scores, sentence
+    confidences within 5e-4 a token (the caption's words and its end
+    token) and val losses within 1e-5 relative."""
     cfg, tap, cg, ds, loader = eval_setup(compute_dtype="float32")
     with torch.no_grad():
         cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
-    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False, "get_eval_loss": True}
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            got, _, got_loss = eval_split_batched(tap, cg, loader, cfg, f"{tmp}/k.json", dict(kw),
-                                                  batch_videos=EVAL_B, device="cuda")
-            with force_plain():
-                want, _, want_loss = eval_split_batched(tap, cg, loader, cfg,
-                                                        f"{tmp}/p.json", dict(kw),
-                                                        batch_videos=EVAL_B, device="cuda")
+        for mode in ("tap_cg", "cg"):
+            eval_parity(tap, cg, loader, cfg, mode)
     finally:
         loader.load_state(loader.state())
+
+
+def eval_parity(tap, cg, loader, cfg, mode):
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    from echr_tpu_torch.ops import force_plain
+
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False, "get_eval_loss": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        got, _, got_loss = eval_split_batched(tap, cg, loader, cfg, f"{tmp}/k.json", dict(kw),
+                                              flag_eval_what=mode, batch_videos=EVAL_B,
+                                              device="cuda")
+        with force_plain():
+            want, _, want_loss = eval_split_batched(tap, cg, loader, cfg, f"{tmp}/p.json",
+                                                    dict(kw), flag_eval_what=mode,
+                                                    batch_videos=EVAL_B, device="cuda")
     if sorted(got) != sorted(want) or not want:
         fail("eval parity: the kernels and the plain versions predicted for other videos")
     bad, worst, n = 0, 0.0, 0
@@ -1799,11 +1850,259 @@ def phase_eval_parity():
             err = abs(g["sentence_confidence"] - w["sentence_confidence"])
             worst = max(worst, err / (len(w["sentence"].split()) + 1))
     rel = np.abs(got_loss[:3] - want_loss[:3]) / np.abs(want_loss[:3])
-    print(f"[19] f32 eval, kernels vs plain: {len(want)} videos, {n} captions, {bad} differ in "
-          f"sentence, timestamp or proposal score; max|d| confidence {worst:.3e} a token; val "
-          f"losses {np.round(want_loss[:3], 6).tolist()} (rel {float(rel.max()):.2e})")
+    print(f"[19] f32 {mode} eval, kernels vs plain: {len(want)} videos, {n} captions, {bad} "
+          f"differ in sentence, timestamp or proposal score; max|d| confidence {worst:.3e} a "
+          f"token; val losses {np.round(want_loss[:3], 6).tolist()} (rel {float(rel.max()):.2e})")
     if bad or not worst <= TOL or not float(rel.max()) <= 1e-5:
-        fail("the eval pass with the kernels disagrees with its plain version")
+        fail(f"the {mode} eval pass with the kernels disagrees with its plain version")
+
+
+CKPT_STEPS, CKPT_EVERY = 8, 4  # phase 20: steps, save_checkpoint_every (two gates)
+RESUME_K = 3  # phases 21-22: the step a run is stopped at
+
+
+def ckpt_train_cfg(folder, **runtime):
+    """train_cfg() (bench.py's e2e_train_cfg, nothing cut) with checkpoints
+    into ``folder``: save_checkpoint_every 4 from epoch 0, each gate over
+    one group of EVAL_B val videos, the cg pass and then the tap_cg pass
+    (fast_eval_cg off)."""
+    cfg = train_cfg(**runtime).replace(run_id="ckpt")
+    cfg = cfg.replace_in("save", checkpoint_path=folder, save_checkpoint_every=CKPT_EVERY,
+                         min_epoch_when_save=0)
+    return cfg.replace_in("eval", num_vids_eval=EVAL_B, batch_videos=EVAL_B, fast_eval_cg=False)
+
+
+def first_of_each_shape(kept):
+    """A hook that keeps a copy of the arguments of the first call of each
+    shape and dtype signature in ``kept``."""
+    def keep(*args):
+        key = tuple((tuple(x.shape), x.dtype) for x in args)
+        if key not in kept:
+            kept[key] = tuple(x.detach().clone() for x in args)
+    return keep
+
+
+def phase_ckpt_train(card):
+    """Phase 20: checkpointed training through engine.train.train: 8 steps,
+    gates at 4 and 8, model-last / model-best, then the checkpoint read
+    back and served.  Kernels 1 and 2 are held against their plain versions
+    on a copy of the arguments of their first call at each shape the run
+    gave them (the gate's cg and tap_cg decodes and val losses); the
+    training steps give kernels 3 and 4 phase 9's shapes, held there on
+    the step's own inputs.  Returns kernels 1-4's launches in the run."""
+    import os
+
+    from echr_tpu_torch.engine import checkpoint
+    from echr_tpu_torch.engine import train as train_mod
+    from echr_tpu_torch.models import decoder
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops import attention
+    from echr_tpu_torch.ops.kernel_attention import (attention_scores_bwd,
+                                                     attention_scores_dense,
+                                                     attention_scores_masked)
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.serve import from_checkpoint
+
+    kernels = (attention_scores_masked, greedy_head, attention_scores_dense,
+               attention_scores_bwd)
+    passes, score_s, saves = [], [], []
+    eval_fn, save_fn = train_mod.eval_split_batched, checkpoint.save_checkpoint
+
+    def timed_eval(tap, cg, loader, cfg, json_path, kw, **k):
+        kw = dict(kw, timing_out={})
+        t0 = time.time()
+        res = eval_fn(tap, cg, loader, cfg, json_path, kw, **k)
+        torch.cuda.synchronize()
+        passes.append((k["flag_eval_what"], time.time() - t0, kw["timing_out"]["groups"]))
+        return res
+
+    def timed_save(path, *a, **k):
+        t0 = time.time()
+        save_fn(path, *a, **k)
+        saves.append((os.path.basename(path), time.time() - t0, os.path.getsize(path)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ckpt_train_cfg(tmp)
+        timing = {}
+        for fn in kernels:
+            fn.launches = 0
+        decoder_sample_batched.steps = 0
+        torch.cuda.reset_peak_memory_stats()
+        seen1, seen2 = {}, {}
+        with patched(train_mod, "eval_split_batched", timed_eval), \
+                patched(checkpoint, "save_checkpoint", timed_save), timed_scoring(score_s), \
+                wrapped(attention, "attention_scores_masked", first_of_each_shape(seen1)), \
+                wrapped(decoder, "greedy_head", first_of_each_shape(seen2)):
+            out = train_mod.train(cfg, max_iterations=CKPT_STEPS, device="cuda",
+                                  timing_out=timing)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        steps = decoder_sample_batched.steps
+        peak = torch.cuda.max_memory_allocated()
+
+        tf_steps = SEQ_LEN - 1
+        gates = [it for it, _ in timing["ckpt"]]
+        groups = sum(g for _, _, g in passes)
+        folder = out["save_folder"]
+        last, best = (os.path.join(folder, f"model-{w}.ckpt") for w in ("last", "best"))
+        raw = checkpoint.load_checkpoint(last, rebuild_state=False)
+        val = raw["histories"]["val"]
+        gate_scores = {it: float(np.mean(val[it]["METEOR"])) * 100 for it in gates}
+        want = {"attention_scores_dense": tf_steps * (CKPT_STEPS + len(gates)),
+                "attention_scores_bwd": tf_steps * (CKPT_STEPS + len(gates)),
+                "attention_scores_masked": steps + tf_steps * groups, "greedy_head": steps}
+        if out["iteration"] != CKPT_STEPS or gates != [CKPT_EVERY, 2 * CKPT_EVERY]:
+            fail(f"checkpointed training: iteration {out['iteration']}, gates at {gates}")
+        if [m for m, _, _ in passes] != ["cg", "tap_cg"] * 2 or groups != 4:
+            fail(f"checkpointed training: gate passes {passes}")
+        if not (steps > 0 and launches == want):
+            fail(f"checkpointed training: launches {launches}, want {want} ({steps} decode "
+                 f"steps, {groups} val-loss groups)")
+        if not (seen1 and seen2):
+            fail("checkpointed training: no call of kernel 1 or 2 was seen")
+        worst1 = max(kernel1_check(f"gate {key}", args)[0] for key, args in seen1.items())
+        worst2 = max(head_check("20", f"gate R={args[0].shape[0]} {args[1].dtype}", args)[0]
+                     for args in seen2.values())
+        print(f"[20] kernel 1 at the run's {len(seen1)} shapes "
+              f"{[tuple(k[0][0]) + (k[1][0][1],) for k in seen1]} (pre [B, T, H], N): max|d| "
+              f"where mask==1 {worst1:.3e}, masked entries 0; kernel 2 at its "
+              f"{len(seen2)} shapes (R, C) {[k[0][0] for k in seen2]}: max|d| max/lse "
+              f"{worst2:.3e}; against their plain versions")
+        del seen1, seen2
+        if sorted(val) != gates or out["best_val_score"] != max(gate_scores.values()):
+            fail(f"checkpointed training: best {out['best_val_score']}, gates {gate_scores}")
+        best_raw = checkpoint.load_checkpoint(best, rebuild_state=False)
+        if gate_scores[best_raw["iteration"]] != best_raw["best_val_score"]:
+            fail(f"model-best.ckpt at iteration {best_raw['iteration']} holds score "
+                 f"{best_raw['best_val_score']}, the gate gave {gate_scores}")
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail("checkpointed training: the gate's two threads left TF32 on")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loaded = checkpoint.load_checkpoint(last, "cuda")
+        torch.cuda.synchronize()
+        read_s = time.time() - t0
+        st, ld = out["state"], loaded["state"]
+        for name in ("tap", "cg"):
+            for (pn, a), b in zip(getattr(st, name).named_parameters(),
+                                  getattr(ld, name).parameters()):
+                sa, sb = getattr(st, name + "_opt").state[a], getattr(ld, name + "_opt").state[b]
+                if not (torch.equal(a, b) and all(torch.equal(sa[k].cpu(), sb[k].cpu())
+                                                  for k in sa)):
+                    fail(f"model-last.ckpt read back: {name}.{pn} or its Adam state differs")
+        reqs = requests(64, seed=2)
+        svc = from_checkpoint(best, device="cuda", batch_videos=32, topN=TOP_N)
+        t0 = time.time()
+        res = svc.caption(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.time() - t0
+        check_captions(res, reqs, ties=True)
+
+    t = dict(timing["iters"])
+    ck = dict(timing["ckpt"])
+    dt = (t[CKPT_STEPS] - t[1] - ck[CKPT_EVERY]) / (CKPT_STEPS - 1)
+    print(f"[20] checkpointed training: {out['iteration']} steps of {TRAIN_B} videos "
+          f"(cotrain/tap_cg, bf16, dropout on), gates at {gates} over {EVAL_B} val videos "
+          f"(cg, then tap_cg), scores {gate_scores}, best {out['best_val_score']:.4f} at "
+          f"iteration {best_raw['iteration']}; launches {launches} ({steps} decode steps)")
+    print(f"[20] {1000 * dt:.1f} ms/step outside the gate (steps 2-{CKPT_STEPS} less the "
+          f"boundary at {CKPT_EVERY}); peak device memory {peak / 2**30:.2f} GiB with the "
+          f"gate inside the run [{card}]")
+    for i, it in enumerate(gates):
+        (m1, s1, _), (m2, s2, _) = passes[2 * i:2 * i + 2]
+        print(f"[20] boundary at {it}: {ck[it]:.3f} s; gate {s1 + s2:.3f} s = {m1} pass "
+              f"{s1:.3f} s (eval_score {score_s[2 * i]:.3f} s) + {m2} pass {s2:.3f} s "
+              f"(eval_score {score_s[2 * i + 1]:.3f} s); histograms and saves "
+              f"{ck[it] - s1 - s2:.3f} s [{card}]")
+    for name, sec, size in saves:
+        print(f"[20] wrote {name}: {size} bytes ({size / 2**20:.1f} MiB) in {sec:.3f} s")
+    print(f"[20] read model-last.ckpt onto the card: {read_s:.3f} s; the state read back "
+          f"equals the run's, parameters and Adam state [{card}]")
+    n_caps = sum(len(c) for c in res.values())
+    print(f"[20] serve.from_checkpoint(model-best.ckpt): {len(res)} requests, {n_caps} "
+          f"captions (top-{TOP_N} with threshold ties) in {serve_s:.3f} s, e.g. {res['v0'][0]}")
+    return launches
+
+
+def phase_preempt():
+    """Phase 21: SIGTERM, sent from a hook on train_step before step 3, stops
+    train() at step 3 with a readable model-last.ckpt and the handler
+    restored; start_from then runs to step 5."""
+    import os
+    import signal
+
+    from echr_tpu_torch.engine import checkpoint
+    from echr_tpu_torch.engine import train as train_mod
+
+    calls = []
+
+    def sigterm_at_k(*args):
+        calls.append(1)
+        if len(calls) == RESUME_K:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    before = signal.getsignal(signal.SIGTERM)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ckpt_train_cfg(tmp).replace_in("save", save_checkpoint_every=10**9)
+        with wrapped(train_mod, "train_step", sigterm_at_k):
+            out = train_mod.train(cfg, max_iterations=RESUME_K + 5, device="cuda")
+        last = checkpoint.load_checkpoint(os.path.join(out["save_folder"], "model-last.ckpt"),
+                                          "cuda")
+        if signal.getsignal(signal.SIGTERM) is not before:
+            fail("train() left its SIGTERM handler installed")
+        if not (out["iteration"] == last["iteration"] == last["state"].step == RESUME_K):
+            fail(f"SIGTERM before step {RESUME_K}: train() returned at {out['iteration']}, "
+                 f"model-last.ckpt at {last['iteration']}")
+        res = train_mod.train(cfg.replace_in("save", start_from=cfg.run_id),
+                              max_iterations=RESUME_K + 2, device="cuda")
+    if not (res["iteration"] == res["state"].step == RESUME_K + 2
+            and all(np.isfinite(v) for v in res["losses"].values())):
+        fail(f"resume after SIGTERM: iteration {res['iteration']}, losses {res['losses']}")
+    print(f"[21] SIGTERM before step {RESUME_K}: train() returned at iteration "
+          f"{out['iteration']} with a readable model-last.ckpt, handler restored; start_from "
+          f"ran to {res['iteration']}, losses {res['losses']['loss']:.4f}")
+
+
+def phase_resume_parity():
+    """Phase 22: f32, TF32 off, dropout and scheduled sampling off (steps
+    without a generator: the three_stream core's dropout has no setting):
+    3 steps, then a resume to 6, against 6 steps straight.  Gates: the
+    losses of steps 4-6 within 1e-5 relative, the parameters within atol
+    1e-5."""
+    from echr_tpu_torch.engine import steps as steps_mod
+    from echr_tpu_torch.engine import train as train_mod
+
+    losses = []
+
+    def no_dropout(state, batch, gen, *a, **k):
+        state, m = steps_mod.train_step(state, batch, None, *a, **k)
+        losses.append(m["loss"])
+        return state, m
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 22 needs TF32 off")
+    with tempfile.TemporaryDirectory() as tmp, patched(train_mod, "train_step", no_dropout):
+        cfg = ckpt_train_cfg(tmp, compute_dtype="float32").replace_in(
+            "save", save_checkpoint_every=10**9)
+        cfg = cfg.replace_in("tap", rnn_dropout=0.0).replace_in("decoder", CG_drop_prob=0.0)
+        straight = train_mod.train(cfg.replace(run_id="S"), max_iterations=2 * RESUME_K,
+                                   device="cuda")
+        want = losses[RESUME_K:]
+        del losses[:]
+        train_mod.train(cfg.replace(run_id="K"), max_iterations=RESUME_K, device="cuda")
+        resumed = train_mod.train(cfg.replace(run_id="K").replace_in("save", start_from="K"),
+                                  max_iterations=2 * RESUME_K, device="cuda")
+        got = losses[RESUME_K:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    err = max(float((a - b).detach().abs().max()) for name in ("tap", "cg")
+              for a, b in zip(getattr(straight["state"], name).parameters(),
+                              getattr(resumed["state"], name).parameters()))
+    print(f"[22] f32 resume at step {RESUME_K} of {2 * RESUME_K}: losses of steps "
+          f"{RESUME_K + 1}-{2 * RESUME_K} {[round(x, 6) for x in got]} against "
+          f"{[round(x, 6) for x in want]} (max rel {rel:.2e}); parameters max|d| {err:.3e}")
+    if len(got) != RESUME_K or not rel <= 1e-5 or not err <= 1e-5:
+        fail("the resumed run disagrees with the uninterrupted one")
+
 
 
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
@@ -1853,6 +2152,9 @@ def main():
     overlap = phase_probe_overlap(card)
     evals = phase_eval(card)
     phase_eval_parity()
+    ckpt_launches = phase_ckpt_train(card)
+    phase_preempt()
+    phase_resume_parity()
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -1870,8 +2172,12 @@ def main():
               f"{rec['tanh_floor_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms [{card}]")
     k1_paths = {"greedy": launches["attention_scores_masked"],
                 "beam": beam_launches["attention_scores_masked"],
-                **{name: n["attention_scores_masked"] for name, n in evals.items()}}
-    k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"]}
+                **{name: n["attention_scores_masked"] for name, n in evals.items()},
+                "checkpointed_train": ckpt_launches["attention_scores_masked"]}
+    k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
+                "checkpointed_train": ckpt_launches["greedy_head"]}
+    k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k]}
+                          for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_scores.cu",
@@ -1884,11 +2190,11 @@ def main():
         {"name": "attention_scores_dense", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_scores.cu",
          "replaces": "echr_tpu/ops/pallas_attention.py:31",
-         "launches": launches["attention_scores_dense"], **dense},
+         "launches": sum(k3_paths.values()), "launches_by_path": k3_paths, **dense},
         {"name": "attention_scores_bwd", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_scores_bwd.cu",
          "replaces": "echr_tpu/ops/pallas_attention.py:310",
-         "launches": launches["attention_scores_bwd"], **bwd},
+         "launches": sum(k4_paths.values()), "launches_by_path": k4_paths, **bwd},
         {"name": "attention_fused", "route": "cuda",
          "source": "echr_tpu_torch/csrc/attention_fused.cu",
          "replaces": "echr_tpu/ops/pallas_attention.py:205", **fused},

@@ -9,10 +9,13 @@ Layout rules (as tests/oracle_torch.py and echr_tpu/compat/torch_import.py):
   * an LSTM cell keeps the gate order i, f, g, o (w_ih / w_hh transpose);
   * TSRM's out_w [g, d, d_o/g] becomes the grouped projection's
     weight [d_o, d], rows of group i at [i * d_o/g, (i+1) * d_o/g).
+
+The same rules carry any per-parameter tensor of the port's layout, such
+as Adam's moments (``export_tree`` / ``import_tree``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -97,34 +100,49 @@ def captioner_spec(cg: Captioner) -> Dict[str, Any]:
     return s
 
 
-def _load(spec, tree, path: str) -> None:
+def import_tree(spec, tree, store: Callable[[torch.Tensor, torch.Tensor], None],
+                path: str = "") -> None:
+    """Walk a JAX-layout tree (numpy leaves) along ``spec`` and call
+    store(port parameter, tensor in the port's layout) for every leaf.  A
+    list of the spec may come as flax's state dict of a list, a dict keyed
+    "0", "1", ... (an optax state's moments in a checkpoint)."""
     if isinstance(spec, tuple):
         param, kind = spec
         arr = np.array(_TO_PORT[kind](np.asarray(tree, np.float32)), order="C")
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {arr.shape} does not fit {tuple(param.shape)}")
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(arr))
+        store(param, torch.from_numpy(arr))
         return
     if isinstance(spec, list):
+        if isinstance(tree, dict) and set(tree) == {str(i) for i in range(len(spec))}:
+            tree = [tree[str(i)] for i in range(len(spec))]
         if not isinstance(tree, (list, tuple)) or len(tree) != len(spec):
             raise ValueError(f"{path}: expected a list of {len(spec)}")
         for i, (s, t) in enumerate(zip(spec, tree)):
-            _load(s, t, f"{path}[{i}]")
+            import_tree(s, t, store, f"{path}[{i}]")
         return
     if set(spec) != set(tree):
         raise ValueError(f"{path}: keys {sorted(tree)} differ from {sorted(spec)}")
     for k in spec:
-        _load(spec[k], tree[k], f"{path}.{k}")
+        import_tree(spec[k], tree[k], store, f"{path}.{k}")
 
 
-def _export(spec, groups: int):
+def _copy_into(param: torch.Tensor, value: torch.Tensor) -> None:
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def export_tree(spec, groups: int,
+                value: Callable[[torch.Tensor], torch.Tensor] = lambda p: p):
+    """The JAX-layout tree (numpy leaves) of value(parameter) for every
+    leaf of ``spec``: the parameters themselves by default."""
     if isinstance(spec, tuple):
         param, kind = spec
-        return np.ascontiguousarray(_from_port(kind, param.detach().cpu().numpy(), groups))
+        return np.ascontiguousarray(
+            _from_port(kind, value(param).detach().cpu().numpy(), groups))
     if isinstance(spec, list):
-        return [_export(s, groups) for s in spec]
-    return {k: _export(v, groups) for k, v in spec.items()}
+        return [export_tree(s, groups, value) for s in spec]
+    return {k: export_tree(v, groups, value) for k, v in spec.items()}
 
 
 def tap_from_jax(tree, cfg: Config, device="cpu") -> SST:
@@ -132,20 +150,20 @@ def tap_from_jax(tree, cfg: Config, device="cpu") -> SST:
     t = cfg.tap
     sst = SST(t.video_dim, t.hidden_dim, t.K, t.rnn_num_layers,
               raw_input_dim=t.raw_input_dim if t.reduce_input_dim_layer else 0)
-    _load(tap_spec(sst), tree, "tap")
+    import_tree(tap_spec(sst), tree, _copy_into, "tap")
     return sst.to(device)
 
 
 def captioner_from_jax(tree, cfg: Config, device="cpu") -> Captioner:
     """An init_captioner-shaped tree (numpy leaves) -> Captioner."""
     cg = Captioner(cfg)
-    _load(captioner_spec(cg), tree, "captioner")
+    import_tree(captioner_spec(cg), tree, _copy_into, "captioner")
     return cg.to(device)
 
 
 def tap_to_jax(sst: SST):
-    return _export(tap_spec(sst), 1)
+    return export_tree(tap_spec(sst), 1)
 
 
 def captioner_to_jax(cg: Captioner, cfg: Config):
-    return _export(captioner_spec(cg), cfg.fusion.n_head)
+    return export_tree(captioner_spec(cg), cfg.fusion.n_head)

@@ -14,17 +14,19 @@ eval loop's watchdog).  echr_tpu's other runtime fields are TPU knobs
 (meshes, SPMD mode, buffer donation, pipelining, the Pallas T ceilings,
 the streaming-head gate, preemption checks) or options of paths not ported
 yet; they are dropped.
-``from_json`` ignores them in echr_tpu's JSON, and ``replace_in`` rejects
-them, so setting one fails instead of doing nothing.  echr_tpu reads the
-port's JSON with its defaults for them.  The CLI parser
-(``build_argparser`` / ``parse_config``) waits for the port's CLIs.
+``from_json`` ignores them in echr_tpu's JSON, and ``replace_in`` and the
+CLI parser (``build_argparser`` / ``parse_config``, echr_tpu's flag
+surface) reject them, so setting one fails instead of doing nothing.
+echr_tpu reads the port's JSON with its defaults for them.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import logging
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -313,6 +315,155 @@ _SUBCONFIGS = {
     "save": SaveConfig,
     "runtime": RuntimeConfig,
 }
+
+
+# ---------------------------------------------------------------------------
+# CLI: echr_tpu's flag surface, the reference's flag names (opts.py)
+# ---------------------------------------------------------------------------
+
+# flag -> (section, field) for flags whose name matches the dataclass field
+_FLAG_MAP: Dict[str, Tuple[str, str]] = {}
+for _section, _cls in _SUBCONFIGS.items():
+    for _f in dataclasses.fields(_cls):
+        _FLAG_MAP.setdefault(_f.name, (_section, _f.name))
+
+# reference flags with singular/plural or renamed spellings
+_ALIASES = {
+    "tap_epoch": ("train", "tap_epochs"),
+    "cg_epoch": ("train", "cg_epochs"),
+    "tapcg_epoch": ("train", "tapcg_epochs"),
+    "other_feature": ("data", "other_features"),
+    "id": (None, "run_id"),
+    "save_all": ("save", "save_all_checkpoint"),
+}
+
+# reference flags that are declared but never read anywhere in the
+# reference (opts.py declares them, no module consumes them): accepted as
+# no-ops so reference command lines translate 1:1; setting one logs a notice
+_DEAD_FLAGS = (
+    "crit_type", "d_pos_emb", "data_type", "diff", "fast_eval_for_challenge",
+    "lambda3", "lda_hidden_size", "lda_input_size", "lda_output_size",
+    "num_samples", "use_bottomup_feature",
+)
+
+# flags the reference declares but overwrites at runtime
+# (CaptionGenerator.change_context_dim, CaptionGenerator.py:82-84): derived
+# Config properties here, so a passed value is accepted and ignored
+_OVERWRITTEN_FLAGS = (
+    "video_context_dim", "event_context_dim", "clip_context_dim",
+)
+
+# echr_tpu's runtime fields that the port dropped (TPU knobs and options of
+# paths not ported): a flag setting one is refused, naming it
+_DROPPED_RUNTIME_FLAGS = (
+    "decode_early_exit", "donate_step_args", "mesh_axis_names", "mesh_shape",
+    "pallas_decode_t_max", "pallas_decode_t_max_sorted", "param_dtype",
+    "preempt_check_every", "scst_resident_vjp", "spmd_mode", "train_inflight",
+    "train_pipeline", "use_pallas_head",
+)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("echr_tpu_torch", allow_abbrev=False)
+    p.add_argument("--id", type=str, default=None)
+    p.add_argument("--comment", type=str, default=None)
+    p.add_argument("--debug", action="store_true", default=None)
+    p.add_argument("--config_json", type=str, default=None, help="load a Config JSON first")
+    for flag, (section, name) in sorted(_FLAG_MAP.items()):
+        cls = _SUBCONFIGS[section]
+        f = next(sf for sf in dataclasses.fields(cls) if sf.name == name)
+        default = getattr(cls(), name)
+        if f.type in ("bool", bool) or isinstance(default, bool):
+            # nargs="?" takes both the reference's bare store_true spelling
+            # (--fast_eval_cg, opts.py:268) and the valued one
+            p.add_argument(f"--{flag}", type=int, nargs="?", const=1, default=None)
+        elif isinstance(default, tuple):
+            p.add_argument(f"--{flag}", type=str, nargs="+", default=None)
+        elif f.type in ("float", float) or isinstance(default, float):
+            # the annotation wins over the default's type: a float field with
+            # an int default (learning_rate_decay_start=8) takes fractions
+            p.add_argument(f"--{flag}", type=float, default=None)
+        elif isinstance(default, int):
+            p.add_argument(f"--{flag}", type=int, default=None)
+        else:
+            p.add_argument(f"--{flag}", type=str, default=None)
+    for alias in _ALIASES:
+        if alias == "id":
+            continue
+        if alias == "save_all":
+            p.add_argument("--save_all", action="store_true", default=None)
+        elif alias == "other_feature":
+            p.add_argument("--other_feature", type=str, nargs="+", default=None)
+        else:
+            p.add_argument(f"--{alias}", type=int, default=None)
+    for dead in _DEAD_FLAGS + _OVERWRITTEN_FLAGS:
+        p.add_argument(f"--{dead}", nargs="?", const="1", default=None,
+                       help="accepted no-op (declared but never read, or overwritten at "
+                            "runtime, in the reference)")
+    for dropped in _DROPPED_RUNTIME_FLAGS:
+        p.add_argument(f"--{dropped}", nargs="*", default=None,
+                       help="refused: an echr_tpu runtime knob the port does not have")
+    return p
+
+
+def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
+    """Parse a reference-style command line into a Config (reference:
+    opts.py:3-294), as echr_tpu's parse_config does.  A flag that sets one
+    of echr_tpu's dropped runtime fields raises ValueError."""
+    plog = logging.getLogger("echr_tpu_torch.config")
+    ns, unknown = build_argparser().parse_known_args(argv)
+    if unknown:
+        plog.warning("ignoring unknown flags: %s", unknown)
+    for dropped in _DROPPED_RUNTIME_FLAGS:
+        if getattr(ns, dropped) is not None:
+            raise ValueError(f"--{dropped} sets echr_tpu's runtime.{dropped}, which "
+                             "echr_tpu_torch does not have (a TPU knob or an option of a "
+                             "path not ported)")
+    for dead in _DEAD_FLAGS:
+        if getattr(ns, dead, None) is not None:
+            plog.info("--%s is declared but never read in the reference; ignored", dead)
+    for over in _OVERWRITTEN_FLAGS:
+        if getattr(ns, over, None) is not None:
+            plog.info("--%s is overwritten at runtime in the reference "
+                      "(change_context_dim); derived here, ignored", over)
+    cfg = Config()
+    if ns.config_json:
+        with open(ns.config_json) as fh:
+            cfg = Config.from_json(fh.read())
+
+    updates: Dict[str, Dict[str, Any]] = {}
+    top: Dict[str, Any] = {}
+    for flag, (section, name) in list(_FLAG_MAP.items()) + list(_ALIASES.items()):
+        v = getattr(ns, flag, None)
+        if v is None:
+            continue
+        if section is None:
+            top[name] = v
+            continue
+        default = getattr(_SUBCONFIGS[section](), name)
+        if isinstance(default, bool):
+            v = bool(v)
+        elif isinstance(default, tuple):
+            v = tuple(v) if isinstance(v, (list, tuple)) else (v,)
+            if default and isinstance(default[0], int):
+                v = tuple(int(x) for x in v)  # nargs="+" parses strings
+        updates.setdefault(section, {})[name] = v
+    if ns.comment is not None:
+        top["comment"] = ns.comment
+    if ns.debug:
+        top["debug"] = True
+
+    for section, kw in updates.items():
+        cfg = cfg.replace_in(section, **kw)
+    if top:
+        cfg = cfg.replace(**top)
+    if cfg.debug:
+        # reference: opts.py:288-293, the --debug preset
+        cfg = cfg.replace_in("save", min_epoch_when_save=0, save_checkpoint_every=100,
+                             losses_log_every=50)
+        cfg = cfg.replace_in("eval", num_vids_eval=10)
+        cfg = cfg.replace_in("data", shuffle=False)
+    return cfg.validate()
 
 
 def flagship_config(**overrides: Any) -> Config:

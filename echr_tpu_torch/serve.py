@@ -8,8 +8,6 @@ decode on ``device``, and the host renders the token ids.
 from __future__ import annotations
 
 import dataclasses
-import os
-import pickle
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -19,6 +17,7 @@ from echr_tpu_torch.config import Config
 from echr_tpu_torch.data.batcher import pick_bucket
 from echr_tpu_torch.data.labels import anchor_mask, featstamp_to_time
 from echr_tpu_torch.engine import proposals as P
+from echr_tpu_torch.engine.checkpoint import load_checkpoint_params
 from echr_tpu_torch.engine.evaluate import PROP_BUCKETS, _prop_bucket
 from echr_tpu_torch.utils.text import decode_sequence
 from echr_tpu_torch.bridge import captioner_from_jax, tap_from_jax
@@ -190,32 +189,8 @@ class CaptionService:
         return sels
 
 
-def load_checkpoint_params(path: str):
-    """(cfg, tap_params, cg_params, vocab) of a format-v2 echr_tpu checkpoint,
-    read with pickle alone: params are numpy trees, the config comes from
-    the .config.json sidecar or the embedded config_json."""
-    with open(path, "rb") as f:
-        payload = pickle.load(f)
-    version = payload.get("format_version", 1)
-    if version != 2:
-        raise ValueError(
-            f"checkpoint {path} has format_version {version}; echr_tpu_torch "
-            "reads format 2 only (re-save a v1 checkpoint with echr_tpu)")
-    sidecar = path + ".config.json"
-    if os.path.exists(sidecar):
-        with open(sidecar) as f:
-            cfg = Config.from_json(f.read())
-    elif payload.get("config_json"):
-        cfg = Config.from_json(payload["config_json"])
-    else:
-        raise ValueError(f"checkpoint {path} has neither a .config.json sidecar "
-                         "nor an embedded config_json")
-    state = payload["state"]
-    return cfg, state["tap_params"], state["cg_params"], payload.get("vocab")
-
-
 def from_checkpoint(path: str, device="cuda", **kw) -> CaptionService:
-    """A service from an echr_tpu format-v2 training checkpoint."""
+    """A service from a format-v2 training checkpoint of either package."""
     cfg, tap_params, cg_params, vocab = load_checkpoint_params(path)
     if not vocab:
         raise ValueError(

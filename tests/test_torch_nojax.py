@@ -4,8 +4,8 @@ init builds the same param tree as echr_tpu.models.registry.
 The subprocess imports every module of the port (its probes included),
 builds its configuration and data from the port alone, serves a tiny CPU
 slice (greedy and beam) from the port's own init and from a JAX format-v2
-checkpoint, takes one tiny training step, evaluates a split with its
-metrics, and checks that neither jax nor any echr_tpu or experiments
+checkpoint, takes one tiny training step, writes and reads it back as a
+checkpoint, evaluates a split with its metrics, and checks that neither jax nor any echr_tpu or experiments
 module entered sys.modules.
 """
 import os
@@ -135,6 +135,10 @@ _CHILD = textwrap.dedent("""
     st, m = steps.train_step(st, steps.batch_to_device(batch, "cpu"),
                              torch.Generator().manual_seed(0), cfg, "tap_cg")
     assert st.step == 1 and np.isfinite(m["loss"]), m
+    from echr_tpu_torch.engine import checkpoint
+    checkpoint.save_checkpoint("t.ckpt", st, cfg, iteration=1, epoch=0, best_val_score=0.0)
+    again = checkpoint.load_checkpoint("t.ckpt", "cpu")["state"]
+    assert again.step == 1 and len(again.cg_opt.state) == len(list(st.cg.parameters()))
     from echr_tpu_torch.data.loader import Loader
     from echr_tpu_torch.engine.evaluate import eval_split_batched
     preds, score, loss = eval_split_batched(
@@ -163,3 +167,6 @@ def test_port_runs_without_jax(tmp_path):
     assert "NOJAX_OK" in proc.stdout
     assert len(_all_modules()) >= 18 and echr_tpu_torch.__version__
     assert "echr_tpu_torch.experiments.probe_streaming_head2" in _all_modules()
+    assert {"echr_tpu_torch.engine.checkpoint", "echr_tpu_torch.utils.tb",
+            "echr_tpu_torch.cli.train", "echr_tpu_torch.cli.eval",
+            "echr_tpu_torch.cli.score"} <= set(_all_modules())

@@ -36,7 +36,7 @@ from echr_tpu.models.registry import init_tap as jax_init_tap
 
 from echr_tpu_torch import losses
 from echr_tpu_torch.bridge import captioner_from_jax, captioner_to_jax, tap_from_jax, tap_to_jax
-from echr_tpu_torch.engine import steps
+from echr_tpu_torch.engine import checkpoint, steps
 from echr_tpu_torch.engine import train as ttrain
 from echr_tpu_torch.ops.core import dropout
 
@@ -363,12 +363,19 @@ def test_train_loop_runs(tmp_path):
     assert set(out["losses"]) == {"tap_loss", "cg_loss", "total_loss", "loss"}
     assert all(np.isfinite(v) for v in out["losses"].values())
     assert out["state"].step == 6 and [i for i, _ in timing["iters"]] == list(range(1, 7))
-    assert not list(tmp_path.iterdir())  # writes no files
+    # the run folder: its config and a readable model-last.ckpt at iteration 6
+    folder = tmp_path / "default"
+    assert out["save_folder"] == str(folder) and (folder / "config.json").exists()
+    payload = checkpoint.load_checkpoint(str(folder / "model-last.ckpt"), "cpu")
+    assert payload["iteration"] == 6 and payload["state"].step == 6
 
 
 def test_train_loop_raises_for_what_is_not_ported(tmp_path):
     cfg = _loop_cfg(tmp_path).replace_in("train", self_critical_after=0)
     with pytest.raises(NotImplementedError, match="SCST"):
+        ttrain.train(cfg, max_iterations=1, device="cpu")
+    cfg = _loop_cfg(tmp_path).replace_in("runtime", transfer_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="transfer compression"):
         ttrain.train(cfg, max_iterations=1, device="cpu")
 
 
