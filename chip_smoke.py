@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive echr_tpu_torch's batched greedy and beam serving paths, its XE
-training path, its three probes, its batched eval loop and its
-checkpointed training once on one NVIDIA GPU, and hold every kernel
-against its plain PyTorch version.
+training path, its three probes, its batched eval loop, its checkpointed
+training, its self-critical (SCST) training and its multinomial eval once
+on one NVIDIA GPU, and hold every kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py
 
@@ -116,8 +117,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      sentence_confidence), the val losses are finite, the scores hold every
      metric at the four tIoUs; kernel 1's launches equal the decode steps
      plus the val losses' teacher-forced steps (29 a group), kernel 2's the
-     greedy decode steps; TF32 is still off after each pass (the prep
-     thread's bf16 products and the caller's overlap).  For each pass,
+     greedy decode steps; TF32 is still off after each pass (every bf16
+     product turns it on for its own duration).  For each pass,
      after a warm-up group: eval videos/s and captions/s without scoring,
      the timing_out breakdown, the seconds in eval_score and its stemmer,
      peak device memory;
@@ -145,7 +146,39 @@ Phases, in order; any failure raises and the script exits non-zero:
   22. resume parity: at f32 with TF32 off, dropout and scheduled sampling
      off (steps without a generator), 3 steps then a resume to 6 against 6
      straight: the losses of steps 4-6 within 1e-5 relative, the
-     parameters within atol 1e-5.
+     parameters within atol 1e-5;
+  23. SCST training: engine.train.train on train_cfg() with
+     self_critical_after 0 (B=32 videos of T=256, N=64 sampled
+     proposals, vocab 6000, L=30, tap_cg, bf16 with f32 masters, dropout
+     on; nothing cut): 1 warm-up and 4 timed steps.  Finite losses,
+     avg_reward logged, moved parameters; kernel 1 launches once a greedy
+     baseline decode step, kernel 2 too (R = B*N = 2048), kernel 3 once a
+     sampled decode step and 30 times a replay, kernel 4 30 times a step.
+     ms/step split into the rollouts (sampled + greedy baseline), the host
+     METEOR reward (pool size, stemmer) and the update; the steps each
+     rollout's early exit ran; peak device memory.  The reward pool's
+     workers are joined at the end;
+  24. SCST fidelity: f32, TF32 off, phase 5's sharpened weights, dropout
+     on, B=4: the replay's logps of the rollout's tokens equal the
+     rollout's within 1e-5; the greedy baseline's tokens equal with the
+     kernels and under force_plain(); one update's loss within 1e-5
+     relative and its gradient leaves within atol 2e-4, rtol 1e-3 with the
+     kernels and under force_plain(); kernels 1 and 2 on copies of the
+     baseline's first call, kernels 3 and 4 on copies of each of the
+     replay's calls, against their plain versions within 5e-4 (kernel 4's
+     d_w within 1e-4 of its largest entry);
+  25. multinomial eval: eval_split_batched with sample_max 0, temperature
+     1, sample_seed 7 over phase 18's val split (tap_cg, top-128, batch 32,
+     decode-only, every metric) after a warm-up group: well-formed
+     predictions, kernel 1's launches equal the decode steps and kernel 2
+     none, eval videos/s and captions/s without eval_score (printed
+     beside), and a second pass with the seed gives the same predictions
+     JSON.  Then at f32 on phase 5's weights, the greedy pass against
+     sampling at T=1e-3: every draw whose top two logits lie >= 20 T apart
+     takes the argmax, the draws that leave it number what the tempered
+     softmax expects (within 5 standard deviations), and no more
+     sentences differ than draws that left the argmax or met a top-2 gap
+     below 1e-4.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -379,8 +412,6 @@ def phase_scores(card):
         record = kernel1_timing(card, "phase-2 synthetic windows", args)
         with force_plain():
             want = attention_scores_masked(*args)
-            record["plain_ms"] = cuda_ms(lambda: attention_scores_masked(*args), iters=5)
-        print(f"[6] scores plain version {record['plain_ms']:.4f} ms [{card}]")
         live = args[:4] + (torch.ones_like(args[4]),)
         err, _ = kernel1_check("serving, all live", live, want)
         worst = max(worst, err)
@@ -429,7 +460,9 @@ def kernel1_tanh(mask, H):
 
 def kernel1_timing(card, name, args):
     """Kernel 1 at one input (pre, q, w, b, mask): held against its plain
-    version (kernel1_check), its time, its live-work bound and its tanh."""
+    version (kernel1_check), its time and its plain version's, its
+    live-work bound and its tanh."""
+    from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
 
     pre, q, mask = args[0], args[1], args[4]
@@ -442,9 +475,12 @@ def kernel1_timing(card, name, args):
            "max_abs_err": err, **work,
            **bound(nbytes(*args, out), f32=4.0 * work["tanh_needed"])}
     rec["ms"] = cuda_ms(lambda: attention_scores_masked(*args))
+    with force_plain():
+        rec["plain_ms"] = cuda_ms(lambda: attention_scores_masked(*args), iters=5)
     need = max(work["tanh_needed"], 1)
     print(f"[6] kernel 1, {name} B={B} N={N} T={T} H={H} (density {rec['density']:.3f}): "
-          f"max|d| where mask==1 {err:.3e}; {rec['ms']:.4f} ms, live-work bound "
+          f"max|d| where mask==1 {err:.3e}; {rec['ms']:.4f} ms, plain version "
+          f"{rec['plain_ms']:.4f} ms, live-work bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); tanh by the design's rule / needed "
           f"{work['tanh_modelled'] / need:.3f} (the earlier tiled design "
           f"{work['tanh_modelled_tiled'] / need:.3f}) [{card}]")
@@ -1085,8 +1121,9 @@ TRAIN_SHAPES = {"training": (TRAIN_B, TRAIN_N, T_BUCKET, 512), "ragged": (3, 60,
 def kernel3_timing(card, name, raws, tag="7"):
     """Kernel 3 over a list of inputs (pre, q, w, b, mask), each held
     against its plain version where mask == 1 (kernel3_check): ms a call
-    (the mean over the list), its bound over the live (n, t) and the tanh
-    they need."""
+    and the plain version's (the means over the list), its bound over the
+    live (n, t) and the tanh they need."""
+    from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention import attention_scores_dense
 
     pre, q = raws[0][0], raws[0][1]
@@ -1104,9 +1141,13 @@ def kernel3_timing(card, name, raws, tag="7"):
     rec = {"B": B, "N": N, "T": T, "H": H, "calls": len(raws), "density": live / (B * N * T),
            "max_abs_err": err, "tanh_needed": live * H, **bound(n_bytes, f32=4.0 * live * H)}
     rec["ms"] = cuda_ms(lambda: [attention_scores_dense(*raw) for raw in raws]) / len(raws)
+    with force_plain():
+        rec["plain_ms"] = cuda_ms(lambda: [attention_scores_dense(*raw) for raw in raws],
+                                  iters=3, warmup=1) / len(raws)
     print(f"[{tag}] kernel 3, {name} B={B} N={N} T={T} H={H} (density {rec['density']:.4f}"
           f"{f', mean of {len(raws)} calls' if len(raws) > 1 else ''}): max|d| where mask==1 "
-          f"{err:.3e}, masked entries 0; {rec['ms']:.4f} ms a call, live-work bound "
+          f"{err:.3e}, masked entries 0; {rec['ms']:.4f} ms a call, plain version "
+          f"{rec['plain_ms']:.4f} ms, live-work bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
     return rec
 
@@ -1129,9 +1170,6 @@ def phase_scores_dense(card):
     """Kernel 3 against its plain version where mask == 1, masked entries
     exactly 0 (kernel3_inputs); its time with every entry live (the
     no-regression case) and at the windows."""
-    from echr_tpu_torch.ops import force_plain
-    from echr_tpu_torch.ops.kernel_attention import attention_scores_dense
-
     inputs = kernel3_inputs(np.random.RandomState(4), torch.device("cuda"))
     err, _ = kernel3_check("ragged", inputs["ragged"])
     (B, T, H), N = inputs["ragged"][0].shape, inputs["ragged"][1].shape[1]
@@ -1139,11 +1177,6 @@ def phase_scores_dense(card):
           f"{float(inputs['ragged'][4].mean()):.3f}): max|d| where mask==1 {err:.3e}, masked "
           f"entries 0")
     record = kernel3_timing(card, "training shapes, every entry live", [inputs["all_live"]])
-    with force_plain():
-        record["plain_ms"] = cuda_ms(lambda: attention_scores_dense(*inputs["all_live"]),
-                                     iters=5)
-    print(f"[7] kernel 3 plain version {record['plain_ms']:.4f} ms per teacher-forced step "
-          f"[{card}]")
     record["windows"] = kernel3_timing(card, "training shapes, windows of 4-47 frames in "
                                        "random order", [inputs["windows"]])
     record["max_abs_err"] = max(err, record["max_abs_err"], record["windows"]["max_abs_err"])
@@ -1183,8 +1216,9 @@ def _bwd_check(name, args, g):
 
 def kernel4_timing(card, name, raws, tag="8"):
     """Kernel 4 over a list of inputs (pre, q, w, g): two calls
-    bit-identical; ms a call (the mean over the list), and the bound over
-    the nonzero cotangents."""
+    bit-identical; ms a call and the plain version's (the means over the
+    list), and the bound over the nonzero cotangents."""
+    from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd
 
     pre, q = raws[0][0], raws[0][1]
@@ -1201,10 +1235,12 @@ def kernel4_timing(card, name, raws, tag="8"):
     rec = {"B": B, "N": N, "T": T, "H": H, "calls": len(raws), "g_nonzero": live / (B * N * T),
            "tanh_needed": live * H, **bound(n_bytes, f32=10.0 * live * H)}
     rec["ms"] = cuda_ms(call) / len(raws)
+    with force_plain():
+        rec["plain_ms"] = cuda_ms(call, iters=3, warmup=1) / len(raws)
     print(f"[{tag}] kernel 4, {name} B={B} N={N} T={T} H={H} (nonzero g {rec['g_nonzero']:.3f}"
           f"{f', mean of {len(raws)} calls' if len(raws) > 1 else ''}): two calls bit-identical; "
-          f"{rec['ms']:.4f} ms a call, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
-          f"[{card}]")
+          f"{rec['ms']:.4f} ms a call, plain version {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
     return rec
 
 
@@ -1214,9 +1250,6 @@ def phase_scores_bwd(card):
     training shapes with one that is zero outside sorted windows drawn by
     _windows_mask (the masked softmax gives exactly that); its time with
     both."""
-    from echr_tpu_torch.ops import force_plain
-    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd
-
     rng = np.random.RandomState(5)
     dev = torch.device("cuda")
     worst, record = 0.0, None
@@ -1233,10 +1266,6 @@ def phase_scores_bwd(card):
         if name == "ragged":
             continue
         if record is None:
-            with force_plain():
-                rec["plain_ms"] = cuda_ms(lambda: attention_scores_bwd(*raw), iters=5)
-            print(f"[8] scores backward plain version {rec['plain_ms']:.4f} ms per "
-                  f"teacher-forced step [{card}]")
             record = rec
         else:
             record["windowed_g"] = rec
@@ -1776,7 +1805,7 @@ def eval_pass(card, name, beam, args, usable, durations, json_path):
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
     if torch.backends.cuda.matmul.allow_tf32:  # phase 1 turned it off
-        fail(f"{name}: the eval's two threads left TF32 on")
+        fail(f"{name}: the eval left TF32 on")
     k1, k2 = attention_scores_masked.launches, greedy_head.launches
     steps = decoder_sample_batched.steps if beam == 1 else beam_search_batched.steps
     check_predictions(preds, usable, loader.dataset.ix_to_word, durations)
@@ -1976,7 +2005,7 @@ def phase_ckpt_train(card):
             fail(f"model-best.ckpt at iteration {best_raw['iteration']} holds score "
                  f"{best_raw['best_val_score']}, the gate gave {gate_scores}")
         if torch.backends.cuda.matmul.allow_tf32:
-            fail("checkpointed training: the gate's two threads left TF32 on")
+            fail("checkpointed training: the gate left TF32 on")
         torch.cuda.synchronize()
         t0 = time.time()
         loaded = checkpoint.load_checkpoint(last, "cuda")
@@ -2104,6 +2133,378 @@ def phase_resume_parity():
         fail("the resumed run disagrees with the uninterrupted one")
 
 
+SCST_STEPS = 5  # phase 23: SCST steps (1 warm-up)
+SAMPLE_SEED, COLD_T = 7, 1e-3  # phase 25: the draws' seed; the near-greedy temperature
+
+
+def scst_cfg(**runtime):
+    """train_cfg() (bench.py's e2e_train_cfg, nothing cut) with SCST from
+    epoch 0."""
+    return train_cfg(**runtime).replace_in("train", self_critical_after=0)
+
+
+def stemmer_name():
+    from echr_tpu_torch.metrics import scorers
+
+    return ("nltk PorterStemmer" if getattr(scorers._STEM, "__self__", None) is not None
+            else "identity (nltk absent)")
+
+
+def phase_scst_train(card):
+    """Phase 23: SCST through engine.train.train at the flagship width: 1
+    warm-up and 4 timed steps of 32 videos.  Kernel 1 launches once a
+    greedy-baseline decode step, kernel 2 too (R = B*N = 2048), kernel 3
+    once a sampled decode step and L times a replay, kernel 4 L times an
+    update.  Returns kernels 1-4's launches in the run."""
+    from echr_tpu_torch.engine import rl
+    from echr_tpu_torch.engine.train import train
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.ops.kernel_attention import (attention_scores_bwd,
+                                                     attention_scores_dense,
+                                                     attention_scores_masked)
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    kernels = (attention_scores_masked, greedy_head, attention_scores_dense,
+               attention_scores_bwd)
+    cfg = scst_cfg()
+    timing = {}
+    for fn in kernels:
+        fn.launches = 0
+    decoder_sample_batched.steps = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = train(cfg, max_iterations=SCST_STEPS, device="cuda", timing_out=timing)
+        torch.cuda.synchronize()
+    finally:
+        rl.close_default_reward_pool()  # joins the reward workers
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    sc = timing["scst"]
+    if out["iteration"] != SCST_STEPS or len(sc) != SCST_STEPS:
+        fail(f"SCST: train stopped at iteration {out['iteration']} with {len(sc)} SCST steps")
+    if not all(np.isfinite(v) for v in out["losses"].values()) or "avg_reward" not in out[
+            "losses"]:
+        fail(f"SCST: losses {out['losses']}")
+    sampled = sum(s["sample_steps"] for s in sc)
+    greedy = sum(s["greedy_steps"] for s in sc)
+    want = {"attention_scores_masked": greedy, "greedy_head": greedy,
+            "attention_scores_dense": sampled + SEQ_LEN * SCST_STEPS,
+            "attention_scores_bwd": SEQ_LEN * SCST_STEPS}
+    decoded = sampled + greedy + SEQ_LEN * SCST_STEPS  # the replays run all L steps
+    if launches != want or decoder_sample_batched.steps != decoded:
+        fail(f"SCST: launches {launches}, want {want} ({sampled} sampled and {greedy} greedy "
+             f"decode steps; the decoder counted {decoder_sample_batched.steps})")
+    t = dict(timing["iters"])
+    dt = (t[SCST_STEPS] - t[1]) / (SCST_STEPS - 1)
+    part = {k: 1000 * np.mean([s[k] for s in sc[1:]]) for k in ("rollout", "reward", "update")}
+    print(f"[23] SCST: {out['iteration']} steps of {TRAIN_B} videos (cotrain/tap_cg, vocab "
+          f"{VOCAB}, L={SEQ_LEN}, T={T_BUCKET}, N={cfg.tap.prop_sample_num}, bf16, dropout on, "
+          f"self_critical_after 0; nothing cut); launches {launches}; sampled decode steps "
+          f"{[s['sample_steps'] for s in sc]}, greedy baseline steps "
+          f"{[s['greedy_steps'] for s in sc]}; avg_reward a step "
+          f"{[round(s['avg_reward'], 5) for s in sc]}; last losses "
+          f"{ {k: round(v, 5) for k, v in out['losses'].items()} }")
+    print(f"[23] SCST {1000 * dt:.1f} ms/step over steps 2-{SCST_STEPS}: rollouts (sampled + "
+          f"greedy baseline) {part['rollout']:.1f} ms, host reward {part['reward']:.1f} ms "
+          f"({sc[-1]['reward_rows']} proposal rows, 2 captions each, pool of "
+          f"{sc[-1]['pool_workers']} workers, stemmer: {stemmer_name()}), update "
+          f"{part['update']:.1f} ms; the warm-up step {1000 * sum(sc[0][k] for k in part):.1f} "
+          f"ms; peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    gen = torch.Generator().manual_seed(cfg.train.seed)  # train()'s init, again
+    tap0, cg0 = init_tap(gen, out["config"]), init_captioner(gen, out["config"])
+    for name, m0, m in (("tap", tap0, out["state"].tap), ("cg", cg0, out["state"].cg)):
+        for (pn, p0), p in zip(m0.named_parameters(), m.parameters()):
+            # the score bias shifts every score of a masked softmax: its
+            # gradient is 0 up to rounding, and Adam's step on that rounds away
+            if pn != "decoder.core.attention.alpha_net.bias" and torch.equal(
+                    p0, p.detach().cpu()):
+                fail(f"SCST: {name}.{pn} did not move in {out['iteration']} steps")
+    return launches
+
+
+def kernel4_check(name, args):
+    """Kernel 4 on args (pre, q, w, g) against its plain version: d_pre and
+    d_q within TOL, d_w (a sum of B*N*T terms) within 1e-4 of its largest
+    entry.  Returns the worst d_pre / d_q error."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd
+
+    got = attention_scores_bwd(*args)
+    torch.cuda.synchronize()
+    with force_plain():
+        want = attention_scores_bwd(*args)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    if not (max(errs[:2]) <= TOL and errs[2] <= 1e-4 * float(want[2].abs().max())):
+        fail(f"kernel 4 {name}: max|d| d_pre, d_q, d_w {errs}")
+    return max(errs[:2])
+
+
+def scst_parity_setup():
+    """Phase 24's f32 state (phase 5's sharpened logit weights) and a batch
+    of 4 videos of train_cfg()'s widths."""
+    from echr_tpu_torch.data.batcher import make_batch
+    from echr_tpu_torch.data.dataset import SyntheticDataset
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.engine.train import _collate
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+
+    cfg = scst_cfg(compute_dtype="float32").replace_in("decoder", CG_vocab_size=VOCAB,
+                                                         CG_seq_length=SEQ_LEN)
+    ds = SyntheticDataset(cfg, num_videos=8, seed=11)
+    batch = steps.batch_to_device(_collate([
+        make_batch(ds.get_example(i), cfg, np.random.RandomState(i), w1=ds.w1)[0]
+        for i in range(4)]), "cuda")
+    gen = torch.Generator().manual_seed(0)
+    state = steps.init_train_state(cfg, init_tap(gen, cfg, "cuda"),
+                                   init_captioner(gen, cfg, "cuda"))
+    with torch.no_grad():
+        state.cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
+    return cfg, batch, state
+
+
+def reward_mask(seq):
+    """reward_loss's token mask: every emitted token and the end token."""
+    m = (seq > 0).float()
+    return torch.cat([torch.ones_like(m[..., :1]), m[..., :-1]], dim=-1)
+
+
+def phase_scst_parity():
+    """Phase 24: f32, TF32 off, phase 5's sharpened weights, dropout on, from
+    the same generator states: the replay's logps of the rollout's tokens
+    equal the rollout's within 1e-5; the greedy baseline's tokens are equal
+    with the kernels and under force_plain(); one update's loss within 1e-5
+    relative and its gradient leaves within atol 2e-4, rtol 1e-3 with the
+    kernels and under force_plain(); kernels 1-4 on copies of the step's
+    own arguments agree with their plain versions within 5e-4."""
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.models import decoder
+    from echr_tpu_torch.ops import attention, force_plain, kernel_attention
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 24 needs TF32 off")
+    cfg, batch, state = scst_parity_setup()
+    phase = "tap_cg"
+
+    def gens(seed):
+        return (torch.Generator(device="cuda").manual_seed(seed),
+                torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    # the rollout and its replay, dropout on, kernels on
+    gen, sample_gen = gens(21)
+    before = gen.get_state()
+    with torch.no_grad():
+        _, seq, logps = steps._rl_forward(state.tap, state.cg, cfg, batch, phase, gen,
+                                          sample_gen)
+    gen.set_state(before)
+    _, seq2, logps2 = steps._rl_forward(state.tap, state.cg, cfg, batch, phase, gen,
+                                        forced=seq)
+    m = reward_mask(seq)
+    err_replay = float(((logps2.detach() - logps) * m).abs().max())
+    del logps2
+    if not (torch.equal(seq2, seq) and err_replay <= 1e-5):
+        fail(f"SCST replay: logps max|d| {err_replay:.3e} against the rollout's")
+
+    # the rollouts with the kernels and under force_plain(); kernels 1 and 2
+    # kept on their first call
+    seen1, seen2 = {}, {}
+    with wrapped(attention, "attention_scores_masked", first_of_each_shape(seen1)), \
+            wrapped(decoder, "greedy_head", first_of_each_shape(seen2)):
+        _, gen_k, greedy_k = steps.rl_rollout_step_batched(state, batch, cfg, phase, *gens(31))
+    gaps, invs = [], []
+
+    def keep_gap(out, w, b):
+        logits = torch.matmul(out.to(w.dtype).float(), w[:, :out.shape[1]].float().t()) + b
+        top2 = torch.topk(logits, 2, dim=1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+
+    def keep_inv(ctxs, sort=decoder.sort_ctxs_by_window):
+        ctxs, inv = sort(ctxs)
+        invs.append(inv)
+        return ctxs, inv
+    with force_plain(), wrapped(decoder, "greedy_head", keep_gap), \
+            patched(decoder, "sort_ctxs_by_window", keep_inv):
+        _, gen_p, greedy_p = steps.rl_rollout_step_batched(state, batch, cfg, phase, *gens(31))
+    B, N, L = gen_k.shape
+    # a row is clear when every step's top two logits lie more than 1e-3 apart
+    # (head_check's margin): kernel 2's f32 argmax and the plain one agree there
+    gap = torch.stack(gaps, dim=-1).reshape(B, N, -1).amin(dim=-1)
+    clear = torch.gather(gap, 1, invs[0]) > 1e-3 if invs else gap > 1e-3
+    differ = (greedy_k != greedy_p).any(dim=-1)
+    if bool((differ & clear).any()):
+        fail(f"SCST greedy baseline: {int((differ & clear).sum())} rows with top-2 gaps above "
+             f"1e-3 differ between the kernels and plain")
+    worst1 = max(kernel1_check(f"baseline {k}", a)[0] for k, a in seen1.items())
+    worst2 = max(head_check("24", f"baseline R={a[0].shape[0]}", a)[0] for a in seen2.values())
+
+    # one update with the kernels and under force_plain(), the same gen_seq,
+    # reward and dropout generator; kernels 3 and 4 kept on every call
+    reward = torch.from_numpy(np.broadcast_to(np.random.RandomState(3).randn(B, N, 1),
+                                              (B, N, L)).astype(np.float32)).to("cuda")
+    fwd, bwd = [], []
+
+    def keep(kept):
+        return lambda *a: kept.append(tuple(x.detach().clone() for x in a))
+    with wrapped(kernel_attention, "attention_scores_dense", keep(fwd)), \
+            wrapped(kernel_attention, "attention_scores_bwd", keep(bwd)):
+        (tk, ck), mk = steps._phase_grads(state, cfg, phase, steps._rl_losses, batch, phase,
+                                          gens(41)[0], gen_k, reward)
+    with force_plain():
+        (tp, cp), mp = steps._phase_grads(state, cfg, phase, steps._rl_losses, batch, phase,
+                                          gens(41)[0], gen_k, reward)
+    rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    names = ([f"tap.{n}" for n, _ in state.tap.named_parameters()]
+             + [f"cg.{n}" for n, _ in state.cg.named_parameters()])
+    worst, leaves = 0.0, []
+    for name, a, b in zip(names, tk + ck, tp + cp):
+        worst = max(worst, float((a - b).abs().max()))
+        if not bool(((a - b).abs() <= 2e-4 + 1e-3 * b.abs()).all()):
+            leaves.append(name)
+    if not rel <= 1e-5 or leaves:
+        fail(f"SCST update with the kernels disagrees with plain: rel {rel:.2e}, leaves "
+             f"{leaves[:5]}")
+    if len(fwd) != L or len(bwd) != L:
+        fail(f"SCST update: kernel 3 ran {len(fwd)} times, kernel 4 {len(bwd)}, want {L}")
+    worst3 = max(kernel3_check(f"replay step {i}", a)[0] for i, a in enumerate(fwd))
+    worst4 = max(kernel4_check(f"replay step {i}", a) for i, a in enumerate(bwd))
+    density = sum(int(a[4].ne(0).sum()) for a in fwd) / sum(a[4].numel() for a in fwd)
+    del fwd, bwd
+    print(f"[24] f32 SCST, dropout on, B={B}, N={N}: replay logps against the rollout's "
+          f"max|d| {err_replay:.3e} over {int(m.sum())} reward tokens; greedy baseline with the "
+          f"kernels and plain: {int(differ.sum())} of {B * N} rows differ, none of the "
+          f"{int(clear.sum())} rows whose top-2 gaps stay above 1e-3 ({int((gen_k != gen_p).sum())} "
+          f"sampled tokens differ: draws at near-equal cumulative probabilities); update loss "
+          f"{mk['loss']:.6f} vs {mp['loss']:.6f} (rel {rel:.2e}), {len(names)} gradient leaves "
+          f"max|d| {worst:.3e}")
+    print(f"[24] on the step's own arguments against the plain versions: kernel 1 (baseline, "
+          f"{len(seen1)} shape) {worst1:.3e}, kernel 2 (R={B * N}) {worst2:.3e}, kernel 3 "
+          f"({L} replay calls, mask density {density:.4f}) {worst3:.3e}, kernel 4 ({L} calls) "
+          f"{worst4:.3e}")
+
+
+def phase_sample_eval(card):
+    """Phase 25: eval_split_batched with sample_max=0, temperature 1 and
+    sample_seed 7 over phase 18's 64-video val split (tap_cg, top-128,
+    batch 32, decode-only, every metric), after a warm-up group; a second
+    pass with the seed gives the same predictions.  Then at f32 on phase
+    5's sharpened weights, the greedy pass against sampling at T=1e-3.
+    Kernel 1 launches once a decode step, kernel 2 never (the sampled head
+    is the logits path).  Returns kernel 1's launches in the timed pass."""
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    cfg, tap, cg, ds, loader = eval_setup()
+    usable = usable_val_videos(cfg, ds)
+    durations = {ds.get_example(ix).vid: ds.get_example(ix).duration for ix in ds.split_ix["val"]}
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": True, "val_all_metrics": True,
+          "get_eval_loss": False, "sample_max": 0, "temperature": 1.0, "sample_seed": SAMPLE_SEED}
+    run = functools.partial(eval_split_batched, flag_eval_what="tap_cg", batch_videos=EVAL_B,
+                            device="cuda")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            run(tap, cg, loader, cfg, f"{tmp}/w.json",
+                dict(kw, num_vids_eval=EVAL_B, language_eval=False))  # warm-up
+            torch.cuda.synchronize()
+            timing, score_s = {}, []
+            for fn in (attention_scores_masked, greedy_head):
+                fn.launches = 0
+            decoder_sample_batched.steps = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            with timed_scoring(score_s):
+                preds, score, _ = run(tap, cg, loader, cfg, f"{tmp}/a.json",
+                                      dict(kw, timing_out=timing))
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+            k1, k2, steps = (attention_scores_masked.launches, greedy_head.launches,
+                             decoder_sample_batched.steps)
+            again, _, _ = run(tap, cg, loader, cfg, f"{tmp}/b.json", dict(kw, language_eval=False))
+            with open(f"{tmp}/a.json") as fa, open(f"{tmp}/b.json") as fb:
+                same_json = json.load(fa) == json.load(fb)
+    finally:
+        loader.load_state(loader.state())
+    check_predictions(preds, usable, loader.dataset.ix_to_word, durations)
+    if not (steps > 0 and k1 == steps and k2 == 0):
+        fail(f"sampled eval: kernel 1 launched {k1} times, kernel 2 {k2}, in {steps} decode "
+             f"steps (want {steps} and 0)")
+    if not same_json:
+        fail(f"sampled eval: two passes with sample_seed {SAMPLE_SEED} differ")
+    metrics = ("Bleu_1", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "Recall", "Precision")
+    if not all(np.shape(score.get(m)) == (4,) and np.isfinite(score[m]).all() for m in metrics):
+        fail(f"sampled eval: scores {score}")
+    n_caps = sum(len(c) for c in preds.values())
+    run_s = wall - sum(score_s)
+    print(f"[25] sampled eval (sample_max 0, T=1, sample_seed {SAMPLE_SEED}): {len(preds)} "
+          f"videos, {n_caps} captions, {timing['groups']} groups of {EVAL_B}, {steps} decode "
+          f"steps, kernel 1 launches {k1}, kernel 2 {k2}; a second pass with the seed gives "
+          f"the same predictions JSON; e.g. {preds[sorted(preds)[0]][0]['sentence'][:60]!r}")
+    print(f"[25] sampled eval: {len(preds) / run_s:.2f} eval videos/s, {n_caps / run_s:.1f} "
+          f"captions/s over {run_s:.3f} s without scoring; eval_score {sum(score_s):.3f} s "
+          f"(stemmer: {stemmer_name()}); peak device memory {peak / 2**30:.2f} GiB, bf16 "
+          f"compute [{card}]")
+    print(f"[25] sampled eval timing_out: "
+          f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in timing.items()} }")
+    cold_sampling()
+    return k1
+
+
+def cold_sampling():
+    """f32, phase 5's sharpened weights: the greedy eval pass against
+    sampling at T=1e-3.  Every draw whose top two logits lie at least 20 T
+    apart (a non-argmax draw there has probability below e^-20) must take
+    the argmax, the draws that leave it number the tempered softmax's
+    expectation within 5 standard deviations (Poisson), and the sentences
+    may differ from the greedy pass's only as often as draws left the
+    argmax or met a top-2 gap below 1e-4 (where kernel 2's f32 argmax and
+    the plain logits' may differ)."""
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    from echr_tpu_torch.models import decoder
+
+    cfg, tap, cg, ds, loader = eval_setup(compute_dtype="float32")
+    with torch.no_grad():
+        cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False, "get_eval_loss": False}
+    stats = []
+    draw = decoder._categorical
+
+    def watched(logits, temperature, gen):
+        tok = draw(logits, temperature, gen)
+        top2, arg = torch.topk(logits, 2, dim=-1)
+        gap = top2[:, 0] - top2[:, 1]
+        off = tok != arg[:, 0]
+        p_off = 1.0 - torch.softmax(logits.float() / temperature, dim=-1).max(dim=-1).values
+        stats.append(torch.stack([off.sum(), (off & (gap >= 20 * temperature)).sum(),
+                                  (gap < 1e-4).sum(), torch.tensor(gap.numel(), device=gap.device)]
+                                 ).double().cpu().tolist() + [float(p_off.double().sum())])
+        return tok
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            greedy, _, _ = eval_split_batched(tap, cg, loader, cfg, f"{tmp}/g.json", kw,
+                                              flag_eval_what="tap_cg", batch_videos=EVAL_B,
+                                              device="cuda")
+            with patched(decoder, "_categorical", watched):
+                cold, _, _ = eval_split_batched(
+                    tap, cg, loader, cfg, f"{tmp}/c.json",
+                    dict(kw, sample_max=0, temperature=COLD_T, sample_seed=SAMPLE_SEED),
+                    flag_eval_what="tap_cg", batch_videos=EVAL_B, device="cuda")
+    finally:
+        loader.load_state(loader.state())
+    off, off_clear, near_tie, draws, expected = np.sum(stats, axis=0)
+    if sorted(cold) != sorted(greedy) or any(len(cold[v]) != len(greedy[v]) for v in greedy):
+        fail("T=1e-3 sampling captioned other videos or proposals than the greedy pass")
+    differ = sum(c["sentence"] != g["sentence"] for v in greedy
+                 for c, g in zip(cold[v], greedy[v]))
+    n = sum(len(v) for v in greedy.values())
+    print(f"[25] f32, phase 5's weights, T={COLD_T}: {differ} of {n} sentences differ from the "
+          f"greedy pass; {int(off)} of {int(draws)} draws left the argmax ({expected:.1f} "
+          f"expected from the tempered softmax), {int(off_clear)} of them with a top-2 gap >= "
+          f"{20 * COLD_T:g}; {int(near_tie)} draws had a gap below 1e-4")
+    if off_clear or differ > off + near_tie or abs(off - expected) > 5 * expected ** 0.5 + 5:
+        fail("T=1e-3 sampling strays from the greedy pass beyond its near-ties, or leaves "
+             "the argmax at another rate than the tempered softmax gives")
+
 
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
@@ -2155,6 +2556,9 @@ def main():
     ckpt_launches = phase_ckpt_train(card)
     phase_preempt()
     phase_resume_parity()
+    scst_launches = phase_scst_train(card)
+    phase_scst_parity()
+    sample_k1 = phase_sample_eval(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -2173,10 +2577,14 @@ def main():
     k1_paths = {"greedy": launches["attention_scores_masked"],
                 "beam": beam_launches["attention_scores_masked"],
                 **{name: n["attention_scores_masked"] for name, n in evals.items()},
-                "checkpointed_train": ckpt_launches["attention_scores_masked"]}
+                "checkpointed_train": ckpt_launches["attention_scores_masked"],
+                "scst_train": scst_launches["attention_scores_masked"],
+                "eval_sampled": sample_k1}
     k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
-                "checkpointed_train": ckpt_launches["greedy_head"]}
-    k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k]}
+                "checkpointed_train": ckpt_launches["greedy_head"],
+                "scst_train": scst_launches["greedy_head"]}
+    k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k],
+                           "scst_train": scst_launches[k]}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",

@@ -14,8 +14,10 @@ port is held against (tests/test_torch_*.py).  Module names mirror
                 and probe_tanh (the tanh of kernels 1, 3 and 4 against tanhf)
   models/     — SST, TSRM, contexts, captioner, three_stream decoder, init
   engine/     — the batched encode / select / decode / beam steps, the
-                training step, the XE training loop (train) and the host
-                proposal selection (proposals)
+                training and SCST steps, the XE and SCST training loop
+                (train), SCST's host rewards (rl), checkpoints, the
+                batched eval loop (evaluate) and the host proposal
+                selection (proposals)
   config.py, data/, utils/ — the port's own copies of echr_tpu's host code:
                 the Config tree, the datasets, batcher and loader, and
                 caption rendering

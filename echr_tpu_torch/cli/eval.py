@@ -6,11 +6,10 @@ format v2), overlays the CLI flags onto the checkpoint's config
 (reference: eval.py:32-35), rebuilds the loader and runs the batched eval
 driver, ``eval_split_batched``, with ``--batch_videos`` videos a group
 (default 8), for --flag_eval_what in {tap, cg, tap_cg, cg_extend}, on
-``--device`` (default ``cuda``).  Not ported, each raising
-NotImplementedError: SOTA_TEP and --SOTA_json (ROADMAP.md A.6),
---sample_max 0 (A.10), --data_parallel > 1 and a multi-host launch (A.13).
-The reference's sampling options, --temperature and --sample_seed, come
-with A.10: until then argparse refuses them.
+``--device`` (default ``cuda``).  ``--sample_max 0`` decodes by
+multinomial sampling at ``--temperature`` with ``--sample_seed``.  Not
+ported, each raising NotImplementedError: SOTA_TEP and --SOTA_json
+(ROADMAP.md A.6), --data_parallel > 1 and a multi-host launch (A.13).
 """
 from __future__ import annotations
 
@@ -53,6 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--beam_size", type=int, default=1)
     p.add_argument("--sample_max", type=int, default=1,
                    help="1=greedy argmax; 0=multinomial sampling (reference: eval.py:119-122)")
+    p.add_argument("--temperature", type=float, default=1.0,
+                   help="sampling temperature when sample_max=0 (reference: eval.py:123-125)")
+    p.add_argument("--sample_seed", type=int, default=0,
+                   help="seed of the multinomial draws (sample_max=0)")
     p.add_argument("--wait_for_checkpoint", type=int, default=0,
                    help="poll until the checkpoint exists (reference: eval.py:53-55)")
     p.add_argument("--batch_videos", type=int, default=8,
@@ -86,9 +89,6 @@ def _not_ported(ns) -> None:
     if ns.flag_eval_what == "SOTA_TEP" or ns.SOTA_json:
         raise NotImplementedError(
             "external proposals (SOTA_TEP, --SOTA_json) are not ported: ROADMAP.md A.6")
-    if not ns.sample_max:
-        raise NotImplementedError("--sample_max 0 (multinomial decode) is not ported: "
-                                  "ROADMAP.md A.10")
     if ns.data_parallel > 1:
         raise NotImplementedError("--data_parallel > 1 is not ported: ROADMAP.md A.13")
     if any(os.environ.get(k) for k in _CLUSTER_ENV):
@@ -123,6 +123,7 @@ def main(argv=None) -> str:
         val_all_metrics=bool(ns.val_all_metrics),
         beam_size=ns.beam_size,
         sample_max=ns.sample_max,
+        temperature=ns.temperature,
     )
     if ns.transfer_dtype:
         cfg = cfg.replace_in("runtime", transfer_dtype=ns.transfer_dtype)
@@ -135,10 +136,12 @@ def main(argv=None) -> str:
     state = payload["state"]
 
     stamp = f"{ns.flag_eval_what}_top{ns.topN}_thr{ns.val_score_thres}_nms{ns.nms_threshold}"
-    # decode-mode dimensions, so that a beam run does not overwrite the
-    # greedy run's predictions for the same proposal settings
+    # decode-mode dimensions, so that a beam or sampling run does not
+    # overwrite the greedy run's predictions for the same proposal settings
     if ns.beam_size > 1:
         stamp += f"_beam{ns.beam_size}"
+    if not ns.sample_max:
+        stamp += f"_sampleT{ns.temperature}_s{ns.sample_seed}"
     json_path = os.path.join(folder, f"eval_{stamp}.json")
     tm: dict = {}
     t0 = time.time()
@@ -155,6 +158,9 @@ def main(argv=None) -> str:
                 "val_score_thres": ns.val_score_thres,
                 "reranking": bool(ns.reranking),
                 "beam_size": ns.beam_size,
+                "sample_max": ns.sample_max,
+                "temperature": ns.temperature,
+                "sample_seed": ns.sample_seed,
                 # the reference's standalone eval passes crits=None: no val
                 # losses (eval.py:87-88), and the decode-only batches
                 "get_eval_loss": False,

@@ -8,17 +8,17 @@ the device (or the host NMS), the val losses and greedy or beam decode, per
 ``flag_eval_what`` ('cg' GT segments | 'cg_extend' sampled good proposals |
 'tap' proposals only | 'tap_cg' model proposals).  A caption's re_score is
 10 * proposal_score + sentence_confidence; ``reranking`` keeps the top 10.
+``sample_max=0`` decodes by multinomial sampling at ``temperature``, each
+group's draws from a generator seeded by (``sample_seed``, the group's
+dispatch index), so one seed gives one predictions JSON.
 
 Not ported, each raising NotImplementedError: the per-video ``eval_split``
-(ROADMAP.md A.9-A.10), multinomial decode (``sample_max=0``, A.10),
-external proposals (``flag_eval_what='SOTA_TEP'``, A.6) and the
-multi-device sweep (``mesh`` / ``multihost``, A.13).
+(ROADMAP.md A.9-A.10), external proposals (``flag_eval_what='SOTA_TEP'``,
+A.6) and the multi-device sweep (``mesh`` / ``multihost``, A.13).
 """
 from __future__ import annotations
 
-import concurrent.futures as _fut
 import contextlib
-import contextvars
 import gc as _gc
 import json
 import logging
@@ -142,6 +142,12 @@ def eval_split(*args, **kwargs):
         "use eval_split_batched")
 
 
+def _group_seed(sample_seed: int, dispatch: int) -> int:
+    """The seed of a multinomial decode's draws: one stream per group, by
+    its dispatch index (echr_tpu's fold_in(PRNGKey(sample_seed), k))."""
+    return int(np.random.SeedSequence([sample_seed, dispatch]).generate_state(1, np.uint64)[0])
+
+
 def _fetch(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
     """Host copies of ``tensors`` with one synchronisation: the copies are
     queued on the current stream, then one event is waited on."""
@@ -175,16 +181,17 @@ def eval_split_batched(
     here.  Every group is padded to ``batch_videos`` rows by replaying its
     last video, so each time bucket has one shape.  The pipeline: group
     k+1's encode and selection are queued on the device before group k's
-    selection fetch blocks; a prep thread stacks, moves and launches each
-    group (``async_prep``), and an assembler thread fetches the decode
-    outputs and renders the captions (``async_assemble``), both on the
-    caller's device and stream.  An exception mid-pass restores the loader's
-    labels and feature dtype, joins both threads and re-enables GC.
+    selection fetch blocks, and an assembler thread fetches the decode
+    outputs and renders the captions (``async_assemble``) on the caller's
+    device and stream.  Every product runs on the caller's thread, so the
+    process-wide TF32 switch of ``ops.core.matmul`` never reaches another
+    thread's f32 products.  An exception mid-pass restores the loader's
+    labels and feature dtype, joins the assembler and re-enables GC.
 
     ``eval_kwargs`` takes echr_tpu's keys (split, language_eval,
     val_score_thres, nms_threshold, reranking, topN, num_vids_eval,
-    get_eval_loss, val_all_metrics, sample_max, beam_size,
-    beam_length_alpha, eval_inflight, device_select, async_prep,
+    get_eval_loss, val_all_metrics, sample_max, temperature, sample_seed,
+    beam_size, beam_length_alpha, eval_inflight, device_select,
     async_assemble, gc_pause, references); a ``timing_out`` dict receives
     the wall-time breakdown."""
     dev = torch.device(device)
@@ -198,9 +205,6 @@ def eval_split_batched(
     if flag_eval_what not in _MODES:
         raise ValueError(f"flag_eval_what {flag_eval_what!r} not supported")
     kw = dict(eval_kwargs or {})
-    if not int(kw.get("sample_max", cfg.eval.sample_max)):
-        raise NotImplementedError(
-            "sample_max=0 (multinomial decode) is not ported: ROADMAP.md A.10")
     split = kw.get("split", "val")
     lang_eval = kw.get("language_eval", cfg.eval.language_eval)
     val_score_thres = kw.get("val_score_thres", cfg.eval.val_score_thres)
@@ -210,6 +214,10 @@ def eval_split_batched(
     num_vids_eval = kw.get("num_vids_eval", cfg.eval.num_vids_eval) or loader.split_size(split)
     val_all_metrics = kw.get("val_all_metrics", cfg.eval.val_all_metrics)
     get_eval_loss = kw.get("get_eval_loss", True)
+    greedy = bool(int(kw.get("sample_max", cfg.eval.sample_max)))
+    temperature = float(kw.get("temperature", cfg.eval.temperature))
+    sample_seed = int(kw.get("sample_seed", 0))
+    dispatch_count = [0]
     beam_size = int(kw.get("beam_size", cfg.eval.beam_size) or 1)
     length_alpha = float(kw.get("beam_length_alpha", cfg.eval.beam_length_alpha))
     inflight = max(int(kw.get("eval_inflight", cfg.eval.eval_inflight)), 1)
@@ -222,7 +230,7 @@ def eval_split_batched(
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
     def on_device():
-        """The caller's device and stream, for work on the pipeline's threads."""
+        """The caller's device and stream, for the assembler thread's fetches."""
         if stream is None:
             return contextlib.nullcontext()
         ctx = contextlib.ExitStack()
@@ -255,49 +263,47 @@ def eval_split_batched(
     def stage_a(items: List):
         """Encode, device top-N and val-loss launches for one group, with no
         blocking fetch: those wait in stage_b, by when the next group's
-        work is queued behind this one.  Runs on the prep thread with
-        async_prep; it writes only its own tm keys."""
+        work is queued behind this one."""
         if not items:
             return None
-        with on_device():
-            t0 = _clk.time()
-            B = len(items)
-            items_p = items + [items[-1]] * (batch_videos - B)
-            t_s = _clk.time()
-            # the prefetch workers' feats are bf16 tensors on the decode-only
-            # path; items in flight before set_feats_dtype are f32 arrays
-            fdt = torch.bfloat16 if bf16_transfer else torch.float32
-            feats_h = torch.stack([torch.as_tensor(b.feats).to(fdt) for b, _ in items_p])
-            tm["prep_stack"] += _clk.time() - t_s
-            t_s = _clk.time()
-            # bf16 halves the host->device payload; the upcast is on the device
-            feats_b = feats_h.to(dev, non_blocking=True).float()
-            tm["prep_put"] += _clk.time() - t_s
-            t_s = _clk.time()
-            tap_feats_b, pred_props_b = encode_step_batched(tap, feats_b, cfg)
-            tm["prep_encode"] += _clk.time() - t_s
-            a = {"items": items, "items_p": items_p, "B": B, "feats_b": feats_b,
-                 "tap_feats_b": tap_feats_b, "pred_props_b": pred_props_b}
-            a["device_sel"] = (device_select and not nms_threshold
-                               and flag_eval_what in ("tap", "tap_cg"))
-            if a["device_sel"]:
-                # the bucket ceiling, not bucket(topN): threshold ties can pass
-                # topN, and the host path truncates at bucket(max_n) <= ceiling
-                a["nb_sel"] = PROP_BUCKETS[-1]
-                nfr = to_dev(np.array([m.n_frames for _, m in items_p], np.int32))
-                a["sel_dev"] = select_topk_batched(pred_props_b, nfr, topN=topN, nb=a["nb_sel"],
-                                                   val_score_thres=val_score_thres)
-            if get_eval_loss and split != "test":
-                # selection-independent; stage_b adds a video's losses only
-                # when its selection is not empty, but counts it in it_vids
-                stacked = VideoBatch(*(np.stack([np.asarray(x) for x in xs])
-                                       for xs in zip(*[b for b, _ in items_p])))
-                a["loss_m"] = val_loss_step_batched(
-                    tap, cg, batch_to_device(stacked, dev), cfg,
-                    phase=("tap" if flag_eval_what == "tap" else "tap_cg"))
-            tm["host_prep"] += _clk.time() - t0
-            tm["groups"] += 1
-            return a
+        t0 = _clk.time()
+        B = len(items)
+        items_p = items + [items[-1]] * (batch_videos - B)
+        t_s = _clk.time()
+        # the prefetch workers' feats are bf16 tensors on the decode-only
+        # path; items in flight before set_feats_dtype are f32 arrays
+        fdt = torch.bfloat16 if bf16_transfer else torch.float32
+        feats_h = torch.stack([torch.as_tensor(b.feats).to(fdt) for b, _ in items_p])
+        tm["prep_stack"] += _clk.time() - t_s
+        t_s = _clk.time()
+        # bf16 halves the host->device payload; the upcast is on the device
+        feats_b = feats_h.to(dev, non_blocking=True).float()
+        tm["prep_put"] += _clk.time() - t_s
+        t_s = _clk.time()
+        tap_feats_b, pred_props_b = encode_step_batched(tap, feats_b, cfg)
+        tm["prep_encode"] += _clk.time() - t_s
+        a = {"items": items, "items_p": items_p, "B": B, "feats_b": feats_b,
+             "tap_feats_b": tap_feats_b, "pred_props_b": pred_props_b}
+        a["device_sel"] = (device_select and not nms_threshold
+                           and flag_eval_what in ("tap", "tap_cg"))
+        if a["device_sel"]:
+            # the bucket ceiling, not bucket(topN): threshold ties can pass
+            # topN, and the host path truncates at bucket(max_n) <= ceiling
+            a["nb_sel"] = PROP_BUCKETS[-1]
+            nfr = to_dev(np.array([m.n_frames for _, m in items_p], np.int32))
+            a["sel_dev"] = select_topk_batched(pred_props_b, nfr, topN=topN, nb=a["nb_sel"],
+                                               val_score_thres=val_score_thres)
+        if get_eval_loss and split != "test":
+            # selection-independent; stage_b adds a video's losses only
+            # when its selection is not empty, but counts it in it_vids
+            stacked = VideoBatch(*(np.stack([np.asarray(x) for x in xs])
+                                   for xs in zip(*[b for b, _ in items_p])))
+            a["loss_m"] = val_loss_step_batched(
+                tap, cg, batch_to_device(stacked, dev), cfg,
+                phase=("tap" if flag_eval_what == "tap" else "tap_cg"))
+        tm["host_prep"] += _clk.time() - t0
+        tm["groups"] += 1
+        return a
 
     def stage_b(a):
         """The blocking selection and loss fetches, the host-side selection
@@ -371,7 +377,14 @@ def eval_split_batched(
                                                         length_alpha=length_alpha)
             tm["decode_dispatch"] += _clk.time() - t0
             return (items, sel, nb, seq_b, logprob_b, None)
-        seq_b, logps_b, active_b = decode_step_batched(*args)
+        sample_gen = None
+        if not greedy:
+            sample_gen = torch.Generator(device=dev)
+            sample_gen.manual_seed(_group_seed(sample_seed, dispatch_count[0]))
+            dispatch_count[0] += 1
+        seq_b, logps_b, active_b = decode_step_batched(*args, greedy=greedy,
+                                                       temperature=temperature,
+                                                       sample_gen=sample_gen)
         tm["decode_dispatch"] += _clk.time() - t0
         return (items, sel, nb, seq_b, logps_b, active_b)
 
@@ -427,16 +440,6 @@ def eval_split_batched(
                 asm_exc.append(e)
 
     asm_thread = None
-    prep_pool = None
-
-    def submit_a(items):
-        if prep_pool is None:
-            return stage_a(items)
-        # in the caller's context, so that ops.force_plain() reaches the prep thread
-        return prep_pool.submit(contextvars.copy_context().run, stage_a, items)
-
-    def resolve_a(entry):
-        return entry.result() if prep_pool is not None else entry
 
     def collect(entry):
         if entry is None:
@@ -462,10 +465,9 @@ def eval_split_batched(
     def drain(a_keep: int, b_keep: int):
         """Advance the pipeline until at most a_keep stage-A and b_keep
         stage-B entries are in flight.  With a_keep 1, group k's blocking
-        selection fetch comes after group k+1's encode is queued (or, with
-        the prep thread, is being prepared)."""
+        selection fetch comes after group k+1's encode is queued."""
         while len(encoded) > a_keep:
-            entry = stage_b(resolve_a(encoded.pop(0)))
+            entry = stage_b(encoded.pop(0))
             if entry is not None:
                 pending.append(entry)
         while len(pending) > b_keep:
@@ -485,8 +487,6 @@ def eval_split_batched(
         if bool(kw.get("async_assemble", True)):
             asm_thread = threading.Thread(target=asm_run, name="eval-assembler", daemon=True)
             asm_thread.start()
-        if bool(kw.get("async_prep", True)):
-            prep_pool = _fut.ThreadPoolExecutor(max_workers=1, thread_name_prefix="eval-prep")
         if gc_was_enabled and bool(kw.get("gc_pause", True)):
             _gc.disable()
         wd.start()
@@ -504,18 +504,14 @@ def eval_split_batched(
             if usable:
                 groups.setdefault(meta.t_bucket, []).append((batch, meta))
                 if len(groups[meta.t_bucket]) >= batch_videos:
-                    encoded.append(submit_a(groups.pop(meta.t_bucket)))
+                    encoded.append(stage_a(groups.pop(meta.t_bucket)))
                     drain(1, inflight)
             t_load = _clk.time()
         for bucket in list(groups):
-            encoded.append(submit_a(groups.pop(bucket)))
+            encoded.append(stage_a(groups.pop(bucket)))
         drain(0, 0)
         finish_assembly()
     finally:
-        if prep_pool is not None:
-            # join the prep thread before the loader state is restored; on an
-            # abort, queued stage_a's are cancelled rather than run
-            prep_pool.shutdown(wait=True, cancel_futures=True)
         wd.stop()
         finish_assembly(reraise=False)
         loader.set_labels(labels_before, split)

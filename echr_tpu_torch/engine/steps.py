@@ -7,7 +7,15 @@ masters; each video's losses keep that video's denominators and the step
 takes the mean over videos, as the reference's vmapped step does.  The
 parameters and the two Adam states are updated in place.
 
-Eval / serving (greedy ``decode_step_batched`` and
+Self-critical training (SCST): ``rl_rollout_step_batched`` samples a
+train-mode rollout and decodes an eval-mode greedy baseline under no grad;
+the host scores both (engine/rl.py); ``rl_update_step_batched`` replays the
+rollout's tokens under autograd with the dropout generator restored to the
+state it had before the rollout, and takes one dual-Adam step on the
+reward loss.  The token draws come from a second generator, so the replay
+sees the rollout's dropout masks.
+
+Eval / serving (greedy or multinomial ``decode_step_batched`` and
 ``beam_decode_step_batched``): each step takes modules already cast once with
 ``ops.core.cast_compute_dtype(module, cfg.runtime.compute_dtype)`` (the
 reference casts inside every jitted step; here CaptionService and
@@ -31,6 +39,7 @@ from echr_tpu_torch import losses
 from echr_tpu_torch.models.captioner import (
     Captioner,
     ProposalBatch,
+    captioner_sample,
     captioner_train_forward,
     captioner_train_loss,
     make_contexts,
@@ -152,10 +161,18 @@ def grad_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generato
     """Gradients of the phase loss (the mean over the batch's videos) for
     every parameter of both models, and the metrics as floats.  Dropout and
     scheduled sampling draw from ``gen``; ``gen=None`` turns both off."""
+    return _phase_grads(state, cfg, phase, _batch_losses, batch, phase, gen, ss_prob)
+
+
+def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args
+                 ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, float]]:
+    """Gradients of the phase loss of losses_fn(models, cfg, *args), a dict
+    of batch-mean losses computed with the weights in the compute dtype,
+    for every parameter of both models; and the metrics as floats."""
     models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})  # one cast for both
     params = list(models.parameters())
     metrics = call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
-                                    _batch_losses, cfg, batch, phase, gen, ss_prob)
+                                    losses_fn, cfg, *args)
     loss = _phase_loss(metrics, phase)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     # an unused parameter has a zero gradient (Adam still steps it, as optax does)
@@ -197,6 +214,101 @@ def train_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generat
     return apply_grads(state, tap_g, cg_g, cfg, phase), metrics
 
 
+# ---------------------------------------------------------------------------
+# self-critical (SCST) steps, batched over videos
+# ---------------------------------------------------------------------------
+
+
+def _rl_prepare(tap: SST, cg: Captioner, cfg: Config, batch: VideoBatch, phase: str,
+                gen: Optional[torch.Generator]):
+    """The train-mode encode and contexts of the SCST rollout, up to (not
+    including) the sampled decode, with dropout from ``gen``: (tap_loss
+    [B], contexts).  ``tap`` and ``cg`` hold compute-dtype weights."""
+    dt = compute_dtype(cfg.runtime.compute_dtype)
+    tap_feats, scores = sst_forward_batched(tap, batch.feats, dt, True, gen,
+                                            cfg.tap.rnn_dropout)
+    tap_l = losses.tap_loss(scores, batch.tap_masks, batch.tap_labels, batch.w1,
+                            batch.n_frames)
+    props = _select_props(batch, phase)[0]
+    ctxs = make_contexts(cg, cfg, tap_feats, batch.feats, batch.lda, props,
+                         frame_mask=batch.frame_mask, train=True, gen=gen)
+    return tap_l, ctxs
+
+
+def _rl_forward(tap: SST, cg: Captioner, cfg: Config, batch: VideoBatch, phase: str,
+                gen: Optional[torch.Generator], sample_gen: Optional[torch.Generator] = None,
+                forced: Optional[torch.Tensor] = None):
+    """The train-mode rollout: (tap_loss [B], seq [B, N, L], logps
+    [B, N, L]).  Sampled from ``sample_gen`` when ``forced`` is None (the
+    batch-wide early exit), else the replay of ``forced`` over all L steps
+    under autograd.  Called twice from the same ``gen`` state, the two
+    draw the same dropout masks."""
+    tap_l, ctxs = _rl_prepare(tap, cg, cfg, batch, phase, gen)
+    dt = compute_dtype(cfg.runtime.compute_dtype)
+    seq, logps, _ = decoder_sample_batched(cg.decoder, cfg, ctxs, dt, greedy=False,
+                                           sample_gen=sample_gen, train=True, gen=gen,
+                                           forced=forced)
+    return tap_l, seq, logps
+
+
+def _rl_rollouts(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: str,
+                 gen: Optional[torch.Generator], sample_gen: torch.Generator):
+    tap, cg = models["tap"], models["cg"]
+    tap_l, gen_seq, _ = _rl_forward(tap, cg, cfg, batch, phase, gen, sample_gen)
+    # the greedy baseline: eval mode, no dropout, the decode path's
+    # kernels and window sort
+    dt = compute_dtype(cfg.runtime.compute_dtype)
+    tap_feats_eval, _ = sst_forward_batched(tap, batch.feats, dt)
+    props = _select_props(batch, phase)[0]
+    greedy_seq, _, _ = captioner_sample(cg, cfg, tap_feats_eval, batch.feats, batch.lda, props,
+                                        batch.frame_mask, dt)
+    return tap_l, gen_seq, greedy_seq
+
+
+@torch.no_grad()
+def rl_rollout_step_batched(state: TrainState, batch: VideoBatch, cfg: Config, phase: str,
+                            gen: Optional[torch.Generator], sample_gen: torch.Generator
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """SCST rollouts of a [B]-video batch (reference: CaptionGenerator mode
+    'train_rl', :32-38): a multinomial train-mode rollout, dropout from
+    ``gen`` and draws from ``sample_gen``, and an eval-mode greedy baseline,
+    both with the batch-wide early exit.  Returns (tap_loss [B], gen_seq
+    [B, N, L], greedy_seq [B, N, L]).  Save ``gen``'s state before this
+    call and restore it for rl_update_step_batched."""
+    models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})
+    return call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
+                                 _rl_rollouts, cfg, batch, phase, gen, sample_gen)
+
+
+def _rl_losses(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: str,
+               gen: Optional[torch.Generator], gen_seq: torch.Tensor, reward: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
+    tap_l, _, logps = _rl_forward(models["tap"], models["cg"], cfg, batch, phase, gen,
+                                  forced=gen_seq)
+    pm = _select_props(batch, phase)[0].prop_mask
+    rl_l = losses.reward_loss(logps, gen_seq, reward, prop_mask=pm)
+    n_real = torch.clamp(pm.sum(dim=1), min=1.0)
+    per_video = {"tap_loss": tap_l, "cg_loss": rl_l,
+                 "total_loss": cfg.train.lambda1 * tap_l + cfg.train.lambda2 * rl_l,
+                 # the mean reward over REAL proposals (padded rows carry 0)
+                 "avg_reward": (reward[..., 0] * pm).sum(dim=1) / n_real}
+    return {k: v.mean() for k, v in per_video.items()}
+
+
+def rl_update_step_batched(state: TrainState, batch: VideoBatch, cfg: Config, phase: str,
+                           gen: Optional[torch.Generator], gen_seq: torch.Tensor,
+                           reward: torch.Tensor) -> Tuple[TrainState, Dict[str, float]]:
+    """The policy-gradient update of a [B]-video batch: the rollout's tokens
+    ``gen_seq`` replayed with ``gen`` in the state the rollout started from,
+    each video's reward loss (``reward`` [B, N, L]) with its own
+    denominators, the mean over videos, and one dual-Adam step: the TAP
+    model only in 'tap_cg' / 'gt_tap_cg', the captioner always.  Metrics:
+    tap_loss, cg_loss (the reward loss), total_loss, avg_reward and loss."""
+    grads, metrics = _phase_grads(state, cfg, phase, _rl_losses, batch, phase, gen, gen_seq,
+                                  reward)
+    return apply_grads(state, grads[0], grads[1], cfg, phase), metrics
+
+
 @torch.no_grad()
 def val_loss_step_batched(tap: SST, cg: Captioner, batch: VideoBatch, cfg: Config,
                           phase: str = "tap_cg") -> Dict[str, torch.Tensor]:
@@ -204,10 +316,8 @@ def val_loss_step_batched(tap: SST, cg: Captioner, batch: VideoBatch, cfg: Confi
     device: tap_loss, and cg_loss and total_loss unless phase is 'tap',
     [B] each (echr_tpu's vmapped _one_video_losses; reference:
     eval_utils.py:139-155), without dropout.  ``tap`` and ``cg`` are cast
-    to the compute dtype already, as the decode steps take them: a cast
-    inside (call_in_compute_dtype, as grad_step does) would swap the
-    modules' parameters while the eval loop's other thread decodes with
-    them."""
+    to the compute dtype already, as the decode steps take them, so no
+    cast is needed inside (call_in_compute_dtype, as grad_step does)."""
     return _one_video_losses(tap, cg, cfg, batch, phase, None, False, 0.0)
 
 
@@ -270,13 +380,14 @@ def unpack_topk_selection(idx_row, count, nb: int, K: int, n_frames: int,
 @torch.inference_mode()
 def decode_step_batched(cg: Captioner, cfg: Config, tap_feats: torch.Tensor,
                         feats: torch.Tensor, lda: torch.Tensor, frame_mask: torch.Tensor,
-                        props: ProposalBatch):
-    """Greedy decode of B videos' proposals with the batch-wide early exit.
-    Returns (seq [B, N, L], logps [B, N, L], active [B, L]).  Multinomial
-    decode is not ported yet (ROADMAP.md A.10)."""
-    ctxs = make_contexts(cg, cfg, tap_feats, feats, lda, props, frame_mask=frame_mask)
-    return decoder_sample_batched(cg.decoder, cfg, ctxs,
-                                  compute_dtype(cfg.runtime.compute_dtype))
+                        props: ProposalBatch, greedy: bool = True, temperature: float = 1.0,
+                        sample_gen: Optional[torch.Generator] = None):
+    """Greedy, or with ``greedy=False`` multinomial at ``temperature`` (draws
+    from ``sample_gen``), decode of B videos' proposals with the batch-wide
+    early exit.  Returns (seq [B, N, L], logps [B, N, L], active [B, L])."""
+    return captioner_sample(cg, cfg, tap_feats, feats, lda, props, frame_mask,
+                            compute_dtype(cfg.runtime.compute_dtype), greedy, temperature,
+                            sample_gen)
 
 
 @torch.inference_mode()

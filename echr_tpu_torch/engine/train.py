@@ -1,5 +1,5 @@
-"""The XE training loop (echr_tpu/engine/train.py), synchronous, one GPU,
-with checkpoints.
+"""The XE and self-critical training loop (echr_tpu/engine/train.py),
+synchronous, one GPU, with checkpoints.
 
 The reference's single-host synchronous loop: the run folder (its
 config.json, pred_sent/ and a snapshot of echr_tpu_torch/), resume from
@@ -16,17 +16,22 @@ them).  SIGTERM stops the loop at the next iteration boundary, and the
 loop's exit writes ``model-last.ckpt``; a hang watchdog runs around the
 loop.
 
+From epoch ``train.self_critical_after`` on (when it is not -1), every
+phase but 'tap' takes self-critical steps (``_self_critical_step_batched``):
+the sampled and greedy rollouts of a batch, its METEOR rewards on the host
+(engine/rl.py's process pool), and the policy-gradient update.
+
 Dropout and scheduled sampling draw from a generator seeded with
-``train.seed + 1``, also on a resumed run: echr_tpu does not save its PRNG
+``train.seed + 1``, and SCST's token draws from one seeded with
+``train.seed + 2``, also on a resumed run: echr_tpu does not save its PRNG
 either (it splits its rng anew from the seed), so a resumed run is exact
 only with dropout and scheduled sampling off (the three_stream core's
 dropout of 0.5 has no setting: only steps without a generator are free of
 it).
 
-Not ported, each raising NotImplementedError: SCST (ROADMAP.md A.10) and
-transfer compression (A.8).  The pipelined producer is not ported either;
-this loop is the reference's synchronous one, which gives the same
-trajectory.
+Not ported, raising NotImplementedError: transfer compression (ROADMAP.md
+A.8).  The pipelined producer is not ported either; this loop is the
+reference's synchronous one, which gives the same trajectory.
 
 ``get_training_list``, ``current_lr``, ``current_ss_prob``, ``_collate``,
 ``_BucketCollator``, ``overlay_resumed_config`` and the preemption handler
@@ -50,12 +55,15 @@ from echr_tpu_torch.data.dataset import build_dataset
 from echr_tpu_torch.data.loader import Loader
 from echr_tpu_torch.engine import checkpoint as ckpt
 from echr_tpu_torch.engine.evaluate import eval_split_batched
+from echr_tpu_torch.engine.rl import default_reward_pool, self_critical_reward_batched
 from echr_tpu_torch.engine.steps import (
     TrainState,
     apply_grads,
     batch_to_device,
     grad_step,
     init_train_state,
+    rl_rollout_step_batched,
+    rl_update_step_batched,
     set_lr,
     train_step,
 )
@@ -149,13 +157,9 @@ class _BucketCollator:
 
 def _not_ported(cfg: Config) -> None:
     """Raise for the options whose code is not ported yet."""
-    why = []
-    if cfg.train.self_critical_after != -1:
-        why.append("SCST (train.self_critical_after, ROADMAP.md A.10)")
     if cfg.runtime.transfer_dtype != "float32":
-        why.append("transfer compression (runtime.transfer_dtype, ROADMAP.md A.8)")
-    if why:
-        raise NotImplementedError("not ported to echr_tpu_torch yet: " + ", ".join(why))
+        raise NotImplementedError("not ported to echr_tpu_torch yet: transfer compression "
+                                  "(runtime.transfer_dtype, ROADMAP.md A.8)")
 
 
 def train(cfg: Config, max_iterations: Optional[int] = None, device="cuda",
@@ -168,7 +172,10 @@ def train(cfg: Config, max_iterations: Optional[int] = None, device="cuda",
     "loader" (get_batch), "collate", "step" (the step up to its metrics on
     the host, which waits for the device) and "boundary" (log, eval and
     checkpoint work); "iters", (iteration, perf_counter) after each step;
-    and "ckpt", (iteration, seconds) of each checkpoint boundary."""
+    "ckpt", (iteration, seconds) of each checkpoint boundary; and for
+    each SCST step "scst", a dict of the rollouts', the host reward's and
+    the update's seconds, the sampled and the greedy decode's steps, the
+    reward rows, the pool's workers and the step's avg_reward."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"train(device={str(device)!r}): CUDA is not available")
@@ -223,8 +230,10 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                 cg = captioner_from_jax(warm["cg_params"], cfg, device)
             log.info("warm-started %s from %s", cfg.save.pretrain, cfg.save.pretrain_path)
         state = init_train_state(cfg, tap, cg)
-    # dropout masks and scheduled-sampling draws, on the device
+    # dropout masks and scheduled-sampling draws, and SCST's token draws,
+    # on the device
     gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
+    sample_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 2)
 
     curriculum = get_training_list(cfg)
     log.info("curriculum: %s (%d epochs)", cfg.train.training_mode, len(curriculum))
@@ -238,7 +247,7 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
     acc_grads = None  # m_batch gradient accumulation
     t_start = time.time()
     tm: Dict = {"loader": 0.0, "collate": 0.0, "step": 0.0, "boundary": 0.0, "iters": [],
-                "ckpt": []}
+                "ckpt": [], "scst": []}
     tic = time.perf_counter
 
     def _log_boundary(phase: str) -> None:
@@ -323,7 +332,9 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                 if meta.wrapped:
                     epoch += 1
                 continue
-            if cfg.train.m_batch > 1:
+            sc_flag = (cfg.train.self_critical_after != -1
+                       and epoch >= cfg.train.self_critical_after and phase != "tap")
+            if cfg.train.m_batch > 1 and not sc_flag:
                 # summed gradients over m_batch videos, one update
                 # (reference: train.py:281-283,294,316-329)
                 t0 = tic()
@@ -344,13 +355,20 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                         if meta.wrapped:
                             epoch += 1
                         continue
-                    stacked, _ = res
+                    stacked, metas = res
                 else:
-                    stacked = _stack_batch(batch)
+                    stacked, metas = _stack_batch(batch), [meta]
                 tm["collate"] += tic() - t0
                 t0 = tic()
-                state, metrics = train_step(state, batch_to_device(stacked, device), gen, cfg,
-                                            phase, ss_prob=ss_prob)
+                if sc_flag:
+                    # batch_size <= 1 takes the batched step on one video
+                    state, metrics, sc_tm = _self_critical_step_batched(
+                        state, batch_to_device(stacked, device), metas, cfg, phase, gen,
+                        sample_gen, dataset)
+                    tm["scst"].append(sc_tm)
+                else:
+                    state, metrics = train_step(state, batch_to_device(stacked, device), gen,
+                                                cfg, phase, ss_prob=ss_prob)
                 tm["step"] += tic() - t0
             iteration += 1
             if not np.isfinite(metrics["loss"]):
@@ -388,6 +406,55 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
     return {"iteration": iteration, "epoch": epoch, "best_val_score": best_val_score,
             "save_folder": save_folder, "losses": metrics, "state": state, "config": cfg,
             "loader": loader}
+
+
+def _executed_steps(seq: np.ndarray) -> int:
+    """The token steps a batch-wide early-exit decode ran, from its seq
+    [B, N, L]: every column up to the last one with an emitted token, and
+    the step after it (whose tokens all ended the captions), at most L."""
+    cols = np.flatnonzero((seq != 0).any(axis=(0, 1)))
+    last = int(cols[-1]) if cols.size else -1
+    return min(last + 2, seq.shape[-1])
+
+
+def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg: Config,
+                                phase: str, gen: Optional[torch.Generator],
+                                sample_gen: torch.Generator, dataset):
+    """One SCST step on a [B]-video batch on the device: the rollouts, the
+    METEOR rewards of all B*N proposal rows over the reward pool, and the
+    update, which replays the rollout with ``gen`` restored to its state
+    before the rollout.  Each proposal's GT sentence: 'cg' / 'gt_tap_cg'
+    take every GT sentence under gts_mask, the other phases the sentence
+    each sampled proposal was matched to (cg_select) under prop_mask.
+    Returns (state, metrics, timing)."""
+    tic = time.perf_counter
+    t0 = tic()
+    drop_state = gen.get_state() if gen is not None else None
+    _, gen_seq, greedy_seq = rl_rollout_step_batched(state, batch, cfg, phase, gen, sample_gen)
+    gen_np, greedy_np = gen_seq.cpu().numpy(), greedy_seq.cpu().numpy()
+    t1 = tic()
+    if phase in ("cg", "gt_tap_cg"):
+        gts = {i: list(m.sentences) for i, m in enumerate(metas)}
+        masks = batch.gts_mask.cpu().numpy()
+    else:
+        gts = {i: [m.sentences[int(j)] for j in m.cg_select] for i, m in enumerate(metas)}
+        masks = batch.prop_mask.cpu().numpy()
+    pool = default_reward_pool()
+    rewards = self_critical_reward_batched(
+        {i: gen_np[i] for i in range(len(metas))}, {i: greedy_np[i] for i in range(len(metas))},
+        gts, dataset.ix_to_word, {i: masks[i] for i in range(len(metas))}, len(metas),
+        meteor_weight=cfg.train.meteor_reward_weight, pool=pool)
+    t2 = tic()
+    if gen is not None:
+        gen.set_state(drop_state)
+    state, metrics = rl_update_step_batched(state, batch, cfg, phase, gen, gen_seq,
+                                            torch.from_numpy(rewards).to(gen_seq.device))
+    t3 = tic()
+    timing = {"rollout": t1 - t0, "reward": t2 - t1, "update": t3 - t2,
+              "sample_steps": _executed_steps(gen_np), "greedy_steps": _executed_steps(greedy_np),
+              "reward_rows": int((masks > 0).sum()), "pool_workers": pool.workers,
+              "avg_reward": metrics["avg_reward"]}
+    return state, metrics, timing
 
 
 def _run_eval(state: TrainState, loader: Loader, cfg: Config, save_folder: str,

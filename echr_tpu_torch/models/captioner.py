@@ -1,17 +1,24 @@
 """Caption generator: hierarchical contexts + decoder
-(echr_tpu/models/captioner.py): contexts, and the teacher-forced training
-forward and fused loss.  Contexts run in f32 (make_contexts' default, as
-in the reference); the decoder in the compute dtype."""
+(echr_tpu/models/captioner.py): contexts, the teacher-forced training
+forward and fused loss, greedy or multinomial decode (``captioner_sample``)
+and SCST's two rollouts (``captioner_train_rl``), each over a batch of
+videos.  Contexts run in f32 (make_contexts' default, as in the
+reference); the decoder in the compute dtype."""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.contexts import Contexts, build_contexts
-from echr_tpu_torch.models.decoder import Decoder, decoder_forward, teacher_forced_nll
+from echr_tpu_torch.models.decoder import (
+    Decoder,
+    decoder_forward,
+    decoder_sample_batched,
+    teacher_forced_nll,
+)
 from echr_tpu_torch.models.tsrm import TSRM
 
 
@@ -89,3 +96,53 @@ def captioner_train_loss(
     ctxs = make_contexts(cg, cfg, tap_feats, c3d_feats, lda_feats, props, frame_mask,
                          train=train, gen=gen)
     return teacher_forced_nll(cg.decoder, cfg, ctxs, cg_labels, cg_masks, dtype, train, gen)
+
+
+def captioner_sample(
+    cg: Captioner,
+    cfg: Config,
+    tap_feats: torch.Tensor,
+    c3d_feats: torch.Tensor,
+    lda_feats: torch.Tensor,
+    props: ProposalBatch,
+    frame_mask: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.float32,
+    greedy: bool = True,
+    temperature: float = 1.0,
+    sample_gen: Optional[torch.Generator] = None,
+    train: bool = False,
+    gen: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy or multinomial decode of B videos' proposals (mode 'eval';
+    reference: CaptionGenerator.py:39-44): (seq [B, N, L], per-step logps
+    [B, N, L], active [B, L]).  Draws come from ``sample_gen``, dropout
+    (with ``train``) from ``gen``."""
+    ctxs = make_contexts(cg, cfg, tap_feats, c3d_feats, lda_feats, props, frame_mask,
+                         train=train, gen=gen)
+    return decoder_sample_batched(cg.decoder, cfg, ctxs, dtype, greedy, temperature, sample_gen,
+                                  train, gen)
+
+
+def captioner_train_rl(
+    cg: Captioner,
+    cfg: Config,
+    tap_feats: torch.Tensor,
+    c3d_feats: torch.Tensor,
+    lda_feats: torch.Tensor,
+    props: ProposalBatch,
+    sample_gen: torch.Generator,
+    frame_mask: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.float32,
+    gen: Optional[torch.Generator] = None,
+):
+    """Mode 'train_rl' (reference: CaptionGenerator.py:32-38): a multinomial
+    rollout with train-mode contexts and dropout, and a greedy baseline
+    with eval-mode contexts.  Returns ((gen_seq, gen_logps), (greedy_seq,
+    greedy_logps)).  The SCST step (engine/steps.rl_rollout_step_batched)
+    feeds the two its own train- and eval-mode SST features instead."""
+    gen_seq, gen_logps, _ = captioner_sample(cg, cfg, tap_feats, c3d_feats, lda_feats, props,
+                                             frame_mask, dtype, greedy=False,
+                                             sample_gen=sample_gen, train=True, gen=gen)
+    greedy_seq, greedy_logps, _ = captioner_sample(cg, cfg, tap_feats, c3d_feats, lda_feats,
+                                                   props, frame_mask, dtype)
+    return (gen_seq, gen_logps), (greedy_seq, greedy_logps)

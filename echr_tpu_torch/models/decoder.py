@@ -14,9 +14,15 @@ attention route (``remat``: kernels 3 and 4, or the checkpointed plain
 scores) and train-time dropout drawn from a torch.Generator: 0.5 on each
 stream and CG_drop_prob on the output.  torch cannot replay JAX's random
 streams, so ``gen=None`` (no dropout, no scheduled sampling) is the
-parity mode.  Beam search is models/beam.py.  The other eleven cores of
-echr_tpu's CORE_REGISTRY and multinomial decode are not ported yet
-(ROADMAP.md).
+parity mode.
+
+Multinomial decode (``decoder_sample_batched(greedy=False)``: SCST's
+rollout and eval's sample_max=0) draws its tokens from a second generator,
+so that the dropout generator gives the same masks however many draws a
+decode makes; with ``forced`` it replays a rollout's tokens under
+autograd with those masks (the self-critical update).  Beam search is
+models/beam.py.  The other eleven cores of echr_tpu's CORE_REGISTRY are
+not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -347,51 +353,102 @@ def sort_ctxs_by_window(ctxs: Contexts) -> Tuple[Contexts, torch.Tensor]:
     return ctxs, inv_order
 
 
+def _categorical(logits: torch.Tensor, temperature: float, gen: torch.Generator
+                 ) -> torch.Tensor:
+    """One draw a row of [R, V1] logits from softmax(logits / temperature)."""
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
 def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
-                           dtype: torch.dtype = torch.float32
+                           dtype: torch.dtype = torch.float32, greedy: bool = True,
+                           temperature: float = 1.0,
+                           sample_gen: Optional[torch.Generator] = None,
+                           train: bool = False, gen: Optional[torch.Generator] = None,
+                           forced: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Greedy decode of a [B]-video Contexts batch with one batch-wide early
-    exit: the loop stops once no real proposal of any video is unfinished,
-    which costs one host sync per step (``decoder_sample_batched.host_syncs``).
+    """Greedy or multinomial decode of a [B]-video Contexts batch with one
+    batch-wide early exit: the loop stops once no real proposal of any
+    video is unfinished, which costs one host sync per step
+    (``decoder_sample_batched.host_syncs``).
+
+    Greedy eval-mode decode selects tokens with the streaming greedy head
+    (kernel 2) and window-sorts the proposals when ``sort_gate`` holds.
+    Otherwise the head is the plain logits path: the argmax, or with
+    ``greedy=False`` a draw from softmax(logits / temperature) taken from
+    ``sample_gen``; the recorded logp is the untempered logit[tok] -
+    logsumexp(logits).  ``train`` turns dropout on (drawn from ``gen``) and
+    takes the training attention route.  Sampled and train-mode decodes
+    never sort: their draws are row-positional.  A finished proposal
+    keeps drawing and feeding its draws back, as echr_tpu's does; its
+    emitted tokens are zero.
+
+    ``forced`` [B, N, L] (a rollout's seq) replays those tokens, as
+    echr_tpu's decoder_sample(forced_tokens=...) does: all L steps run with
+    no early exit, step t feeds forced[..., t] in place of a draw and
+    records its logp, and unfinished / active follow from the forced
+    tokens.  The steps are the rollout's own (the plain head, the same
+    shapes, no sort), so with ``gen`` restored to its state before the
+    rollout the replay draws the rollout's dropout masks in its order, and
+    its logps equal the rollout's wherever the fed tokens agree: up to
+    each proposal's end token.  The steps after the rollout's exit draw
+    masks too; no emitted token depends on them.
 
     Returns (seq [B, N, L] int32, logps [B, N, L] f32, active [B, L] bool),
-    equal to echr_tpu's greedy decoder_sample_batched; unexecuted steps
-    hold zeros.  Multinomial decode is not ported yet (ROADMAP.md A.10).
-    """
+    equal to echr_tpu's decoder_sample_batched; unexecuted steps hold
+    zeros."""
+    if forced is None and not greedy and sample_gen is None:
+        raise ValueError("decoder_sample_batched(greedy=False) needs sample_gen for the "
+                         "categorical draws")
     B, N = ctxs.prop_mask.shape
     L = cfg.decoder.CG_seq_length
     dev = ctxs.prop_mask.device
 
+    stream_head = greedy and not train and forced is None
     inv = None
-    if sort_gate(cfg, ctxs):
+    if stream_head and sort_gate(cfg, ctxs):
         ctxs, inv = sort_ctxs_by_window(ctxs)
     pre_att = precompute_attention(dec, cfg, ctxs, dtype)
     state = init_state(dec, cfg, ctxs, N, dtype)
-    head_w, head_b = prepare_head(dec.logit, dtype)  # once, outside the loop
+    if stream_head:
+        head_w, head_b = prepare_head(dec.logit, dtype)  # once, outside the loop
 
     it = torch.zeros(B, N, dtype=torch.int32, device=dev)  # <bos> == 0
-    out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype)
+    out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype, train, gen)
     real = ctxs.prop_mask > 0
     unfinished = torch.ones(B, N, dtype=torch.bool, device=dev)
     seq = torch.zeros(B, N, L, dtype=torch.int32, device=dev)
     logps = torch.zeros(B, N, L, dtype=torch.float32, device=dev)
     active_buf = torch.zeros(B, L, dtype=torch.bool, device=dev)
     for t in range(L):
-        tok, mx, lse = greedy_head(out.reshape(B * N, -1), head_w, head_b)
-        it = tok.reshape(B, N)
+        if stream_head:
+            tok, mx, lse = greedy_head(out.reshape(B * N, -1), head_w, head_b)
+            logp = mx - lse
+        else:
+            logits = dense(dec.logit, out, dtype).reshape(B * N, -1)
+            lse = torch.logsumexp(logits, dim=-1)
+            if forced is not None:
+                tok = forced[:, :, t].reshape(B * N).long()
+            elif greedy:
+                tok = logits.argmax(dim=-1)
+            else:
+                tok = _categorical(logits, temperature, sample_gen)
+            logp = torch.gather(logits, 1, tok[:, None])[:, 0] - lse
+        it = tok.reshape(B, N).int()
         unfinished = unfinished & (it > 0)
         active = (unfinished & real).any(dim=1)  # [B]
         # a finished video keeps writing zeros while others run
         seq[:, :, t] = it * unfinished * active[:, None]
-        logps[:, :, t] = (mx - lse).reshape(B, N) * active[:, None]
+        logps[:, :, t] = logp.reshape(B, N) * active[:, None]
         active_buf[:, t] = active
         decoder_sample_batched.steps += 1
         if t == L - 1:
             break
-        decoder_sample_batched.host_syncs += 1
-        if not bool(active.any()):
-            break
-        out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype)
+        if forced is None:
+            decoder_sample_batched.host_syncs += 1
+            if not bool(active.any()):
+                break
+        out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype, train, gen)
     if inv is not None:
         idx = inv[:, :, None].expand(B, N, L)
         seq = torch.gather(seq, 1, idx)

@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import threading
 
 _FORCE_PLAIN = contextvars.ContextVar("echr_tpu_torch_force_plain", default=False)
 
@@ -35,12 +34,7 @@ def use_plain(x) -> bool:
     return False
 
 
-_LAUNCH_LOCK = threading.Lock()
-
-
 def count_launch(wrapper) -> None:
-    """wrapper.launches += 1, under a lock: the eval loop launches kernel 1
-    from two threads (the val losses on its prep thread, the decode on the
-    caller's)."""
-    with _LAUNCH_LOCK:
-        wrapper.launches += 1
+    """wrapper.launches += 1: each wrapper calls it where it launches its
+    kernel, and nowhere else."""
+    wrapper.launches += 1

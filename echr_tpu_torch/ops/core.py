@@ -42,11 +42,11 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class _TF32:
-    """TF32 on while any bf16 product runs.  The flag is process-wide and
-    the eval loop multiplies on two threads at once, so the blocks are
-    counted under a lock: the first one in turns TF32 on, the last one out
-    restores the flag as the first one found it.  A save-and-restore per
-    block would let overlapping blocks leave TF32 on for good."""
+    """TF32 on while any bf16 product runs.  The flag is process-wide, so
+    the blocks are counted under a lock: the first one in turns TF32 on,
+    the last one out restores the flag as the first one found it.  A
+    save-and-restore per block would let blocks that overlap on two
+    threads leave TF32 on for good."""
 
     def __init__(self):
         self._lock = threading.Lock()

@@ -458,13 +458,22 @@ def test_eval_cli_on_a_port_checkpoint_matches_eval_split_batched(tmp_path):
     with open(json_path) as f:
         got = json.load(f)["results"]
     assert want and json.loads(json.dumps(want)) == got
-    for argv, item in ((["--sample_max", "0"], "A.10"), (["--data_parallel", "2"], "A.13"),
+    for argv, item in ((["--data_parallel", "2"], "A.13"),
                        (["--flag_eval_what", "SOTA_TEP"], "A.6")):
         with pytest.raises(NotImplementedError, match=item):
             cli_eval.main(["--folder_id", "EV", "--checkpoint_path", str(tmp_path), *argv])
-    for flag in ("--temperature", "--sample_seed"):  # sampling's options come with A.10
-        with pytest.raises(SystemExit):
-            cli_eval.main(["--folder_id", "EV", "--checkpoint_path", str(tmp_path), flag, "1"])
+    # --sample_max 0 is ported, with --temperature and --sample_seed: one seed
+    # gives one predictions JSON, under its own name
+    sampled = []
+    for _ in range(2):
+        path = cli_eval.main(["--folder_id", "EV", "--checkpoint_path", str(tmp_path),
+                              "--flag_eval_what", "tap_cg", "--topN", "15", "--batch_videos",
+                              "2", "--no_language_eval", "--device", "cpu", "--sample_max", "0",
+                              "--temperature", "0.5", "--sample_seed", "3"])
+        assert os.path.basename(path) == "eval_tap_cg_top15_thr0.0_nms0.0_sampleT0.5_s3.json"
+        with open(path) as f:
+            sampled.append(json.load(f)["results"])
+    assert sampled[0] and sampled[0] == sampled[1] and sampled[0].keys() == got.keys()
 
 
 def test_train_cli_writes_a_checkpoint_the_eval_cli_reads(tmp_path):
