@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive echr_tpu_torch's batched greedy and beam serving paths, its XE
 training path, its three probes, its batched eval loop, its checkpointed
-training, its self-critical (SCST) training and its multinomial eval once
-on one NVIDIA GPU, and hold every kernel against its plain PyTorch
-version.
+training, its self-critical (SCST) training, its multinomial eval and the
+decoder family's other cores once on one NVIDIA GPU, and hold every
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -178,7 +178,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      takes the argmax, the draws that leave it number what the tempered
      softmax expects (within 5 standard deviations), and no more
      sentences differ than draws that left the argmax or met a top-2 gap
-     below 1e-4.
+     below 1e-4;
+  26. the decoder family: kernel 2 at the family's logit widths (R=4096,
+     C=512 and C=1024, V1=6001, bf16) against its plain version and timed
+     beside its bound and the bare bf16 product in turns, as phase 6; then
+     each core of CORE_REGISTRY but three_stream at the flagship width
+     (show_attend_tell and all_img with CG_num_layers 3, "V+E+C" inputs and
+     a "V+E" init state): CaptionService greedy over a timed 32-video chunk
+     after a warm-up chunk (kernel 2 once a decode step, kernel 1 too where
+     the attention is live and never where it is not; captions/s), the f32
+     decode of 4 videos with the kernels and under force_plain() (phase 5's
+     gates), and 1 warm-up and 2 timed XE steps of engine.train.train at
+     B=8 (finite losses, moved parameters, kernels 3 and 4 once a
+     teacher-forced step, none for all_img; ms/step); for show_attend_tell
+     also beam 4 over a timed chunk (kernel 1 once a beam step) and one
+     timed SCST step at B=8 after a warm-up step (phase 23's launch
+     counts).  The phase's wall seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -585,7 +600,7 @@ def phase_head(card):
     return record
 
 
-def head_timing(card, args, outs, plan):
+def head_timing(card, args, outs, plan, tag="6"):
     """Kernel 2 on bf16 core outputs (the cast is not timed) in turns with
     the bare bf16 product over the same out and w, unpadded and with the
     vocab padded to a multiple of 8; its plain version; its host time a
@@ -609,7 +624,7 @@ def head_timing(card, args, outs, plan):
               "host_us_per_call": host_us(lambda: greedy_head(a, w, b)),
               "tiles_per_split": plan[0], "splits": plan[1],
               **bound(nbytes(a, w, b, *outs), bf16=2.0 * R * C * V1)}
-    print(f"[6] head kernel " + ", ".join(f"{k} {x:.4f} / {y:.4f}" for k, (x, y) in turns.items())
+    print(f"[{tag}] head kernel " + ", ".join(f"{k} {x:.4f} / {y:.4f}" for k, (x, y) in turns.items())
           + f" ms in turns (R={R} C={C} V1={V1} bf16, {plan[1]} splits of {plan[0]} tiles; "
           f"kernel {2 * R * C * V1 / record['ms'] / 1e9:.1f} TFLOP/s); plain {plain_ms:.4f} ms; "
           f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}); host "
@@ -2506,6 +2521,296 @@ def cold_sampling():
              "the argmax at another rate than the tempered softmax gives")
 
 
+FAMILY_B, FAMILY_XE_STEPS, FAMILY_SCST_STEPS = 8, 3, 2  # phase 26: videos a step; steps (1 warm-up)
+FAMILY_SHARPEN = 8.0  # phase 5's logit weight scale
+
+
+def family_cfg(model, base):
+    """``base`` with the decoder core swapped.  show_attend_tell as
+    experiments/train_SST.sh builds it (CG_num_layers 3), with "V+E+C"
+    inputs and a "V+E" init state so that its attention and init_linear
+    are live (tests/test_parity_sat.py's feature types), all_img the same;
+    the other cores at their own layer counts."""
+    from echr_tpu_torch.models.decoder import core_num_layers
+
+    cfg = base.replace_in("decoder", caption_model=model, CG_num_layers=3)
+    if model in ("show_attend_tell", "all_img"):
+        cfg = cfg.replace_in("context", CG_input_feats_type="V+E+C", CG_init_feats_type="V+E")
+    else:
+        cfg = cfg.replace_in("decoder", CG_num_layers=core_num_layers(cfg))
+    return cfg.validate()
+
+
+def _zero(fns):
+    for fn in fns:
+        fn.launches = 0
+
+
+def family_greedy(card, model):
+    """CaptionService greedy at the flagship width: one warm-up chunk of 32
+    videos, then one timed chunk (4096 decode rows).  Kernel 2 launches
+    once a decode step, kernel 1 too where the core's attention is live
+    and never where it is not.  Returns (launches, tap, cg, vocab)."""
+    from echr_tpu_torch.models.decoder import attention_live, decoder_sample_batched
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.serve import CaptionService
+
+    cfg = family_cfg(model, flagship_cfg())
+    gen = torch.Generator().manual_seed(0)
+    tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
+    vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
+    svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=32, topN=TOP_N)
+    reqs = requests(64, seed=26)
+    svc.caption(reqs[:32])  # warm-up
+    torch.cuda.synchronize()
+    _zero((attention_scores_masked, greedy_head))
+    decoder_sample_batched.steps = 0
+    t0 = time.time()
+    res = svc.caption(reqs[32:])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {"attention_scores_masked": attention_scores_masked.launches,
+                "greedy_head": greedy_head.launches}
+    steps = decoder_sample_batched.steps
+    check_captions(res, reqs[32:], ties=True)
+    live = attention_live(cfg)
+    want = {"attention_scores_masked": steps if live else 0, "greedy_head": steps}
+    if steps <= 0 or launches != want:
+        fail(f"{model}: greedy launches {launches}, want {want} ({steps} decode steps, "
+             f"attention {'live' if live else 'unused'})")
+    n_caps = sum(len(c) for c in res.values())
+    print(f"[26] {model}: greedy {n_caps / dt:.1f} captions/s (32 videos x {TOP_N} proposals in "
+          f"{dt:.3f} s, logit width {cg.decoder.logit.weight.shape[1]}, {steps} decode steps, "
+          f"launches {launches}) [{card}]")
+    return launches, tap, cg, vocab
+
+
+def family_beam(card, model, tap, cg, vocab):
+    """CaptionService(beam_size=4), one warm-up chunk of 32 videos, then one
+    timed chunk (16384 beam rows); kernel 1 launches once a beam step.
+    Returns kernel 1's launches."""
+    from echr_tpu_torch.models.beam import beam_search_batched
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.serve import CaptionService
+
+    cfg = family_cfg(model, flagship_cfg())
+    svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=32, topN=TOP_N,
+                         beam_size=BEAM)
+    reqs = requests(64, seed=27)
+    svc.caption(reqs[:32])  # warm-up
+    torch.cuda.synchronize()
+    _zero((attention_scores_masked,))
+    beam_search_batched.steps = 0
+    t0 = time.time()
+    res = svc.caption(reqs[32:])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches, steps = attention_scores_masked.launches, beam_search_batched.steps
+    check_captions(res, reqs[32:], ties=True)
+    if not (steps > 0 and launches == steps):
+        fail(f"{model}: kernel 1 launched {launches} times in {steps} beam steps")
+    n_caps = sum(len(c) for c in res.values())
+    print(f"[26] {model}: beam {BEAM} {n_caps / dt:.1f} captions/s, {1000 * dt:.1f} ms for one "
+          f"chunk of 32 videos x {TOP_N} proposals x {BEAM} beams ({steps} beam steps, kernel 1 "
+          f"launches {launches}) [{card}]")
+    return launches
+
+
+TIE_GAP = 1e-4  # a top-2 logit gap within f32 reassociation noise (phase 25's near-tie)
+
+
+def family_parity(model, tap, cg, vocab):
+    """Phase 5 for the core: f32, TF32 off, phase 5's sharpened logit
+    weights, 4 videos with the kernels and under force_plain().  Tokens
+    equal on every proposal, except one whose first differing token is a
+    near-tie of the plain decode (top-2 logit gap below TIE_GAP, where f32
+    sums in another order may pick either); logps within TOL on the
+    proposals whose tokens are equal.  The window sort is off, so that the
+    head's rows are the proposals in their own order."""
+    from echr_tpu_torch.engine.steps import decode_step_batched
+    from echr_tpu_torch.models import decoder
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.serve import CaptionService
+
+    cfg = family_cfg(model, flagship_cfg(compute_dtype="float32", sort_decode_props=False))
+    with torch.no_grad():
+        cg.decoder.logit.weight.mul_(FAMILY_SHARPEN)
+    svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=4, topN=TOP_N)
+    _, _, args = svc.prepare_chunk(requests(4, seed=3), T_BUCKET)
+    seq_k, lp_k, _ = decode_step_batched(*args)
+    gaps = []
+
+    def gap(out, w, b):
+        top2 = torch.topk(out @ w[:, :out.shape[1]].t() + b, 2, dim=1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+    with force_plain(), wrapped(decoder, "greedy_head", gap):
+        seq_p, lp_p, _ = decode_step_batched(*args)
+    B, N, _ = seq_k.shape
+    gaps = torch.stack(gaps, dim=1).reshape(B, N, -1)
+    diff = seq_k != seq_p
+    off = diff.any(dim=-1)
+    first = diff.int().argmax(dim=-1).clamp(max=gaps.shape[-1] - 1)
+    first_gap = torch.gather(gaps, 2, first[..., None])[..., 0]
+    clear = off & (first_gap >= TIE_GAP)
+    err = float((lp_k - lp_p).abs()[~off].max())
+    print(f"[26] {model}: f32 greedy, kernels vs plain: {int(diff.sum())} token mismatches of "
+          f"{seq_k.numel()} on {int(off.sum())} of {B * N} proposals (top-2 gaps at their first "
+          f"difference {[round(float(g), 7) for g in first_gap[off]]}), max|d| logps {err:.3e} "
+          f"on the rest; {int((seq_k > 0).sum())} non-EOS tokens")
+    if bool(clear.any()) or not err <= TOL:
+        fail(f"{model}: the f32 decode with the kernels disagrees with its plain version")
+
+
+# cores whose steps read no event context: the TSRM's gradient is zero
+NO_EVENT = ("three_stream_2stream_LDA", "three_stream_2stream_CC")
+
+
+def _moved(model, out, what):
+    """Every parameter of train()'s state differs from train()'s seeded
+    init, the score bias aside (phase 23), and the TSRM for NO_EVENT."""
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+
+    gen = torch.Generator().manual_seed(out["config"].train.seed)  # train()'s init, again
+    tap0, cg0 = init_tap(gen, out["config"]), init_captioner(gen, out["config"])
+    for name, m0, m in (("tap", tap0, out["state"].tap), ("cg", cg0, out["state"].cg)):
+        for (pn, p0), p in zip(m0.named_parameters(), m.parameters()):
+            unused = model in NO_EVENT and pn.startswith("fusion.")
+            if (pn != "decoder.core.attention.alpha_net.bias" and not unused
+                    and torch.equal(p0, p.detach().cpu())):
+                fail(f"{model} {what}: {name}.{pn} did not move in {out['iteration']} steps")
+
+
+def family_train(card, model, folder):
+    """engine.train.train, XE: 1 warm-up and 2 timed steps of 8 videos
+    (train_cfg(): cotrain / tap_cg, bf16, dropout on).  Kernels 3 and 4
+    launch once a teacher-forced step where the attention is live, never
+    for all_img."""
+    from echr_tpu_torch.engine.train import train
+    from echr_tpu_torch.models.decoder import attention_live
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd, attention_scores_dense
+
+    cfg = family_cfg(model, train_cfg()).replace_in(
+        "train", batch_size=FAMILY_B).replace_in("save", checkpoint_path=folder).replace(
+        run_id=model)
+    timing = {}
+    _zero((attention_scores_dense, attention_scores_bwd))
+    out = train(cfg, max_iterations=FAMILY_XE_STEPS, device="cuda", timing_out=timing)
+    torch.cuda.synchronize()
+    launches = {"attention_scores_dense": attention_scores_dense.launches,
+                "attention_scores_bwd": attention_scores_bwd.launches}
+    if out["iteration"] != FAMILY_XE_STEPS:
+        fail(f"{model}: train stopped at iteration {out['iteration']}")
+    if not all(np.isfinite(v) for v in out["losses"].values()):
+        fail(f"{model}: non-finite losses {out['losses']}")
+    n = (SEQ_LEN - 1) * FAMILY_XE_STEPS if attention_live(cfg) else 0
+    if launches != {"attention_scores_dense": n, "attention_scores_bwd": n}:
+        fail(f"{model}: XE launches {launches}, want {n} each")
+    _moved(model, out, "XE")
+    t = dict(timing["iters"])
+    ms = 1000 * (t[FAMILY_XE_STEPS] - t[1]) / (FAMILY_XE_STEPS - 1)
+    print(f"[26] {model}: XE {ms:.1f} ms/step over steps 2-{FAMILY_XE_STEPS} of {FAMILY_B} videos "
+          f"(tap_cg, bf16, dropout on), launches {launches}, last loss "
+          f"{out['losses']['loss']:.4f} [{card}]")
+    return launches
+
+
+def family_scst(card, model, folder):
+    """engine.train.train with self_critical_after 0: 1 warm-up and 1 timed
+    SCST step of 8 videos; launches as phase 23 counts them."""
+    from echr_tpu_torch.engine import rl
+    from echr_tpu_torch.engine.train import train
+    from echr_tpu_torch.ops.kernel_attention import (attention_scores_bwd,
+                                                     attention_scores_dense,
+                                                     attention_scores_masked)
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    kernels = (attention_scores_masked, greedy_head, attention_scores_dense,
+               attention_scores_bwd)
+    cfg = family_cfg(model, scst_cfg()).replace_in(
+        "train", batch_size=FAMILY_B).replace_in("save", checkpoint_path=folder).replace(
+        run_id=model + "_scst")
+    timing = {}
+    _zero(kernels)
+    try:
+        out = train(cfg, max_iterations=FAMILY_SCST_STEPS, device="cuda", timing_out=timing)
+        torch.cuda.synchronize()
+    finally:
+        rl.close_default_reward_pool()  # joins the reward workers
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    sc = timing["scst"]
+    if out["iteration"] != FAMILY_SCST_STEPS or len(sc) != FAMILY_SCST_STEPS:
+        fail(f"{model}: SCST stopped at iteration {out['iteration']} with {len(sc)} SCST steps")
+    if not all(np.isfinite(v) for v in out["losses"].values()) or "avg_reward" not in out[
+            "losses"]:
+        fail(f"{model}: SCST losses {out['losses']}")
+    sampled = sum(s["sample_steps"] for s in sc)
+    greedy = sum(s["greedy_steps"] for s in sc)
+    want = {"attention_scores_masked": greedy, "greedy_head": greedy,
+            "attention_scores_dense": sampled + SEQ_LEN * FAMILY_SCST_STEPS,
+            "attention_scores_bwd": SEQ_LEN * FAMILY_SCST_STEPS}
+    if launches != want:
+        fail(f"{model}: SCST launches {launches}, want {want}")
+    _moved(model, out, "SCST")
+    t = dict(timing["iters"])
+    ms = 1000 * (t[FAMILY_SCST_STEPS] - t[1]) / (FAMILY_SCST_STEPS - 1)
+    part = {k: 1000 * sc[-1][k] for k in ("rollout", "reward", "update")}
+    print(f"[26] {model}: SCST {ms:.1f} ms for step {FAMILY_SCST_STEPS} of {FAMILY_B} videos "
+          f"(rollouts {part['rollout']:.1f}, reward {part['reward']:.1f}, update "
+          f"{part['update']:.1f} ms), launches {launches}, avg_reward "
+          f"{out['losses']['avg_reward']:.5f} [{card}]")
+    return launches
+
+
+def phase_family(card):
+    """Phase 26: every other core of the decoder family through serving,
+    XE training and (show_attend_tell) beam and SCST; kernel 2 at the
+    family's logit widths.  Returns (kernels 1-4's launches on the
+    family's main paths, kernel 2's records by width)."""
+    import shutil
+
+    from echr_tpu_torch.models.decoder import CORE_REGISTRY
+    from echr_tpu_torch.ops.kernel_head import split_plan
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.RandomState(26)
+    widths = {}
+    for C in (512, 1024):  # show_attend_tell, all_img, h3, h3_dense_add; the two-stream cores
+        args = head_inputs(rng, 4096, C, VOCAB + 1, torch.bfloat16, dev)
+        plan = split_plan(4096, VOCAB + 1, sms, torch.bfloat16)
+        err, outs = head_check("26", f"C={C} ({plan[1]} splits)", args)
+        widths[f"C{C}"] = {**head_timing(card, args, outs, plan, tag="26"), "max_abs_err": err}
+        del args, outs
+    launches = {"attention_scores_masked": 0, "greedy_head": 0, "attention_scores_dense": 0,
+                "attention_scores_bwd": 0}
+    cores = 0
+    folder = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    try:
+        for model in sorted(set(CORE_REGISTRY) - {"three_stream"}):
+            served, tap, cg, vocab = family_greedy(card, model)
+            if model == "show_attend_tell":
+                served["attention_scores_masked"] += family_beam(card, model, tap, cg, vocab)
+            family_parity(model, tap, cg, vocab)
+            del tap, cg
+            counts = [served, family_train(card, model, folder)]
+            if model == "show_attend_tell":
+                counts.append(family_scst(card, model, folder))
+            for c in counts:
+                for k, v in c.items():
+                    launches[k] += v
+            cores += 1
+            shutil.rmtree(folder, ignore_errors=True)  # the run folders' checkpoints
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"[26] decoder family: {cores} cores, launches on their main paths {launches}; "
+          f"phase wall {time.time() - t_phase:.1f} s [{card}]")
+    return launches, widths
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -2559,6 +2864,7 @@ def main():
     scst_launches = phase_scst_train(card)
     phase_scst_parity()
     sample_k1 = phase_sample_eval(card)
+    family, head["by_width"] = phase_family(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -2579,12 +2885,14 @@ def main():
                 **{name: n["attention_scores_masked"] for name, n in evals.items()},
                 "checkpointed_train": ckpt_launches["attention_scores_masked"],
                 "scst_train": scst_launches["attention_scores_masked"],
-                "eval_sampled": sample_k1}
+                "eval_sampled": sample_k1,
+                "decoder_family": family["attention_scores_masked"]}
     k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
                 "checkpointed_train": ckpt_launches["greedy_head"],
-                "scst_train": scst_launches["greedy_head"]}
+                "scst_train": scst_launches["greedy_head"],
+                "decoder_family": family["greedy_head"]}
     k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k],
-                           "scst_train": scst_launches[k]}
+                           "scst_train": scst_launches[k], "decoder_family": family[k]}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",

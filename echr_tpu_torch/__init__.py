@@ -12,7 +12,8 @@ port is held against (tests/test_torch_*.py).  Module names mirror
                 plain PyTorch versions
   experiments/ — the Pallas probes' counterparts, which drive kernels 7-10,
                 and probe_tanh (the tanh of kernels 1, 3 and 4 against tanhf)
-  models/     — SST, TSRM, contexts, captioner, three_stream decoder, init
+  models/     — SST, TSRM, contexts, captioner, the decoder family (every
+                core of echr_tpu's CORE_REGISTRY), beam search, init
   engine/     — the batched encode / select / decode / beam steps, the
                 training and SCST steps, the XE and SCST training loop
                 (train), SCST's host rewards (rl), checkpoints, the

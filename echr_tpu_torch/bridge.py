@@ -19,10 +19,12 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.captioner import Captioner
 from echr_tpu_torch.models.sst import SST
+from echr_tpu_torch.ops.attention import AdditiveAttention
 from echr_tpu_torch.ops.core import Dense
 from echr_tpu_torch.ops.recurrent import LSTMCell
 
@@ -66,21 +68,31 @@ def tap_spec(sst: SST) -> Dict[str, Any]:
     return s
 
 
+def _core_spec(core: nn.Module) -> Dict[str, Any]:
+    """The core's tree from its own children: a cell as layer0, layer1,
+    ..., a stack of cells as the list "layers", the attention's three
+    Linears under "attention"."""
+    s: Dict[str, Any] = {}
+    for name, m in core.named_children():
+        if isinstance(m, LSTMCell):
+            s[name] = _cell(m)
+        elif isinstance(m, nn.ModuleList):
+            s[name] = [_cell(c) for c in m]
+        elif isinstance(m, AdditiveAttention):
+            s[name] = {k: _dense(getattr(m, k)) for k in ("ctx2att", "h2att", "alpha_net")}
+        else:
+            raise TypeError(f"core child {name}: {type(m).__name__} has no JAX layout")
+    return s
+
+
 def captioner_spec(cg: Captioner) -> Dict[str, Any]:
     """The JAX tree of init_captioner, with (port parameter, transform)
     leaves."""
     dec = cg.decoder
-    core = dec.core
     d = {
         "embed": (dec.embed, "id"),
         "logit": _dense(dec.logit),
-        "core": {
-            "layer0": _cell(core.layer0),
-            "layer1": _cell(core.layer1),
-            "layer2": _cell(core.layer2),
-            "attention": {k: _dense(getattr(core.attention, k))
-                          for k in ("ctx2att", "h2att", "alpha_net")},
-        },
+        "core": _core_spec(dec.core),
     }
     if dec.init_linear is not None:
         d["init_linear"] = _dense(dec.init_linear)

@@ -25,9 +25,9 @@ Dropout and scheduled sampling draw from a generator seeded with
 ``train.seed + 1``, and SCST's token draws from one seeded with
 ``train.seed + 2``, also on a resumed run: echr_tpu does not save its PRNG
 either (it splits its rng anew from the seed), so a resumed run is exact
-only with dropout and scheduled sampling off (the three_stream core's
-dropout of 0.5 has no setting: only steps without a generator are free of
-it).
+only with dropout and scheduled sampling off (the cores' fixed dropout of
+0.5 on their streams has no setting: only steps without a generator are
+free of it).
 
 Not ported, raising NotImplementedError: transfer compression (ROADMAP.md
 A.8).  The pipelined producer is not ported either; this loop is the

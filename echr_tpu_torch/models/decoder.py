@@ -1,28 +1,53 @@
-"""Caption decoder, three_stream core: teacher forcing and batched greedy
-decode (echr_tpu/models/decoder.py).
+"""Caption decoder: the family of recurrent cores of echr_tpu's
+CORE_REGISTRY, teacher forcing and batched greedy decode
+(echr_tpu/models/decoder.py).
 
-The ECHR decoder: an embedding and a logit head around three parallel
-LSTMCells over the event context, the attended clip frames and the video
-context; the core output is concat(h0, h1, h2).  Every tensor carries a
-leading video axis B and a proposal axis N.
+An embedding and a logit head around one of twelve cores.  Each core is
+an nn.Module that holds its LSTMCells and attention, with a plain step
+function on tensors (``CORE_REGISTRY``: module class, step function,
+number of layers in the state).  The cores and their outputs:
 
-Decode carries the core output [B*N, 3H] between steps and selects tokens
-with the streaming greedy head (ops/kernel_head): the kernel for CUDA
-tensors, its plain version on the CPU.  Teacher forcing (training) takes
-the fused input projections (``fuse_inputs=True``), the training
+  three_stream      — the ECHR decoder: three parallel LSTMCells over the
+                      event context, the attended clip frames and the
+                      video context; output concat(h0, h1, h2) [3H].
+  show_attend_tell  — a stack of CG_num_layers bias-free LSTMCells over
+                      [word | CG_input_feats_type contexts]; the attention
+                      is queried by the top layer's hidden before the
+                      update and enters only through "C"; output [H].
+  all_img           — the same stack without attention: the clip enters
+                      as its padded-window mean; output [H].
+  h3, h3_dense, h3_dense_add — three stacked LSTMCells, video -> event ->
+                      attended clip, the attention queried by the updated
+                      h1; output [H], [3H] and [H].
+  two_stream, three_stream_2stream, two_stream_jump, two_stream_3lstm,
+  three_stream_2stream_LDA, three_stream_2stream_CC — two streams (event
+                      or video, and the attended clip) and variants of
+                      them; output [2H].
+
+Every tensor carries a leading video axis B and a proposal axis N; the
+state is [L, B, N, H] for a core of L layers.  Decode carries the core
+output [B*N, C] between steps and selects tokens with the streaming
+greedy head (ops/kernel_head): the kernel for CUDA tensors, its plain
+version on the CPU.  Teacher forcing (training) takes the training
 attention route (``remat``: kernels 3 and 4, or the checkpointed plain
-scores) and train-time dropout drawn from a torch.Generator: 0.5 on each
-stream and CG_drop_prob on the output.  torch cannot replay JAX's random
-streams, so ``gen=None`` (no dropout, no scheduled sampling) is the
-parity mode.
+scores), the fused three_stream input projections (``fuse_inputs=True``)
+and train-time dropout drawn from a torch.Generator, at each core's
+rates and on the output at CG_drop_prob.  torch cannot replay JAX's
+random streams, so ``gen=None`` (no dropout, no scheduled sampling) is
+the parity mode.
+
+echr_tpu computes show_attend_tell's attention on every step and XLA drops
+it when "C" is not in CG_input_feats_type, its result unused; the port
+runs eagerly, so it computes the attention (and its ctx2att projection)
+only where the result is used (``attention_live``).  The outputs are the
+same.
 
 Multinomial decode (``decoder_sample_batched(greedy=False)``: SCST's
 rollout and eval's sample_max=0) draws its tokens from a second generator,
 so that the dropout generator gives the same masks however many draws a
 decode makes; with ``forced`` it replays a rollout's tokens under
 autograd with those masks (the self-critical update).  Beam search is
-models/beam.py.  The other eleven cores of echr_tpu's CORE_REGISTRY are
-not ported yet (ROADMAP.md).
+models/beam.py.
 """
 from __future__ import annotations
 
@@ -44,13 +69,10 @@ from echr_tpu_torch.ops.kernel_head import greedy_head, prepare_head
 from echr_tpu_torch.ops.masked import window_mean_padded
 from echr_tpu_torch.ops.recurrent import LSTMCell, lstm_cell, lstm_cell_pre, lstm_input_proj
 
-_NOT_PORTED = ("caption_model {!r} is not ported to echr_tpu_torch yet; only "
-               "three_stream is (ROADMAP.md, queue A item 11)")
-
 
 class DecoderState(NamedTuple):
-    h: torch.Tensor  # [3, B, N, H]
-    c: torch.Tensor  # [3, B, N, H]
+    h: torch.Tensor  # [L, B, N, H]
+    c: torch.Tensor  # [L, B, N, H]
 
 
 class Precomputed(NamedTuple):
@@ -58,6 +80,7 @@ class Precomputed(NamedTuple):
 
     att: Optional[torch.Tensor]  # ctx2att(clip_feats) [B, T, Hatt]
     ts: Optional[Dict[str, torch.Tensor]] = None  # fused three_stream inputs
+    allimg_pooled: Optional[torch.Tensor] = None  # all_img's clip input [B, N, Dc]
 
 
 def _use_kernel(cfg: Config, train: bool) -> bool:
@@ -66,13 +89,101 @@ def _use_kernel(cfg: Config, train: bool) -> bool:
     return bool(cfg.runtime.use_pallas_train if train else cfg.runtime.use_pallas)
 
 
-def _init_feats_dim(cfg: Config) -> int:
-    t = cfg.context.CG_init_feats_type
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def _logit_input_size(cfg: Config) -> int:
+    """Width of the core output that feeds the logit head; the substring
+    tests run in echr_tpu's order."""
+    m = cfg.decoder.caption_model
+    H = cfg.decoder.CG_rnn_size
+    if m == "h3_dense_add":  # one residual hidden
+        return H
+    if "two_stream" in m or "three_stream_2stream" in m:
+        return 2 * H
+    if "three_stream" in m:
+        return 3 * H
+    if "h3_dense" in m or "H3_dense" in m:
+        return 3 * H
+    return H
+
+
+def _feats_dim(cfg: Config, t: str) -> int:
     return (("V" in t) * cfg.video_context_dim + ("E" in t) * cfg.event_context_dim
             + ("C" in t) * cfg.clip_context_dim)
 
 
-class ThreeStreamCore(nn.Module):
+def _input_feats_dim(cfg: Config) -> int:
+    return _feats_dim(cfg, cfg.context.CG_input_feats_type)
+
+
+def _init_feats_dim(cfg: Config) -> int:
+    return _feats_dim(cfg, cfg.context.CG_init_feats_type)
+
+
+def _video_rows(ctxs: Contexts, N: int) -> torch.Tensor:
+    B, Dv = ctxs.video.shape
+    return ctxs.video[:, None, :].expand(B, N, Dv)
+
+
+def _gather_input_feats(cfg: Config, ctxs: Contexts, att_or_pooled_clip: Optional[torch.Tensor],
+                        N: int) -> Optional[torch.Tensor]:
+    """The concat of the CG_input_feats_type contexts, V, E, C in that
+    order: [B, N, D], or None when it selects none."""
+    t = cfg.context.CG_input_feats_type
+    parts = []
+    if "V" in t:
+        parts.append(_video_rows(ctxs, N))
+    if "E" in t:
+        parts.append(ctxs.event)
+    if "C" in t:
+        parts.append(att_or_pooled_clip)
+    return torch.cat(parts, dim=-1) if parts else None
+
+
+def attention_live(cfg: Config) -> bool:
+    """Whether a decode step uses the core's attention: every core that
+    has one, but show_attend_tell only with "C" in CG_input_feats_type."""
+    m = cfg.decoder.caption_model
+    if m == "all_img":
+        return False
+    return m != "show_attend_tell" or "C" in cfg.context.CG_input_feats_type
+
+
+# ---------------------------------------------------------------------------
+# cores: an nn.Module each, and a step function
+#   step(core, cfg, xt [B, N, E], ctxs, pre, state, dtype, use_kernel, train, gen)
+#     -> (output [B, N, _logit_input_size], state)
+# ---------------------------------------------------------------------------
+
+
+class _Core(nn.Module):
+    def init_uniform(self, gen: torch.Generator):
+        """Each cell U(-1/sqrt(H), +) and the attention's Linears torch's
+        default, in the order the core holds them (lstm_cell_init,
+        additive_attention_init)."""
+        for m in self.children():
+            for cell in (m if isinstance(m, nn.ModuleList) else (m,)):
+                cell.init_uniform(gen)
+        return self
+
+
+def _attention(cfg: Config) -> AdditiveAttention:
+    d = cfg.decoder
+    return AdditiveAttention(cfg.clip_context_dim, d.CG_rnn_size, d.CG_att_hid_size)
+
+
+def _attend(core: nn.Module, h: torch.Tensor, ctxs: Contexts, pre: Precomputed,
+            dtype: torch.dtype, use_kernel: bool, train: bool) -> torch.Tensor:
+    """The core's attention over the clip frames, queried by h [B, N, H]."""
+    att, _ = additive_attention_step(core.attention, h, ctxs.clip_feats, pre.att,
+                                     ctxs.clip_mask, dtype, use_kernel=use_kernel, remat=train)
+    return att
+
+
+class ThreeStreamCore(_Core):
     """Three LSTMCells over [word | event], [word | attended clip] and
     [word | video]; the reference's unused fusion_layer is omitted."""
 
@@ -83,89 +194,7 @@ class ThreeStreamCore(nn.Module):
         self.layer0 = LSTMCell(cfg.event_context_dim + E, H)
         self.layer1 = LSTMCell(cfg.clip_context_dim + E, H)
         self.layer2 = LSTMCell(cfg.video_context_dim + E, H)
-        self.attention = AdditiveAttention(cfg.clip_context_dim, H, d.CG_att_hid_size)
-
-    def init_uniform(self, gen: torch.Generator):
-        for m in (self.layer0, self.layer1, self.layer2, self.attention):
-            m.init_uniform(gen)
-        return self
-
-
-class Decoder(nn.Module):
-    """embed [V+1, E], logit Dense(3H, V+1), the core, and init_linear when
-    the config initialises the state from contexts."""
-
-    def __init__(self, cfg: Config):
-        super().__init__()
-        d = cfg.decoder
-        if d.caption_model != "three_stream":
-            raise NotImplementedError(_NOT_PORTED.format(d.caption_model))
-        V, E = d.CG_vocab_size, d.CG_input_encoding_size
-        self.embed = parameter(V + 1, E)
-        self.logit = Dense(3 * d.CG_rnn_size, V + 1)  # concat(h0, h1, h2)
-        self.core = ThreeStreamCore(cfg)
-        n_init = _init_feats_dim(cfg)
-        self.init_linear = Dense(n_init, 3 * d.CG_rnn_size) if n_init else None
-
-    def init_uniform(self, gen: torch.Generator):
-        """The reference init: embed and logit weight U(-0.1, 0.1), logit
-        bias 0, torch defaults elsewhere (init_decoder)."""
-        uniform_(self.embed, 0.1, gen)
-        uniform_(self.logit.weight, 0.1, gen)
-        with torch.no_grad():
-            self.logit.bias.zero_()
-        self.core.init_uniform(gen)
-        if self.init_linear is not None:
-            self.init_linear.init_uniform(gen)
-        return self
-
-
-def _video_rows(ctxs: Contexts, N: int) -> torch.Tensor:
-    B, Dv = ctxs.video.shape
-    return ctxs.video[:, None, :].expand(B, N, Dv)
-
-
-def ctxs_soi(ctxs: Contexts) -> torch.Tensor:
-    """[B, N, 2] windows recovered from the clip mask."""
-    m = ctxs.clip_mask
-    T = m.shape[-1]
-    idx = torch.arange(T, device=m.device)
-    start = torch.where(m > 0, idx, T).amin(dim=-1)
-    end = torch.where(m > 0, idx + 1, 0).amax(dim=-1)
-    return torch.stack([start, end], dim=-1)
-
-
-def init_state(dec: Decoder, cfg: Config, ctxs: Contexts, N: int,
-               dtype: torch.dtype = torch.float32) -> DecoderState:
-    B = ctxs.prop_mask.shape[0]
-    H = cfg.decoder.CG_rnn_size
-    if dec.init_linear is None:
-        z = torch.zeros(3, B, N, H, device=ctxs.prop_mask.device)
-        return DecoderState(z, z)
-    t = cfg.context.CG_init_feats_type
-    parts = []
-    if "V" in t:
-        parts.append(_video_rows(ctxs, N))
-    if "E" in t:
-        parts.append(ctxs.event)
-    if "C" in t:
-        parts.append(window_mean_padded(ctxs.clip_feats, ctxs_soi(ctxs), ctxs.prop_mask))
-    m = dense(dec.init_linear, torch.cat(parts, dim=-1), dtype).reshape(B, N, 3, H)
-    m = m.permute(2, 0, 1, 3)
-    return DecoderState(m, m)
-
-
-def precompute_attention(dec: Decoder, cfg: Config, ctxs: Contexts,
-                         dtype: torch.dtype = torch.float32,
-                         fuse_inputs: bool = False) -> Precomputed:
-    """Hoist decode-loop invariants: ctx2att(clip_feats), and with
-    ``fuse_inputs`` (teacher forcing) the fused three_stream input
-    projections; greedy decode keeps them un-fused (fuse_inputs=False)."""
-    att = None
-    if ctxs.clip_feats is not None:
-        att = additive_attention_precompute(dec.core.attention, ctxs.clip_feats, dtype)
-    ts = _precompute_three_stream(dec.core, cfg, ctxs, dtype) if fuse_inputs else None
-    return Precomputed(att, ts)
+        self.attention = _attention(cfg)
 
 
 def _precompute_three_stream(core: ThreeStreamCore, cfg: Config, ctxs: Contexts,
@@ -205,8 +234,7 @@ def _step_three_stream(core: ThreeStreamCore, cfg: Config, xt: torch.Tensor, ctx
         h0, c0 = lstm_cell(core.layer0, torch.cat([xt, ctxs.event], -1), state.h[0],
                            state.c[0], dtype)
     h0 = dropout(h0, 0.5, gen, train)
-    att, _ = additive_attention_step(core.attention, pre_h1, ctxs.clip_feats, pre.att,
-                                     ctxs.clip_mask, dtype, use_kernel=use_kernel, remat=train)
+    att = _attend(core, pre_h1, ctxs, pre, dtype, use_kernel, train)
     if ts is not None:
         att_proj = lstm_input_proj(core.layer1, att, col_start=E, dtype=dtype, with_bias=True)
         h1, c1 = lstm_cell_pre(core.layer1, x1 + att_proj, state.h[1], state.c[1], dtype)
@@ -224,16 +252,376 @@ def _step_three_stream(core: ThreeStreamCore, cfg: Config, xt: torch.Tensor, ctx
     return torch.cat([h0, h1, h2], dim=-1), new_state
 
 
+class AllImgCore(_Core):
+    """CG_num_layers bias-free LSTMCells (the reference's nn.LSTM(...,
+    bias=False)), the first over [word | input feats]."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        E, H = d.CG_input_encoding_size, d.CG_rnn_size
+        in_dim = E + _input_feats_dim(cfg)
+        self.layers = nn.ModuleList(LSTMCell(in_dim if l == 0 else H, H, bias=False)
+                                    for l in range(d.CG_num_layers))
+
+
+class ShowAttendTellCore(AllImgCore):
+    """all_img's stack and the attention."""
+
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        self.attention = _attention(cfg)
+
+
+def _step_stack(layers: nn.ModuleList, cfg: Config, x: torch.Tensor, state: DecoderState,
+                dtype: torch.dtype, train: bool, gen: Optional[torch.Generator]
+                ) -> Tuple[torch.Tensor, DecoderState]:
+    """One step of a stacked LSTM with dropout CG_drop_prob between layers
+    (train only); the state keeps the raw hiddens, the output is the top's."""
+    hs, cs = [], []
+    for l, cell in enumerate(layers):
+        h, c = lstm_cell(cell, x, state.h[l], state.c[l], dtype)
+        hs.append(h)
+        cs.append(c)
+        x = h
+        if l < len(layers) - 1:
+            x = dropout(x, cfg.decoder.CG_drop_prob, gen, train)
+    return hs[-1], DecoderState(torch.stack(hs), torch.stack(cs))
+
+
+def _with_input_feats(cfg: Config, xt: torch.Tensor, ctxs: Contexts,
+                      clip: Optional[torch.Tensor]) -> torch.Tensor:
+    feats = _gather_input_feats(cfg, ctxs, clip, xt.shape[1])
+    return xt if feats is None else torch.cat([xt, feats], dim=-1)
+
+
+def _step_show_attend_tell(core: ShowAttendTellCore, cfg: Config, xt: torch.Tensor,
+                           ctxs: Contexts, pre: Precomputed, state: DecoderState,
+                           dtype: torch.dtype, use_kernel: bool, train: bool = False,
+                           gen: Optional[torch.Generator] = None
+                           ) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference ShowAttendTellCore.forward: the attention queried by
+    the top layer's hidden before the update, then the stack.  Without "C"
+    in CG_input_feats_type the attention's result is unused and is not
+    computed."""
+    att = None
+    if attention_live(cfg):
+        att = _attend(core, state.h[-1], ctxs, pre, dtype, use_kernel, train)
+    return _step_stack(core.layers, cfg, _with_input_feats(cfg, xt, ctxs, att), state, dtype,
+                       train, gen)
+
+
+def _step_all_img(core: AllImgCore, cfg: Config, xt: torch.Tensor, ctxs: Contexts,
+                  pre: Precomputed, state: DecoderState, dtype: torch.dtype,
+                  use_kernel: bool, train: bool = False,
+                  gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference AllImgCore.forward: the clip enters as its
+    padded-window mean (pre.allimg_pooled, hoisted by precompute_attention)."""
+    return _step_stack(core.layers, cfg, _with_input_feats(cfg, xt, ctxs, pre.allimg_pooled),
+                       state, dtype, train, gen)
+
+
+class H3Core(_Core):
+    """Three stacked LSTMCells: [word | video | previous top hidden],
+    [event | h0] and [attended clip | h1]; h3, h3_dense and h3_dense_add."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        E, H = d.CG_input_encoding_size, d.CG_rnn_size
+        self.layer0 = LSTMCell(cfg.video_context_dim + H + E, H)
+        self.layer1 = LSTMCell(cfg.event_context_dim + H, H)
+        self.layer2 = LSTMCell(cfg.clip_context_dim + H, H)
+        self.attention = _attention(cfg)
+
+
+def _make_h3_step(variant: str):
+    def step(core: H3Core, cfg: Config, xt: torch.Tensor, ctxs: Contexts, pre: Precomputed,
+             state: DecoderState, dtype: torch.dtype, use_kernel: bool, train: bool = False,
+             gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
+        """The reference H3_Core / H3_dense_Core / H3_dense_add_Core: the
+        attention queried by the updated, dropped-out h1; the concat order,
+        the residual adds and which hiddens (raw or dropped) the state keeps
+        are the variant's."""
+        N = xt.shape[1]
+        x0 = torch.cat([xt, _video_rows(ctxs, N), state.h[-1]], -1)
+        h0_raw, c0 = lstm_cell(core.layer0, x0, state.h[0], state.c[0], dtype)
+        h0 = dropout(h0_raw, 0.5, gen, train)
+        h1_raw, c1 = lstm_cell(core.layer1, torch.cat([ctxs.event, h0], -1), state.h[1],
+                               state.c[1], dtype)
+        h1 = dropout(h1_raw + h0 if variant == "h3_dense_add" else h1_raw, 0.5, gen, train)
+        att = _attend(core, h1, ctxs, pre, dtype, use_kernel, train)
+        h2_raw, c2 = lstm_cell(core.layer2, torch.cat([att, h1], -1), state.h[2], state.c[2],
+                               dtype)
+        c = torch.stack([c0, c1, c2])
+        if variant == "h3":
+            return h2_raw, DecoderState(torch.stack([h0, h1, h2_raw]), c)
+        if variant == "h3_dense":
+            return (torch.cat([h0_raw, h1_raw, h2_raw], -1),
+                    DecoderState(torch.stack([h0, h1, h2_raw]), c))
+        # h3_dense_add: the raw hiddens in the state, a residual output
+        return h2_raw + h1, DecoderState(torch.stack([h0_raw, h1_raw, h2_raw]), c)
+
+    return step
+
+
+class TwoStreamCore(_Core):
+    """[word | event] and [word | attended clip]: two_stream and
+    three_stream_2stream."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        E, H = d.CG_input_encoding_size, d.CG_rnn_size
+        self.layer0 = LSTMCell(cfg.event_context_dim + E, H)
+        self.layer1 = LSTMCell(cfg.clip_context_dim + E, H)
+        self.attention = _attention(cfg)
+
+
+def _two_streams(core: nn.Module, x0: torch.Tensor, x1: torch.Tensor, state: DecoderState,
+                 dtype: torch.dtype, train: bool, gen: Optional[torch.Generator]
+                 ) -> Tuple[torch.Tensor, DecoderState]:
+    """Two parallel LSTMCells with dropout 0.5 each; output [h0 | h1]."""
+    h0, c0 = lstm_cell(core.layer0, x0, state.h[0], state.c[0], dtype)
+    h0 = dropout(h0, 0.5, gen, train)
+    h1, c1 = lstm_cell(core.layer1, x1, state.h[1], state.c[1], dtype)
+    h1 = dropout(h1, 0.5, gen, train)
+    return torch.cat([h0, h1], -1), DecoderState(torch.stack([h0, h1]), torch.stack([c0, c1]))
+
+
+def _step_two_stream(core: TwoStreamCore, cfg: Config, xt: torch.Tensor, ctxs: Contexts,
+                     pre: Precomputed, state: DecoderState, dtype: torch.dtype,
+                     use_kernel: bool, train: bool = False,
+                     gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference TwoStream_Core.forward: the event stream and the clip
+    stream, whose attention is queried by its previous hidden."""
+    att = _attend(core, state.h[1], ctxs, pre, dtype, use_kernel, train)
+    return _two_streams(core, torch.cat([xt, ctxs.event], -1), torch.cat([xt, att], -1), state,
+                        dtype, train, gen)
+
+
+class TwoStreamJumpCore(_Core):
+    """two_stream whose streams also take the other's previous hidden."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        E, H = d.CG_input_encoding_size, d.CG_rnn_size
+        self.layer0 = LSTMCell(cfg.event_context_dim + E + H, H)
+        self.layer1 = LSTMCell(cfg.clip_context_dim + E + H, H)
+        self.attention = _attention(cfg)
+
+
+def _step_two_stream_jump(core: TwoStreamJumpCore, cfg: Config, xt: torch.Tensor,
+                          ctxs: Contexts, pre: Precomputed, state: DecoderState,
+                          dtype: torch.dtype, use_kernel: bool, train: bool = False,
+                          gen: Optional[torch.Generator] = None
+                          ) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference TwoStream_jump_Core.forward."""
+    pre_h0, pre_h1 = state.h[0], state.h[1]
+    att = _attend(core, pre_h1, ctxs, pre, dtype, use_kernel, train)
+    return _two_streams(core, torch.cat([xt, ctxs.event, pre_h1], -1),
+                        torch.cat([xt, att, pre_h0], -1), state, dtype, train, gen)
+
+
+class TwoStream3LSTMCore(_Core):
+    """A word + video LSTMCell (layer2) that feeds an event stream (layer0)
+    and a clip stream (layer1)."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        E, H = d.CG_input_encoding_size, d.CG_rnn_size
+        self.layer0 = LSTMCell(cfg.event_context_dim + H, H)
+        self.layer1 = LSTMCell(cfg.clip_context_dim + H, H)
+        self.layer2 = LSTMCell(cfg.video_context_dim + E, H)
+        self.attention = _attention(cfg)
+
+
+def _step_two_stream_3lstm(core: TwoStream3LSTMCore, cfg: Config, xt: torch.Tensor,
+                           ctxs: Contexts, pre: Precomputed, state: DecoderState,
+                           dtype: torch.dtype, use_kernel: bool, train: bool = False,
+                           gen: Optional[torch.Generator] = None
+                           ) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference TwoStream3LSTM_Core.forward: layer2 runs first; the
+    output is the two streams' hiddens, the state [h0, h1, h2]."""
+    N = xt.shape[1]
+    att = _attend(core, state.h[1], ctxs, pre, dtype, use_kernel, train)
+    h2, c2 = lstm_cell(core.layer2, torch.cat([xt, _video_rows(ctxs, N)], -1), state.h[2],
+                       state.c[2], dtype)
+    h2 = dropout(h2, 0.5, gen, train)
+    out, st = _two_streams(core, torch.cat([h2, ctxs.event], -1), torch.cat([h2, att], -1),
+                           state, dtype, train, gen)
+    return out, DecoderState(torch.cat([st.h, h2[None]]), torch.cat([st.c, c2[None]]))
+
+
+class TS2LDACore(_Core):
+    """three_stream_2stream_LDA: a video stream and the clip stream."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        E, H = d.CG_input_encoding_size, d.CG_rnn_size
+        self.layer0 = LSTMCell(cfg.video_context_dim + E, H)
+        self.layer1 = LSTMCell(cfg.clip_context_dim + E, H)
+        self.attention = _attention(cfg)
+
+
+def _step_ts2_lda(core: TS2LDACore, cfg: Config, xt: torch.Tensor, ctxs: Contexts,
+                  pre: Precomputed, state: DecoderState, dtype: torch.dtype,
+                  use_kernel: bool, train: bool = False,
+                  gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference ThreeStream_Core_2stream_CLDA."""
+    N = xt.shape[1]
+    att = _attend(core, state.h[1], ctxs, pre, dtype, use_kernel, train)
+    return _two_streams(core, torch.cat([xt, _video_rows(ctxs, N)], -1),
+                        torch.cat([xt, att], -1), state, dtype, train, gen)
+
+
+class TS2CCCore(_Core):
+    """three_stream_2stream_CC: two streams over the same attended clip."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        E, H = d.CG_input_encoding_size, d.CG_rnn_size
+        self.layer0 = LSTMCell(cfg.clip_context_dim + E, H)
+        self.layer1 = LSTMCell(cfg.clip_context_dim + E, H)
+        self.attention = _attention(cfg)
+
+
+def _step_ts2_cc(core: TS2CCCore, cfg: Config, xt: torch.Tensor, ctxs: Contexts,
+                 pre: Precomputed, state: DecoderState, dtype: torch.dtype,
+                 use_kernel: bool, train: bool = False,
+                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
+    """The reference ThreeStream_Core_2stream_CC."""
+    att = _attend(core, state.h[1], ctxs, pre, dtype, use_kernel, train)
+    x = torch.cat([xt, att], -1)
+    return _two_streams(core, x, x, state, dtype, train, gen)
+
+
+# name -> (module class, step function, layers in the state)
+CORE_REGISTRY = {
+    "three_stream": (ThreeStreamCore, _step_three_stream, lambda cfg: 3),
+    "show_attend_tell": (ShowAttendTellCore, _step_show_attend_tell,
+                         lambda cfg: cfg.decoder.CG_num_layers),
+    "all_img": (AllImgCore, _step_all_img, lambda cfg: cfg.decoder.CG_num_layers),
+    "h3": (H3Core, _make_h3_step("h3"), lambda cfg: 3),
+    "h3_dense": (H3Core, _make_h3_step("h3_dense"), lambda cfg: 3),
+    "h3_dense_add": (H3Core, _make_h3_step("h3_dense_add"), lambda cfg: 3),
+    "two_stream": (TwoStreamCore, _step_two_stream, lambda cfg: 2),
+    "two_stream_jump": (TwoStreamJumpCore, _step_two_stream_jump, lambda cfg: 2),
+    "two_stream_3lstm": (TwoStream3LSTMCore, _step_two_stream_3lstm, lambda cfg: 3),
+    "three_stream_2stream": (TwoStreamCore, _step_two_stream, lambda cfg: 2),
+    "three_stream_2stream_LDA": (TS2LDACore, _step_ts2_lda, lambda cfg: 2),
+    "three_stream_2stream_CC": (TS2CCCore, _step_ts2_cc, lambda cfg: 2),
+}
+
+
+def core_num_layers(cfg: Config) -> int:
+    return CORE_REGISTRY[cfg.decoder.caption_model][2](cfg)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+
+class Decoder(nn.Module):
+    """embed [V+1, E], logit Dense(C, V+1) for the core's output width C,
+    the core, and init_linear when the config initialises the state from
+    contexts."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d = cfg.decoder
+        if d.caption_model not in CORE_REGISTRY:
+            raise ValueError(f"caption_model {d.caption_model!r} not supported; "
+                             f"available: {sorted(CORE_REGISTRY)}")
+        V, E = d.CG_vocab_size, d.CG_input_encoding_size
+        self.embed = parameter(V + 1, E)
+        self.logit = Dense(_logit_input_size(cfg), V + 1)
+        self.core = CORE_REGISTRY[d.caption_model][0](cfg)
+        n_init = _init_feats_dim(cfg)
+        self.init_linear = (Dense(n_init, core_num_layers(cfg) * d.CG_rnn_size)
+                            if n_init else None)
+
+    def init_uniform(self, gen: torch.Generator):
+        """The reference init: embed and logit weight U(-0.1, 0.1), logit
+        bias 0, torch defaults elsewhere (init_decoder)."""
+        uniform_(self.embed, 0.1, gen)
+        uniform_(self.logit.weight, 0.1, gen)
+        with torch.no_grad():
+            self.logit.bias.zero_()
+        self.core.init_uniform(gen)
+        if self.init_linear is not None:
+            self.init_linear.init_uniform(gen)
+        return self
+
+
+def ctxs_soi(ctxs: Contexts) -> torch.Tensor:
+    """[B, N, 2] windows recovered from the clip mask."""
+    m = ctxs.clip_mask
+    T = m.shape[-1]
+    idx = torch.arange(T, device=m.device)
+    start = torch.where(m > 0, idx, T).amin(dim=-1)
+    end = torch.where(m > 0, idx + 1, 0).amax(dim=-1)
+    return torch.stack([start, end], dim=-1)
+
+
+def init_state(dec: Decoder, cfg: Config, ctxs: Contexts, N: int,
+               dtype: torch.dtype = torch.float32) -> DecoderState:
+    """[L, B, N, H] zeros, or init_linear of the CG_init_feats_type
+    contexts split over the L layers (the reference init_hidden)."""
+    B = ctxs.prop_mask.shape[0]
+    L, H = core_num_layers(cfg), cfg.decoder.CG_rnn_size
+    if dec.init_linear is None:
+        z = torch.zeros(L, B, N, H, device=ctxs.prop_mask.device)
+        return DecoderState(z, z)
+    t = cfg.context.CG_init_feats_type
+    parts = []
+    if "V" in t:
+        parts.append(_video_rows(ctxs, N))
+    if "E" in t:
+        parts.append(ctxs.event)
+    if "C" in t:
+        parts.append(window_mean_padded(ctxs.clip_feats, ctxs_soi(ctxs), ctxs.prop_mask))
+    m = dense(dec.init_linear, torch.cat(parts, dim=-1), dtype).reshape(B, N, L, H)
+    m = m.permute(2, 0, 1, 3)
+    return DecoderState(m, m)
+
+
+def precompute_attention(dec: Decoder, cfg: Config, ctxs: Contexts,
+                         dtype: torch.dtype = torch.float32,
+                         fuse_inputs: bool = False) -> Precomputed:
+    """Hoist decode-loop invariants: ctx2att(clip_feats) where the core's
+    attention is live, all_img's padded-window clip mean with "C" in
+    CG_input_feats_type, and with ``fuse_inputs`` (teacher forcing) the
+    fused three_stream input projections; greedy decode keeps them
+    un-fused (fuse_inputs=False).  A caller that sorts or expands the
+    proposal rows does so first."""
+    att = pooled = ts = None
+    if ctxs.clip_feats is not None and attention_live(cfg):
+        att = additive_attention_precompute(dec.core.attention, ctxs.clip_feats, dtype)
+    if fuse_inputs and isinstance(dec.core, ThreeStreamCore):
+        ts = _precompute_three_stream(dec.core, cfg, ctxs, dtype)
+    if (cfg.decoder.caption_model == "all_img" and ctxs.clip_feats is not None
+            and "C" in cfg.context.CG_input_feats_type):
+        pooled = window_mean_padded(ctxs.clip_feats, ctxs_soi(ctxs), ctxs.prop_mask)
+    return Precomputed(att, ts, pooled)
+
+
 def step_core_out(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
                   pre: Precomputed, state: DecoderState,
                   dtype: torch.dtype = torch.float32, train: bool = False,
                   gen: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, DecoderState]:
     """One decode step without the logit head: token ids [B, N] -> core
-    output [B, N, 3H] (with the output dropout at train time)."""
+    output [B, N, C] (with the output dropout at train time)."""
     xt = dec.embed[it.long()]
-    out, state = _step_three_stream(dec.core, cfg, xt, ctxs, pre, state, dtype,
-                                    _use_kernel(cfg, train), train, gen)
+    step = CORE_REGISTRY[cfg.decoder.caption_model][1]
+    out, state = step(dec.core, cfg, xt, ctxs, pre, state, dtype, _use_kernel(cfg, train), train,
+                      gen)
     return dropout(out, cfg.decoder.CG_drop_prob, gen, train), state
 
 
@@ -285,7 +673,7 @@ def decoder_forward_core_outputs(dec: Decoder, cfg: Config, ctxs: Contexts,
                                  seq: torch.Tensor, dtype: torch.dtype = torch.float32,
                                  train: bool = False, gen: Optional[torch.Generator] = None
                                  ) -> torch.Tensor:
-    """Teacher-forced core outputs [B, N, L, 3H]: the decode loop without
+    """Teacher-forced core outputs [B, N, L, C]: the decode loop without
     the logit head (decoder_forward with ss_prob = 0 before its head)."""
     N = seq.shape[1]
     pre = precompute_attention(dec, cfg, ctxs, dtype, fuse_inputs=True)
@@ -313,7 +701,7 @@ def teacher_forced_nll(dec: Decoder, cfg: Config, ctxs: Contexts, seq: torch.Ten
     language_model_loss(decoder_forward(...), seq[..., 1:], masks[..., 1:])
     without storing the [B, N, L, V+1] logits.  The logit head runs once
     after the loop under torch.utils.checkpoint, so the backward recomputes
-    it and the saved residual is the [B, N, L, 3H] core outputs."""
+    it and the saved residual is the [B, N, L, C] core outputs."""
     outs = decoder_forward_core_outputs(dec, cfg, ctxs, seq, dtype, train, gen)
     steps = outs.shape[2]
     targets = seq[:, :, 1:steps + 1].long()

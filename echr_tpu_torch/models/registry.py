@@ -11,6 +11,7 @@ import torch
 
 from echr_tpu_torch.config import Config
 from echr_tpu_torch.models.captioner import Captioner
+from echr_tpu_torch.models.decoder import CORE_REGISTRY
 from echr_tpu_torch.models.sst import SST
 
 
@@ -30,7 +31,7 @@ def init_tap(gen: torch.Generator, cfg: Config, device="cpu") -> SST:
 
 
 def init_captioner(gen: torch.Generator, cfg: Config, device="cpu") -> Captioner:
-    """Fusion (TSRM) + decoder."""
+    """Fusion (TSRM) + decoder, for any core of decoder.CORE_REGISTRY."""
     if cfg.uses_tsrm and cfg.fusion.fusion_model != "TSRM8":
         raise ValueError(f"fusion model not supported: {cfg.fusion.fusion_model}")
     cg = Captioner(cfg)
@@ -38,3 +39,7 @@ def init_captioner(gen: torch.Generator, cfg: Config, device="cpu") -> Captioner
     if cg.fusion is not None:
         cg.fusion.init_uniform(gen)
     return cg.to(device)
+
+
+def available_caption_models():
+    return sorted(CORE_REGISTRY)
