@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive echr_tpu_torch's batched greedy and beam serving paths, its XE
 training path, its three probes, its batched eval loop, its checkpointed
-training, its self-critical (SCST) training, its multinomial eval and the
-decoder family's other cores once on one NVIDIA GPU, and hold every
-kernel against its plain PyTorch version.
+training, its self-critical (SCST) training, its multinomial eval, the
+decoder family's other cores, and its on-disk data, external proposals,
+reference .pth import and serve CLI once on one NVIDIA GPU, and hold
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -193,7 +194,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      teacher-forced step, none for all_img; ms/step); for show_attend_tell
      also beam 4 over a timed chunk (kernel 1 once a beam step) and one
      timed SCST step at B=8 after a warm-up step (phase 23's launch
-     counts).  The phase's wall seconds.
+     counts).  The phase's wall seconds;
+  27. real data and reference weights: phase 18's 256 videos written to
+     disk by data/export_disk (the reference's layout) and checked by
+     cli/validate_data (exit 0), with a proposals JSON in the ActivityNet
+     results layout (100 a val video: three jittered copies of each GT
+     event, then random windows of 2-52% of the video; scores from a
+     seed).  eval_split_batched(flag_eval_what="SOTA_TEP") from disk at
+     the flagship width (phase 18's seeded init, bf16), 32 videos a
+     group, greedy with val losses, every metric, after a warm-up group:
+     every usable val video captioned on each of its external proposals
+     in the JSON's order, kernel 1's launches equal the decode steps plus
+     the val losses' (29 a group), kernel 2's the decode steps; eval
+     videos/s and captions/s without scoring, eval_score's seconds and
+     stemmer, peak memory.  Kernels 1 and 2 on copies of the warm-up
+     group's first decode step (the external windows: their density and
+     bucket printed) against their plain versions and timed beside their
+     bound.  At f32 with TF32 off, phase 5's weights and the window sort
+     off, the pass from disk against the pass over the in-memory corpus
+     and against force_plain(): sentences equal but where the first
+     differing token is a near-tie (top-2 gap below 1e-4) of the other
+     pass, confidences within 5e-4 a token, val losses within 1e-5
+     relative.  The seeded three_stream weights written as a reference
+     .pth (reference_state_dicts) and read back by
+     compat.import_reference_checkpoint: every parameter bit-equal,
+     greedy captions equal.  Then a format-v2 checkpoint of the imported
+     weights, and python -m echr_tpu_torch.cli.serve over the 64 val
+     .npy files, greedy and beam 4, each in a child process whose exit
+     code is checked and whose kernel launches equal its decode steps
+     (kernel 2 none for beam); its captions/s as the CLI logs it, and
+     cli/score of its JSON against the val annotations.  The phase's
+     wall seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -201,6 +232,9 @@ The line before the last is the kernels' JSON record; the last line is
 import contextlib
 import functools
 import json
+import logging
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1703,16 +1737,21 @@ def phase_probe_overlap(card):
     return records
 
 
-def eval_setup(**runtime):
+def eval_cfg(**runtime):
     """train_cfg()'s data (256 synthetic videos at the flagship width, the
-    64-video val split) for the batched eval: the seeded random init, the
-    dataset and a Loader whose prefetch covers two groups of 32."""
+    64-video val split) for the batched eval, with a prefetch that covers
+    two groups of 32."""
+    cfg = train_cfg(**runtime).replace_in("decoder", CG_vocab_size=VOCAB, CG_seq_length=SEQ_LEN)
+    return cfg.replace_in("data", prefetch=2 * EVAL_B, nthreads=4)
+
+
+def eval_setup(**runtime):
+    """eval_cfg(): the seeded random init, the dataset and a Loader."""
     from echr_tpu_torch.data.dataset import build_dataset
     from echr_tpu_torch.data.loader import Loader
     from echr_tpu_torch.models.registry import init_captioner, init_tap
 
-    cfg = train_cfg(**runtime).replace_in("decoder", CG_vocab_size=VOCAB, CG_seq_length=SEQ_LEN)
-    cfg = cfg.replace_in("data", prefetch=2 * EVAL_B, nthreads=4)
+    cfg = eval_cfg(**runtime)
     ds = build_dataset(cfg)
     gen = torch.Generator().manual_seed(0)
     tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
@@ -2811,6 +2850,521 @@ def phase_family(card):
     return launches, widths
 
 
+SOTA_PER_VIDEO = 100  # external proposals a val video: the AR@100 convention of proposal outputs
+SOTA_SEED = 27
+
+# phase 27's serve CLI child: python -m echr_tpu_torch.cli.serve's run (runpy
+# runs the module as __main__), with kernels 1 and 2's launch counts and the
+# decode steps set to 0 before it and printed as the last line after it
+SERVE_CHILD = """
+import json, runpy, sys
+from echr_tpu_torch.models.beam import beam_search_batched
+from echr_tpu_torch.models.decoder import decoder_sample_batched
+from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+from echr_tpu_torch.ops.kernel_head import greedy_head
+attention_scores_masked.launches = greedy_head.launches = 0
+decoder_sample_batched.steps = beam_search_batched.steps = 0
+sys.argv = ["echr_tpu_torch.cli.serve", *json.loads(sys.argv[1])]
+runpy.run_module("echr_tpu_torch.cli.serve", run_name="__main__", alter_sys=True)
+print(json.dumps({"attention_scores_masked": attention_scores_masked.launches,
+                  "greedy_head": greedy_head.launches,
+                  "greedy_steps": decoder_sample_batched.steps,
+                  "beam_steps": beam_search_batched.steps}))
+"""
+
+
+def write_sota_json(paths, out, seed=SOTA_SEED):
+    """A proposals JSON in the ActivityNet results layout (keys without the
+    'v_' prefix): for each val video of the exported annotations,
+    SOTA_PER_VIDEO proposals, three jittered copies of each GT event and
+    random windows of 2-52% of the video after them, with uniform scores,
+    all drawn from ``seed``.  Returns {vid: [{segment, score}, ...]}."""
+    with open(paths["video_json"]) as f:
+        anno = json.load(f)
+    with open(paths["video_data_for_cg"]) as f:
+        vids = [v["video_id"] for v in json.load(f)["videos"] if v["split"] == "val"]
+    rng = np.random.RandomState(seed)
+    results = {}
+    for vid in vids:
+        d = float(anno[vid]["duration"])
+        segs = []
+        for s, e in anno[vid]["timestamps"]:
+            for _ in range(3):
+                j = (rng.rand(2) - 0.5) * 0.2 * (e - s)
+                a = min(max(0.0, s + j[0]), d - 0.5)
+                segs.append([a, min(d, max(a + 0.5, e + j[1]))])
+        while len(segs) < SOTA_PER_VIDEO:
+            a = rng.rand() * d * 0.9
+            segs.append([a, min(d, a + (0.02 + 0.5 * rng.rand()) * d)])
+        results[vid[2:]] = [{"segment": [float(a), float(b)], "score": float(rng.rand())}
+                            for a, b in segs[:SOTA_PER_VIDEO]]
+    with open(out, "w") as f:
+        json.dump({"version": "VERSION 1.0", "results": results,
+                   "external_data": {"used": True, "details": "jittered GT and random windows"}},
+                  f)
+    return {"v_" + k: v for k, v in results.items()}
+
+
+def validate_corpus(cfg, paths, sota_path):
+    """cli/validate_data over the exported tree with the proposals JSON,
+    every .npy opened; it must exit 0."""
+    import io
+
+    from echr_tpu_torch.cli import validate_data
+
+    argv = [x for k, v in paths.items() for x in (f"--{k}", v)]
+    argv += ["--SOTA_json", sota_path, "--K", str(cfg.tap.K), "--video_dim",
+             str(cfg.tap.video_dim), "--lda_dim", str(cfg.data.lda_dim), "--sample_videos", "0"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = validate_data.main(argv)
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"[27] validate_data: {line}")
+    if code != 0:
+        fail(f"validate_data exited {code} on the exported corpus")
+
+
+def json_sota_synthetic(cfg, sota_path):
+    """The in-memory SyntheticDataset of ``cfg`` with the external proposals
+    of a JSON, read as ActivityNetDataset reads them."""
+    from echr_tpu_torch.data.dataset import BaseDataset, SyntheticDataset
+
+    class JsonSota(SyntheticDataset):
+        get_sota = BaseDataset.get_sota
+
+    ds = JsonSota(cfg)
+    with open(sota_path) as f:
+        ds.sota_proposals = json.load(f)["results"]
+    return ds
+
+
+def sota_loader(root, sota_path, disk=True, **runtime):
+    """(cfg, dataset, Loader, SST, Captioner): phase 18's seeded init over
+    the exported corpus read from disk (or over the in-memory corpus) with
+    the proposals JSON."""
+    from echr_tpu_torch.data.dataset import build_dataset
+    from echr_tpu_torch.data.export_disk import disk_cfg
+    from echr_tpu_torch.data.loader import Loader
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+
+    cfg = eval_cfg(**runtime)
+    if disk:
+        cfg = disk_cfg(cfg, root).replace_in("data", SOTA_json=sota_path)
+        ds = build_dataset(cfg)
+    else:
+        ds = json_sota_synthetic(cfg, sota_path)
+    gen = torch.Generator().manual_seed(0)
+    tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
+    return cfg, ds, Loader(ds, cfg, process_index=0, process_count=1, seed=0), tap, cg
+
+
+def sota_eval(card, root, sota_path, proposals, dev="cuda"):
+    """The SOTA_TEP eval from disk: eval_split_batched(flag_eval_what=
+    "SOTA_TEP") over the 64 val videos, 32 a group, greedy with val
+    losses, every metric, after a warm-up group that keeps copies of
+    kernels 1 and 2's arguments at the first decode step.  Returns
+    (launches, kernel 1's arguments, kernel 2's)."""
+    from echr_tpu_torch.engine import evaluate
+    from echr_tpu_torch.models import decoder
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops import attention
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    cfg, ds, loader, tap, cg = sota_loader(root, sota_path)
+    usable = usable_val_videos(cfg, ds)
+    durations = {v: float(a["duration"]) for v, a in ds.annotations.items()}
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": True, "val_all_metrics": True,
+          "get_eval_loss": True}
+    run = functools.partial(evaluate.eval_split_batched, flag_eval_what="SOTA_TEP",
+                            batch_videos=EVAL_B, device=dev)
+    decoding, kept = [], {}
+    decode = evaluate.decode_step_batched
+
+    def in_decode(*args, **kw):
+        decoding.append(True)
+        try:
+            return decode(*args, **kw)
+        finally:
+            decoding.pop()
+
+    def keep(name):
+        def hook(*args):
+            if decoding and name not in kept:
+                kept[name] = tuple(a.detach().clone() for a in args)
+        return hook
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with patched(evaluate, "decode_step_batched", in_decode), \
+                    wrapped(attention, "attention_scores_masked", keep("k1")), \
+                    wrapped(decoder, "greedy_head", keep("k2")):
+                run(tap, cg, loader, cfg, f"{tmp}/w.json",
+                    dict(kw, num_vids_eval=EVAL_B, language_eval=False))  # warm-up
+            torch.cuda.synchronize()
+            timing, score_s = {}, []
+            _zero((attention_scores_masked, greedy_head))
+            decoder_sample_batched.steps = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            with timed_scoring(score_s):
+                preds, score, losses = run(tap, cg, loader, cfg, f"{tmp}/p.json",
+                                           dict(kw, timing_out=timing))
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        loader.load_state(loader.state())
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("SOTA_TEP eval: the eval left TF32 on")
+    k1, k2, steps = attention_scores_masked.launches, greedy_head.launches, \
+        decoder_sample_batched.steps
+    check_predictions(preds, usable, ds.ix_to_word, durations)
+    for vid, caps in preds.items():  # every proposal of the JSON, in its order
+        if [(c["timestamp"], c["proposal_score"]) for c in caps] != \
+                [(p["segment"], p["score"]) for p in proposals[vid]]:
+            fail(f"SOTA_TEP eval: {vid}'s predictions are not its {SOTA_PER_VIDEO} external "
+                 f"proposals")
+    want_k1 = steps + (SEQ_LEN - 1) * timing["groups"]
+    if not (steps > 0 and k1 == want_k1 and k2 == steps):
+        fail(f"SOTA_TEP eval: kernel 1 launched {k1} times (want {want_k1}), kernel 2 {k2} "
+             f"(want {steps})")
+    if not (np.isfinite(losses).all() and (losses[:3] > 0).all()):
+        fail(f"SOTA_TEP eval: val losses {losses}")
+    metrics = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr",
+               "Recall", "Precision")
+    if not all(np.shape(score.get(m)) == (4,) and np.isfinite(score[m]).all() for m in metrics):
+        fail(f"SOTA_TEP eval: scores {score}")
+    n_caps = sum(len(c) for c in preds.values())
+    run_s = wall - sum(score_s)
+    print(f"[27] SOTA_TEP eval from disk: {len(preds)} videos (of {len(usable)} usable), "
+          f"{n_caps} captions, {timing['groups']} groups of {EVAL_B}, {steps} decode steps, "
+          f"kernel 1 launches {k1}, kernel 2 {k2}; val losses "
+          f"{np.round(losses[:3], 4).tolist()}; all scored")
+    print(f"[27] SOTA_TEP eval: {len(preds) / run_s:.2f} eval videos/s, {n_caps / run_s:.1f} "
+          f"captions/s over {run_s:.3f} s without scoring; eval_score {sum(score_s):.3f} s "
+          f"(stemmer: {stemmer_name()}); peak device memory {peak / 2**30:.2f} GiB, bf16 "
+          f"compute [{card}]")
+    print(f"[27] SOTA_TEP eval timing_out: "
+          f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in timing.items()} }")
+    print(f"[27] SOTA_TEP eval scores: { {m: np.round(score[m], 4).tolist() for m in metrics} }")
+    if "k1" not in kept or "k2" not in kept:
+        fail("SOTA_TEP eval: kernels 1 and 2 were not called in a decode step")
+    return {"attention_scores_masked": k1, "greedy_head": k2}, kept["k1"], kept["k2"]
+
+
+def gap_recorder():
+    """(gaps, decode hook, head hook): gaps[k] lists, for the k-th
+    decode_step_batched call, the [R] top-2 logit gap of each step's
+    greedy_head call."""
+    gaps = []
+
+    def on_decode(*args):
+        gaps.append([])
+
+    def on_head(out, w, b):
+        top2 = torch.topk(out.float() @ w[:, :out.shape[1]].float().t() + b, 2, dim=1).values
+        gaps[-1].append(top2[:, 0] - top2[:, 1])
+    return gaps, on_decode, on_head
+
+
+def eval_with_gaps(tap, cg, loader, cfg, json_path, dev="cuda"):
+    """A greedy SOTA_TEP eval pass (val losses on, no scoring) with the
+    top-2 gap of every decode row: returns (predictions, val losses,
+    gaps), gaps[k] a [steps, EVAL_B, nb] array of group k."""
+    from echr_tpu_torch.engine import evaluate
+    from echr_tpu_torch.models import decoder
+
+    gaps, on_decode, on_head = gap_recorder()
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False, "get_eval_loss": True}
+    with wrapped(evaluate, "decode_step_batched", on_decode), \
+            wrapped(decoder, "greedy_head", on_head):
+        preds, _, losses = evaluate.eval_split_batched(
+            tap, cg, loader, cfg, json_path, kw, flag_eval_what="SOTA_TEP",
+            batch_videos=EVAL_B, device=dev)
+    return preds, losses, [torch.stack(g).cpu().numpy().reshape(len(g), EVAL_B, -1)
+                           for g in gaps]
+
+
+def near_tie_compare(tag, got, want, want_gaps, usable, got_loss, want_loss):
+    """The SOTA_TEP passes ``got`` and ``want`` caption the same videos with
+    the same proposals (timestamps and proposal scores equal); a sentence
+    may differ only where its first differing token is a near-tie of
+    ``want``'s decode (top-2 logit gap below TIE_GAP); the confidences of
+    equal sentences within TOL a token; val losses within 1e-5 relative.
+    The window sort is off, so video u's proposal j is row j of its group's
+    row u % EVAL_B."""
+    if sorted(got) != sorted(want) or not want:
+        fail(f"{tag}: the passes captioned other videos")
+    differ, firsts, worst, n = 0, [], 0.0, 0
+    for u, vid in enumerate(usable):
+        if vid not in want:
+            continue
+        if len(got[vid]) != len(want[vid]):
+            fail(f"{tag}: {vid} has {len(got[vid])} predictions against {len(want[vid])}")
+        g_steps = want_gaps[u // EVAL_B][:, u % EVAL_B]
+        for j, (g, w) in enumerate(zip(got[vid], want[vid])):
+            n += 1
+            if (g["timestamp"], g["proposal_score"]) != (w["timestamp"], w["proposal_score"]):
+                fail(f"{tag}: {vid} proposal {j} differs in timestamp or proposal score")
+            if g["sentence"] == w["sentence"]:
+                err = abs(g["sentence_confidence"] - w["sentence_confidence"])
+                worst = max(worst, err / (len(w["sentence"].split()) + 1))
+                continue
+            tg, tw = g["sentence"].split() + [""], w["sentence"].split() + [""]
+            step = next(i for i, (a, b) in enumerate(zip(tg, tw)) if a != b)
+            differ += 1
+            firsts.append(float(g_steps[min(step, len(g_steps) - 1), j]))
+    rel = float((np.abs(got_loss[:3] - want_loss[:3]) / np.abs(want_loss[:3])).max())
+    print(f"[27] {tag}: {len(want)} videos, {n} captions, {differ} sentences differ (top-2 gaps "
+          f"at their first difference {[round(x, 7) for x in firsts]}); max|d| confidence "
+          f"{worst:.3e} a token; val losses {np.round(want_loss[:3], 6).tolist()} (rel "
+          f"{rel:.2e})")
+    if any(x >= TIE_GAP for x in firsts) or not worst <= TOL or not rel <= 1e-5:
+        fail(f"{tag}: the passes disagree beyond the near-ties")
+
+
+def sota_parity(root, sota_path, dev="cuda"):
+    """f32, TF32 off, phase 5's sharpened logit weights, window sort off:
+    the SOTA_TEP pass from disk against the pass over the in-memory corpus
+    (the features differ by the C3D moments' f32 rounding), and the disk
+    pass with the kernels against force_plain()."""
+    from echr_tpu_torch.ops import force_plain
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 27's parity needs TF32 off")
+    runtime = {"compute_dtype": "float32", "sort_decode_props": False}
+    dcfg, dds, dloader, tap, cg = sota_loader(root, sota_path, **runtime)
+    mcfg, mds, mloader, _, _ = sota_loader(root, sota_path, disk=False, **runtime)
+    with torch.no_grad():
+        cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
+    usable = usable_val_videos(dcfg, dds)
+    if usable != usable_val_videos(mcfg, mds):
+        fail("the disk and in-memory corpora have other usable val videos")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mem = eval_with_gaps(tap, cg, mloader, mcfg, f"{tmp}/m.json", dev)
+            disk = eval_with_gaps(tap, cg, dloader, dcfg, f"{tmp}/d.json", dev)
+            with force_plain():
+                plain = eval_with_gaps(tap, cg, dloader, dcfg, f"{tmp}/p.json", dev)
+    finally:
+        for ld in (dloader, mloader):
+            ld.load_state(ld.state())
+    near_tie_compare("f32 SOTA_TEP, disk vs in-memory", disk[0], mem[0], mem[2], usable,
+                     disk[1], mem[1])
+    near_tie_compare("f32 SOTA_TEP from disk, kernels vs plain", disk[0], plain[0], plain[2],
+                     usable, disk[1], plain[1])
+
+
+def reference_state_dicts(tap, cg):
+    """The reference's 'tap_model' and 'cg_model' state_dicts
+    (train.py:456-461) of the port's SST and three_stream Captioner (TSRM
+    fusion), from the modules' own tensors: a Linear or LSTM cell keeps its
+    [out, in] weight, TSRM's grouped projection [d_o, d] is the reference's
+    grouped 1x1 conv [d_o, d, 1, 1].  Plus a parameter the model does not
+    read (ThreeStream's fusion_layer)."""
+    def lin(sd, prefix, m):
+        sd[f"{prefix}.weight"] = m.weight
+        if m.bias is not None:
+            sd[f"{prefix}.bias"] = m.bias
+
+    def cell(sd, prefix, c, suffix=""):
+        for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            sd[f"{prefix}.{k}{suffix}"] = getattr(c, k)
+    tap_sd = {}
+    for i, c in enumerate(tap.rnn):
+        cell(tap_sd, "rnn", c, f"_l{i}")
+    lin(tap_sd, "scores", tap.scores)
+    dec, f = cg.decoder, cg.fusion
+    cg_sd = {"lm_model.embed.weight": dec.embed,
+             "lm_model.core.fusion_layer.weight": torch.zeros(8, 8)}
+    lin(cg_sd, "lm_model.logit", dec.logit)
+    for name in ("layer0", "layer1", "layer2"):
+        cell(cg_sd, f"lm_model.core.{name}", getattr(dec.core, name))
+    for name in ("ctx2att", "h2att", "alpha_net"):
+        lin(cg_sd, f"lm_model.core.attention.{name}", getattr(dec.core.attention, name))
+    if dec.init_linear is not None:
+        lin(cg_sd, "lm_model.init_linear", dec.init_linear)
+    lin(cg_sd, "fusion_model.event_emb", f.event_emb)
+    lin(cg_sd, "fusion_model.enc_attn.query_1", f.query)
+    lin(cg_sd, "fusion_model.enc_attn.key_1", f.key)
+    cg_sd["fusion_model.enc_attn.linear_out_1.weight"] = f.out.weight[:, :, None, None]
+    cg_sd["fusion_model.enc_attn.linear_out_1.bias"] = f.out.bias
+    if f.pair_pos_fc1 is not None:
+        lin(cg_sd, "fusion_model.enc_attn.pair_pos_fc1", f.pair_pos_fc1)
+        lin(cg_sd, "fusion_model.enc_attn.pair_pos_fc2", f.pair_pos_fc2)
+    return ({k: v.detach().cpu().clone() for k, v in tap_sd.items()},
+            {k: v.detach().cpu().clone() for k, v in cg_sd.items()})
+
+
+def pth_round_trip(card, folder, vocab, dev="cuda"):
+    """The port's seeded three_stream weights (phase 18's init) written as a
+    reference .pth and read back by import_reference_checkpoint: every
+    parameter bit-equal, and greedy captions of 32 requests equal to the
+    original modules'.  Returns the imported (SST, Captioner) and the .pth
+    path."""
+    from echr_tpu_torch.compat import import_reference_checkpoint
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.serve import CaptionService
+
+    cfg = eval_cfg()
+    gen = torch.Generator().manual_seed(0)
+    tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
+    tap_sd, cg_sd = reference_state_dicts(tap, cg)
+    pth = f"{folder}/reference.pth"
+    torch.save({"tap_model": tap_sd, "cg_model": cg_sd, "iteration": 0}, pth)
+    t0 = time.time()
+    itap, icg = import_reference_checkpoint(pth, cfg, dev)
+    load_s = time.time() - t0
+    n = 0
+    for a, b in ((tap, itap), (cg, icg)):
+        sa, sb = a.state_dict(), b.state_dict()
+        if list(sa) != list(sb):
+            fail(f".pth round trip: parameter names {sorted(set(sa) ^ set(sb))[:4]} differ")
+        for k in sa:
+            n += 1
+            if sb[k].device.type != torch.device(dev).type or \
+                    not torch.equal(sa[k].to(sb[k].device), sb[k]):
+                fail(f".pth round trip: {k} differs or is not on {dev}")
+    reqs = requests(32, seed=28)
+    caps = [CaptionService(cfg, m[0], m[1], vocab, device=dev, batch_videos=32,
+                           topN=TOP_N).caption(reqs) for m in ((tap, cg), (itap, icg))]
+    if caps[0] != caps[1]:
+        fail(".pth round trip: the imported weights caption otherwise than the original's")
+    print(f"[27] .pth round trip: {len(tap_sd) + len(cg_sd)} reference tensors "
+          f"({os.path.getsize(pth) / 2**20:.1f} MiB) imported onto the card in {load_s:.2f} s, "
+          f"{n} parameters bit-equal; greedy captions of 32 requests equal "
+          f"({sum(len(c) for c in caps[0].values())} captions) [{card}]")
+    return itap, icg, pth
+
+
+def serve_cli(card, ckpt, feats_dir, dur_json, refs_json, out, beam, dev="cuda"):
+    """python -m echr_tpu_torch.cli.serve over the val .npy files in a
+    child process whose exit code is checked (SERVE_CHILD), then cli/score
+    on its JSON against the val annotations.  Returns kernels 1 and 2's
+    launches in the child."""
+    from echr_tpu_torch.cli import score as score_cli
+
+    argv = ["--checkpoint", ckpt, "--features_dir", feats_dir, "--output", out,
+            "--duration_json", dur_json, "--beam_size", str(beam), "--device", dev]
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, json.dumps(argv)],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"serve CLI (beam {beam}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    rate = re.search(r"captioned (\d+) videos \((\d+) captions\) in ([\d.]+)s \(([\d.]+) "
+                     r"captions/s\)", proc.stderr)
+    with open(out) as f:
+        res = json.load(f)["results"]
+    with open(dur_json) as f:
+        durations = json.load(f)
+    if sorted(res) != sorted(durations):
+        fail(f"serve CLI (beam {beam}): captions for {len(res)} of {len(durations)} videos")
+    for vid, caps in res.items():
+        if not 0 < len(caps):
+            fail(f"serve CLI (beam {beam}): no captions for {vid}")
+        for c in caps:
+            s, e = c["timestamp"]
+            if not (0.0 <= s < e <= durations[vid] + 1e-6 and 0.0 <= c["proposal_score"] <= 1.0
+                    and np.isfinite(c["sentence_confidence"])
+                    and all(w.startswith("w") for w in c["sentence"].split())):
+                fail(f"serve CLI (beam {beam}): malformed caption {c}")
+    k1, k2 = counts["attention_scores_masked"], counts["greedy_head"]
+    steps = counts["greedy_steps"] if beam == 1 else counts["beam_steps"]
+    if not (steps > 0 and k1 == steps and k2 == (steps if beam == 1 else 0)):
+        fail(f"serve CLI (beam {beam}): launches {counts}")
+    t0 = time.time()
+    logging.disable(logging.INFO)  # the CLI's per-tIoU lines; the means are printed below
+    try:
+        scores = score_cli.main(["-s", out, "-r", refs_json, "-v"])
+    finally:
+        logging.disable(logging.NOTSET)
+    score_s = time.time() - t0
+    metrics = ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "Recall", "Precision")
+    if not all(np.shape(scores.get(m)) == (4,) and np.isfinite(scores[m]).all()
+               for m in metrics):
+        fail(f"serve CLI (beam {beam}): scores {scores}")
+    n_caps = sum(len(c) for c in res.values())
+    print(f"[27] serve CLI, beam {beam}: {len(res)} videos, {n_caps} captions, {steps} "
+          f"{'decode' if beam == 1 else 'beam'} steps, kernel 1 launches {k1}, kernel 2 {k2}; "
+          f"{rate.group(4) if rate else 'no rate logged'} captions/s as the CLI logs it "
+          f"(chunks of 32 videos, first chunk included), child process {wall:.1f} s [{card}]")
+    print(f"[27] serve CLI, beam {beam}: cli/score {score_s:.2f} s: "
+          f"{ {m: round(float(np.mean(scores[m])), 4) for m in metrics} } (mean over tIoUs)")
+    return {"attention_scores_masked": k1, "greedy_head": k2}
+
+
+def phase_real_data(card):
+    """Phase 27: real data and reference weights.  Returns (kernel 1 and
+    2's launches by path, kernel 1's record at the SOTA_TEP windows,
+    kernel 2's at the SOTA_TEP decode)."""
+    import shutil
+
+    from echr_tpu_torch.data.export_disk import export_synthetic_corpus
+    from echr_tpu_torch.engine import checkpoint, steps
+    from echr_tpu_torch.ops.kernel_head import split_plan
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    try:
+        cfg = eval_cfg()
+        t0 = time.time()
+        paths = export_synthetic_corpus(cfg, root, log_every=0)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        print(f"[27] export_disk: {cfg.data.synthetic_num_videos} videos in {time.time() - t0:.1f}"
+              f" s, {size / 2**20:.1f} MiB under {root}")
+        sota_path = f"{root}/sota_proposals.json"
+        proposals = write_sota_json(paths, sota_path)
+        validate_corpus(cfg, paths, sota_path)
+
+        launches = {}
+        launches["sota_eval"], k1_args, k2_args = sota_eval(card, root, sota_path, proposals)
+        nb = k1_args[1].shape[1]
+        k1_rec = kernel1_timing(card, f"the SOTA_TEP eval's first decode step ({SOTA_PER_VIDEO} "
+                                      f"external windows a video, bucket {nb})", k1_args)
+        out, w, b = k2_args
+        R, V1 = out.shape[0], b.shape[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = split_plan(R, V1, sms, w.dtype)
+        err2, outs = head_check("27", f"the SOTA_TEP eval's first decode step R={R}", k2_args)
+        k2_rec = {**head_timing(card, k2_args, outs, plan, tag="27"), "max_abs_err": err2}
+        del k1_args, k2_args, outs
+        sota_parity(root, sota_path)
+
+        with open(paths["video_data_for_cg"]) as f:
+            info = json.load(f)
+        vocab = info["ix_to_word"]
+        itap, icg, _ = pth_round_trip(card, root, vocab)
+        state = steps.init_train_state(cfg, itap, icg)
+        ckpt = f"{root}/imported/model-best.ckpt"
+        checkpoint.save_checkpoint(ckpt, state, cfg, iteration=0, epoch=0, best_val_score=0.0,
+                                   vocab=vocab)
+        del state, itap, icg
+        torch.cuda.empty_cache()
+        val = [v["video_id"] for v in info["videos"] if v["split"] == "val"]
+        with open(paths["video_json"]) as f:
+            anno = json.load(f)
+        feats_dir = f"{root}/val_npy"
+        os.makedirs(feats_dir)
+        for vid in val:
+            os.symlink(os.path.join(paths["input_c3d_dir2"], vid + ".npy"),
+                       os.path.join(feats_dir, vid + ".npy"))
+        with open(f"{root}/val_durations.json", "w") as f:
+            json.dump({v: anno[v]["duration"] for v in val}, f)
+        with open(f"{root}/val_anno.json", "w") as f:
+            json.dump({v: anno[v] for v in val}, f)
+        for name, beam in (("serve_cli_greedy", 1), ("serve_cli_beam", BEAM)):
+            launches[name] = serve_cli(card, ckpt, feats_dir, f"{root}/val_durations.json",
+                                       f"{root}/val_anno.json", f"{root}/{name}.json", beam)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[27] real data and reference weights: launches {launches}; phase wall "
+          f"{time.time() - t_phase:.1f} s [{card}]")
+    return launches, k1_rec, k2_rec
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -2865,6 +3419,7 @@ def main():
     phase_scst_parity()
     sample_k1 = phase_sample_eval(card)
     family, head["by_width"] = phase_family(card)
+    real, k1_inputs["sota_eval"], head["sota_eval"] = phase_real_data(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -2886,11 +3441,13 @@ def main():
                 "checkpointed_train": ckpt_launches["attention_scores_masked"],
                 "scst_train": scst_launches["attention_scores_masked"],
                 "eval_sampled": sample_k1,
-                "decoder_family": family["attention_scores_masked"]}
+                "decoder_family": family["attention_scores_masked"],
+                **{name: n["attention_scores_masked"] for name, n in real.items()}}
     k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
                 "checkpointed_train": ckpt_launches["greedy_head"],
                 "scst_train": scst_launches["greedy_head"],
-                "decoder_family": family["greedy_head"]}
+                "decoder_family": family["greedy_head"],
+                **{name: n["greedy_head"] for name, n in real.items()}}
     k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k],
                            "scst_train": scst_launches[k], "decoder_family": family[k]}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))

@@ -5,11 +5,12 @@ Loads the best or last checkpoint of a run folder (either package's
 format v2), overlays the CLI flags onto the checkpoint's config
 (reference: eval.py:32-35), rebuilds the loader and runs the batched eval
 driver, ``eval_split_batched``, with ``--batch_videos`` videos a group
-(default 8), for --flag_eval_what in {tap, cg, tap_cg, cg_extend}, on
-``--device`` (default ``cuda``).  ``--sample_max 0`` decodes by
-multinomial sampling at ``--temperature`` with ``--sample_seed``.  Not
-ported, each raising NotImplementedError: SOTA_TEP and --SOTA_json
-(ROADMAP.md A.6), --data_parallel > 1 and a multi-host launch (A.13).
+(default 8), for --flag_eval_what in {tap, cg, tap_cg, cg_extend,
+SOTA_TEP}, on ``--device`` (default ``cuda``).  --SOTA_json overrides the
+external-proposal file (reference: eval.py:146).  ``--sample_max 0``
+decodes by multinomial sampling at ``--temperature`` with
+``--sample_seed``.  Not ported, each raising NotImplementedError:
+--data_parallel > 1 and a multi-host launch (ROADMAP.md A.13).
 """
 from __future__ import annotations
 
@@ -86,9 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(ns) -> None:
-    if ns.flag_eval_what == "SOTA_TEP" or ns.SOTA_json:
-        raise NotImplementedError(
-            "external proposals (SOTA_TEP, --SOTA_json) are not ported: ROADMAP.md A.6")
     if ns.data_parallel > 1:
         raise NotImplementedError("--data_parallel > 1 is not ported: ROADMAP.md A.13")
     if any(os.environ.get(k) for k in _CLUSTER_ENV):
@@ -125,6 +123,8 @@ def main(argv=None) -> str:
         sample_max=ns.sample_max,
         temperature=ns.temperature,
     )
+    if ns.SOTA_json:
+        cfg = cfg.replace_in("data", SOTA_json=ns.SOTA_json)
     if ns.transfer_dtype:
         cfg = cfg.replace_in("runtime", transfer_dtype=ns.transfer_dtype)
     # a group drains batch_videos items at once: a prefetch queue of two

@@ -5,8 +5,8 @@ dict (reference: dataloader.py:367-572): the frame axis is padded to a
 length bucket, the proposal axis to ``prop_sample_num``, captions to the
 dataset's seq_length, and every padded entry carries a 0 mask.
 ``make_batch(..., labels=False)`` is the decode-only form the eval's fast
-path takes.  The external-proposal (SOTA_TEP) fields are not copied:
-no path of the port reads them (ROADMAP.md A.6).
+path takes; both forms pack a video's external (SOTA) proposals into
+``BatchMeta.SOTA_*`` when given a ``sota_fn``.
 """
 from __future__ import annotations
 
@@ -62,6 +62,13 @@ class BatchMeta:
     cg_select: np.ndarray  # [n_sampled] caption index per sampled proposal
     sampled_ids: np.ndarray
     wrapped: bool = False
+    # external (SOTA) proposals (reference: dataloader.py:509-528)
+    SOTA_featstamps: Optional[List] = None
+    SOTA_scores: Optional[List] = None
+    SOTA_timestamps: Optional[List] = None
+    SOTA_ind: Optional[List] = None
+    SOTA_soi: Optional[List] = None
+    SOTA_cg_select: Optional[List] = None
 
 
 def _class_weights(w1, K: int, reverse_w0: bool) -> np.ndarray:
@@ -112,9 +119,27 @@ def caption_masks(cap_labels: np.ndarray, mode: str, rng: np.random.RandomState)
     return lab.astype(np.int32), mask
 
 
-def _make_batch_nolabels(ex: VideoExample, cfg: Config, feats, frame_mask, featstamps,
-                         grid_featstamps, T_use: int, T_pad: int, dur_use: float
-                         ) -> Tuple[VideoBatch, BatchMeta]:
+def _sota_select(fs_scores_ts, K: int, rng: np.random.RandomState, cg_select_fn) -> dict:
+    """The external proposals' BatchMeta fields (reference:
+    dataloader.py:509-528); a window longer than K anchors is randomly
+    cropped to K (:515-520)."""
+    s_fs, s_scores, s_ts = fs_scores_ts
+    if s_fs is None:
+        return {}
+    fs = [list(f) for f in s_fs]
+    for i2, (x, y) in enumerate(fs):
+        assert y > x
+        if y - x >= K + 1:
+            r = int(rng.randint(0, y - x - (K - 1)))
+            fs[i2] = [x + r, x + r + K]
+    return dict(SOTA_featstamps=fs, SOTA_scores=list(s_scores), SOTA_timestamps=list(s_ts),
+                SOTA_ind=[f[1] for f in fs], SOTA_soi=[[f[0], f[1] + 1] for f in fs],
+                SOTA_cg_select=[cg_select_fn(f) for f in fs])
+
+
+def _make_batch_nolabels(ex: VideoExample, cfg: Config, sota_rng, feats, frame_mask,
+                         featstamps, grid_featstamps, T_use: int, T_pad: int,
+                         dur_use: float, sota_fn) -> Tuple[VideoBatch, BatchMeta]:
     """Decode-only batch: the geometry and an exact proposal_num, no label
     grids; every label field is zero."""
     tapc = cfg.tap
@@ -136,18 +161,21 @@ def _make_batch_nolabels(ex: VideoExample, cfg: Config, feats, frame_mask, feats
         ind_select=zi, soi=zs, prop_mask=zm, cg_labels=zl, cg_masks=zk,
         gts_ind=zi.copy(), gts_soi=zs.copy(), gts_mask=zm.copy(),
         gts_cg_labels=zl.copy(), gts_cg_masks=zk.copy())
+    sota_kw = {}
+    if sota_fn is not None:
+        sota_kw = _sota_select(sota_fn(T_use, dur_use), K, sota_rng, cg_select_fn=lambda f: 0)
     meta = BatchMeta(
         vid=ex.vid, duration=dur_use, timestamps=ex.timestamps, sentences=ex.sentences,
         gt_featstamps=featstamps, proposal_num=proposal_num, n_frames=T_use,
         t_bucket=T_pad, ncap=ex.cap_labels.shape[0],
         iou_scores=np.zeros((T_use, K), np.float32),
         gts_index=np.zeros((T_use, K), np.int64),
-        cg_select=np.zeros((0,), np.int64), sampled_ids=np.zeros((0,), np.int64))
+        cg_select=np.zeros((0,), np.int64), sampled_ids=np.zeros((0,), np.int64), **sota_kw)
     return batch, meta
 
 
 def make_batch(ex: VideoExample, cfg: Config, rng: np.random.RandomState,
-               w1: Optional[np.ndarray] = None, labels: bool = True
+               w1: Optional[np.ndarray] = None, sota_fn=None, labels: bool = True
                ) -> Tuple[VideoBatch, BatchMeta]:
     """One video's training batch: the padded features, the TAP label grid,
     the sampled good proposals and the GT proposals with their captions.
@@ -156,10 +184,11 @@ def make_batch(ex: VideoExample, cfg: Config, rng: np.random.RandomState,
     proposal sampling and the caption packing are skipped; the geometry
     mask and an exact ``proposal_num`` (the bad-video check) remain, and
     the label fields come back zeroed.  Valid only for the eval modes
-    'tap' and 'tap_cg' without val losses.  It draws nothing from ``rng``,
-    and no draw of the labels path comes before the fork, so both paths
-    give the same features and geometry (echr_tpu draws its external
-    proposals' crop substream before the fork; the port has none)."""
+    'tap', 'tap_cg' and 'SOTA_TEP' without val losses.
+
+    ``sota_fn(T_use, dur_use)`` gives the external proposals
+    (``BaseDataset.get_sota``).  Their crop draws from a substream seeded
+    from ``rng`` before the labels fork, so both forms crop alike."""
     tapc = cfg.tap
     K, N = tapc.K, tapc.prop_sample_num
     T_real = int(ex.feats.shape[0])
@@ -180,9 +209,15 @@ def make_batch(ex: VideoExample, cfg: Config, rng: np.random.RandomState,
     if T_use < T_real:
         grid_featstamps = [(T_use + 1, T_use + 2) if t[0] >= dur_use else f
                            for f, t in zip(featstamps, ex.timestamps)]
+    # the crop's substream is drawn here, at a fixed position, so the labels
+    # and labels-off forms crop alike (the reference draws the crop from its
+    # one global stream, dataloader.py:515-520)
+    sota_rng = None
+    if sota_fn is not None:
+        sota_rng = np.random.RandomState(rng.randint(0, 2**31 - 1))
     if not labels:
-        return _make_batch_nolabels(ex, cfg, feats, frame_mask, featstamps, grid_featstamps,
-                                    T_use, T_pad, dur_use)
+        return _make_batch_nolabels(ex, cfg, sota_rng, feats, frame_mask, featstamps,
+                                    grid_featstamps, T_use, T_pad, dur_use, sota_fn)
     iou_scores, gts_index_f, tap_masks_r = L.iou_grid(grid_featstamps, T_use, K)
     gts_index = gts_index_f.astype(np.int64)
 
@@ -233,9 +268,14 @@ def make_batch(ex: VideoExample, cfg: Config, rng: np.random.RandomState,
         ind_select=ind_sel, soi=soi_sel, prop_mask=pmask, cg_labels=cg_lab_sel,
         cg_masks=cg_mask_sel, gts_ind=g_ind, gts_soi=g_soi, gts_mask=g_mask,
         gts_cg_labels=g_lab, gts_cg_masks=g_mk)
+    sota_kw = {}
+    if sota_fn is not None:
+        sota_kw = _sota_select(
+            sota_fn(T_use, dur_use), K, sota_rng,
+            cg_select_fn=lambda f: int(tap_gts_for_good[f[1], f[1] - f[0] - 1]))
     meta = BatchMeta(
         vid=ex.vid, duration=dur_use, timestamps=ex.timestamps, sentences=ex.sentences,
         gt_featstamps=featstamps, proposal_num=proposal_num, n_frames=T_use,
         t_bucket=T_pad, ncap=ex.cap_labels.shape[0], iou_scores=iou_scores,
-        gts_index=gts_index, cg_select=lm_list[sampled], sampled_ids=sampled)
+        gts_index=gts_index, cg_select=lm_list[sampled], sampled_ids=sampled, **sota_kw)
     return batch, meta

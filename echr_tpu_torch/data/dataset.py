@@ -3,8 +3,10 @@ the port's copy.
 
 ``VideoExample`` is the raw per-video record; ``data.batcher`` turns it
 into statically shaped arrays and ``data.loader`` owns iteration and
-prefetch.  External (SOTA) proposals are not copied: no path of the port
-reads them yet.
+prefetch.  ``get_sota`` gives a video's external (SOTA) proposals, from
+``data.SOTA_json`` on disk or synthesised for ``SOTA_json == "synthetic"``.
+The HDF5 label and LDA files are read through ``data.hdf5.open_h5``:
+h5py where it is installed, the port's own reader otherwise.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from echr_tpu_torch.config import Config
+from echr_tpu_torch.data.hdf5 import open_h5
+from echr_tpu_torch.data.labels import timestamp_to_featstamp
 
 # reference: dataloader.py:49-50, the C3D normalisation moments
 C3D_MEAN = -0.001915027447565527
@@ -44,6 +48,7 @@ class BaseDataset:
     seq_length: int
     w1: np.ndarray  # [K] per-anchor-length positive rate
     split_ix: Dict[str, List[int]]
+    sota_proposals: Optional[Dict] = None  # vid (no 'v_' prefix) -> [{segment, score}]
 
     def __len__(self) -> int:
         raise NotImplementedError
@@ -55,6 +60,19 @@ class BaseDataset:
     def vocab_size(self) -> int:
         return len(self.ix_to_word)
 
+    def get_sota(self, vid: str, nfeats: int, duration: float):
+        """A video's external (SOTA) proposals as featstamps (reference:
+        get_SOTA_TEP_label, dataloader.py:304-318; the keys are the video id
+        without its 'v_' prefix).  Returns (featstamps, scores, timestamps)
+        or (None, None, None)."""
+        if not self.sota_proposals or vid[2:] not in self.sota_proposals:
+            return None, None, None
+        events = self.sota_proposals[vid[2:]]
+        timestamps = [e["segment"] for e in events]
+        featstamps = [timestamp_to_featstamp(t, nfeats, duration) for t in timestamps]
+        scores = [e["score"] for e in events]
+        return featstamps, scores, timestamps
+
 
 class ActivityNetDataset(BaseDataset):
     """The on-disk ActivityNet Captions layout of the reference inputs
@@ -63,8 +81,6 @@ class ActivityNetDataset(BaseDataset):
     splits JSON, the annotation JSON, the LDA HDF5 and the w1 JSON."""
 
     def __init__(self, cfg: Config):
-        import h5py
-
         self.cfg = cfg
         d = cfg.data
         with open(d.w1_json) as f:
@@ -76,7 +92,7 @@ class ActivityNetDataset(BaseDataset):
         self.ix_to_word = self.info["ix_to_word"]
 
         def load_h5(path):
-            with h5py.File(path, "r") as h5:
+            with open_h5(path, "r") as h5:
                 return {k: np.asarray(h5[k]) for k in h5.keys()}
 
         self.train_labels = load_h5(d.train_label_for_cg)
@@ -86,7 +102,7 @@ class ActivityNetDataset(BaseDataset):
 
         self.lda: Optional[Dict[str, np.ndarray]] = None
         if d.use_lda:
-            with h5py.File(d.input_lda_path, "r") as h5:
+            with open_h5(d.input_lda_path, "r") as h5:
                 self.lda = {k: np.asarray(h5[k]) for k in h5.keys()}
 
         self.split_ix = {"train": [], "val": [], "test": []}
@@ -96,6 +112,11 @@ class ActivityNetDataset(BaseDataset):
                 self.split_ix[split].append(ix)
             elif d.train_only == 0:  # restval (reference: dataloader.py:239)
                 self.split_ix["train"].append(ix)
+
+        self.sota_proposals = None
+        if d.SOTA_json and os.path.exists(d.SOTA_json):
+            with open(d.SOTA_json) as f:
+                self.sota_proposals = json.load(f)["results"]
 
     def __len__(self) -> int:
         return len(self.info["videos"])
@@ -167,10 +188,44 @@ class SyntheticDataset(BaseDataset):
         n_train = int(self.num_videos * 0.75)
         self.split_ix = {"train": list(range(n_train)),
                          "val": list(range(n_train, self.num_videos)), "test": []}
+        self._synthetic_sota = d.SOTA_json == "synthetic"
         # LRU cache of generated examples; the prefetch threads share it
         self._cache: "collections.OrderedDict[int, VideoExample]" = collections.OrderedDict()
         self._cache_cap = max(0, int(d.synthetic_cache_videos))
         self._cache_lock = threading.Lock()
+
+    def _geometry(self, ix: int):
+        """The event-geometry prefix of a video's rng stream: (rng, T,
+        duration, n_events, timestamps).  ``_generate_example`` goes on
+        drawing from the returned rng; ``get_sota`` needs only the
+        timestamps, without synthesising the features."""
+        rng = np.random.RandomState(self.seed * 100003 + ix)
+        T = int(rng.randint(40, 220))
+        duration = float(T * (0.5 + rng.rand()))
+        n_events = int(rng.randint(2, 7))
+        starts = np.sort(rng.rand(n_events) * duration * 0.8)
+        lengths = (0.05 + rng.rand(n_events) * 0.4) * duration
+        timestamps = [(float(s), float(min(s + l, duration))) for s, l in zip(starts, lengths)]
+        return rng, T, duration, n_events, timestamps
+
+    def get_sota(self, vid: str, nfeats: int, duration: float):
+        """Synthetic external proposals: each GT event jittered three times,
+        with uniform scores."""
+        if not self._synthetic_sota:
+            return None, None, None
+        ix = int(vid[-5:])
+        rng = np.random.RandomState(self.seed * 7919 + ix)
+        _, _, ex_duration, _, ex_timestamps = self._geometry(ix)
+        timestamps = []
+        scores = []
+        for s, e in ex_timestamps:
+            for _ in range(3):
+                j = (rng.rand(2) - 0.5) * 0.2 * (e - s)
+                timestamps.append([max(0.0, s + j[0]),
+                                   min(ex_duration, max(s + j[0] + 0.5, e + j[1]))])
+                scores.append(float(rng.rand()))
+        featstamps = [timestamp_to_featstamp(t, nfeats, duration) for t in timestamps]
+        return featstamps, scores, timestamps
 
     def __len__(self) -> int:
         return self.num_videos
@@ -203,13 +258,7 @@ class SyntheticDataset(BaseDataset):
 
     def _generate_example(self, ix: int) -> VideoExample:
         cfg = self.cfg
-        rng = np.random.RandomState(self.seed * 100003 + ix)
-        T = int(rng.randint(40, 220))
-        duration = float(T * (0.5 + rng.rand()))
-        n_events = int(rng.randint(2, 7))
-        starts = np.sort(rng.rand(n_events) * duration * 0.8)
-        lengths = (0.05 + rng.rand(n_events) * 0.4) * duration
-        timestamps = [(float(s), float(min(s + l, duration))) for s, l in zip(starts, lengths)]
+        rng, T, duration, n_events, timestamps = self._geometry(ix)
         D = cfg.tap.video_dim
         # noise plus per-event bias patterns, so the proposal model has signal
         feats = rng.randn(T, D).astype(np.float32) * 0.5

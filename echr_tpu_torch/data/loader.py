@@ -10,8 +10,8 @@ tracked on the consumer side, since the prefetch threads run ahead.
 The process rank and count are arguments: the port has no runtime to ask.
 The eval loop toggles two settings per split and restores them after the
 pass: the decode-only fetch (``set_labels``) and the feature dtype the
-workers emit (``set_feats_dtype``).  External proposals are not copied
-(ROADMAP.md A.6).
+workers emit (``set_feats_dtype``).  A dataset with external proposals
+has them packed into each batch's meta (``BaseDataset.get_sota``).
 """
 from __future__ import annotations
 
@@ -108,8 +108,15 @@ class Loader:
 
     def _make(self, ix: int, seed: int, labels: bool = True) -> Tuple[VideoBatch, BatchMeta]:
         ex = self.dataset.get_example(ix)
+        sota_fn = None
+        if (getattr(self.dataset, "sota_proposals", None)
+                or getattr(self.dataset, "_synthetic_sota", False)):
+            # make_batch passes the duration of the frames it keeps (the
+            # video's own unless it is cut to the largest bucket)
+            sota_fn = lambda nfeats, duration: self.dataset.get_sota(  # noqa: E731
+                ex.vid, nfeats, duration)
         return make_batch(ex, self.cfg, np.random.RandomState(seed), w1=self.dataset.w1,
-                          labels=labels)
+                          sota_fn=sota_fn, labels=labels)
 
     def set_labels(self, labels: bool, split: str) -> None:
         """The decode-only fetch (make_batch labels=False) for one split.

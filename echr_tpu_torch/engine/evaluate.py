@@ -6,15 +6,16 @@ dense-captioning metrics (reference: eval_utils.py:14-227).
 group of ``batch_videos`` videos through the SST encode, top-N selection on
 the device (or the host NMS), the val losses and greedy or beam decode, per
 ``flag_eval_what`` ('cg' GT segments | 'cg_extend' sampled good proposals |
-'tap' proposals only | 'tap_cg' model proposals).  A caption's re_score is
+'tap' proposals only | 'tap_cg' model proposals | 'SOTA_TEP' external
+proposals, ``data.SOTA_json``).  A caption's re_score is
 10 * proposal_score + sentence_confidence; ``reranking`` keeps the top 10.
 ``sample_max=0`` decodes by multinomial sampling at ``temperature``, each
 group's draws from a generator seeded by (``sample_seed``, the group's
 dispatch index), so one seed gives one predictions JSON.
 
 Not ported, each raising NotImplementedError: the per-video ``eval_split``
-(ROADMAP.md A.9-A.10), external proposals (``flag_eval_what='SOTA_TEP'``,
-A.6) and the multi-device sweep (``mesh`` / ``multihost``, A.13).
+(ROADMAP.md A.9-A.10) and the multi-device sweep (``mesh`` / ``multihost``,
+A.13).
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ log = logging.getLogger("echr_tpu_torch.eval")
 
 # proposal-count buckets of the decode batch: one decode shape per bucket
 PROP_BUCKETS = (64, 128, 256, 512, 1024)
-_MODES = ("cg", "cg_extend", "tap", "tap_cg")
+_MODES = ("cg", "cg_extend", "tap", "tap_cg", "SOTA_TEP")
 
 
 def _prop_bucket(n: int) -> int:
@@ -85,7 +86,9 @@ def select_proposals(flag_eval_what, batch, meta, pp, masks, cfg, *, nms_thresho
     """One video's host-side proposal selection (reference:
     eval_utils.py:60-118).  ``pp`` / ``masks`` are its [n_frames, K] score
     grid and anchor mask, read by 'tap' and 'tap_cg' only.  Returns (ind,
-    soi, cg_sel, timestamps, tap_prob)."""
+    soi, cg_sel, timestamps, tap_prob), or None for a 'SOTA_TEP' video
+    without external proposals (the reference's bad video,
+    eval_utils.py:77-80)."""
     if flag_eval_what == "cg":
         n_gt = len(meta.gt_featstamps)
         ind = [f[1] for f in meta.gt_featstamps]
@@ -99,8 +102,31 @@ def select_proposals(flag_eval_what, batch, meta, pp, masks, cfg, *, nms_thresho
         timestamps = [featstamp_to_time(s, e, meta.n_frames, meta.duration) for s, e in soi]
         return ind, soi, cg_sel, timestamps, [1.0] * len(ind)
     if flag_eval_what == "SOTA_TEP":
-        raise NotImplementedError(
-            "flag_eval_what='SOTA_TEP' (external proposals) is not ported: ROADMAP.md A.6")
+        # external proposals under the score threshold, NMS and the topN cap
+        # (reference: eval_utils.py:76-104); NMS ranks by the proposal score
+        if meta.SOTA_scores is None:
+            return None
+        _ind, _soi = meta.SOTA_ind, meta.SOTA_soi
+        _cg, _ts, _tp = meta.SOTA_cg_select, meta.SOTA_timestamps, meta.SOTA_scores
+        if nms_threshold > 0:
+            _, _, pick = P.external_proposals_nms(_ts, _tp, _tp, nms_overlap=nms_threshold,
+                                                  topN=1000)
+            pick = set(int(p) for p in pick)
+        else:
+            pick = set(range(len(_tp)))
+        ind, soi, cg_sel, timestamps, tap_prob = [], [], [], [], []
+        for i2, p_score in enumerate(_tp):
+            if i2 not in pick:
+                continue
+            if p_score >= val_score_thres:
+                ind.append(_ind[i2])
+                soi.append(_soi[i2])
+                cg_sel.append(_cg[i2])
+                timestamps.append(_ts[i2])
+                tap_prob.append(_tp[i2])
+            if len(ind) >= topN:
+                break
+        return ind, soi, cg_sel, timestamps, tap_prob
     if flag_eval_what in ("tap", "tap_cg"):
         if nms_threshold:
             return P.top_proposals_nms(pp, masks, meta.gts_index, meta.duration,
@@ -199,9 +225,6 @@ def eval_split_batched(
         raise RuntimeError(f"eval_split_batched(device={device!r}): CUDA is not available")
     if mesh is not None or multihost:
         raise NotImplementedError("the multi-device eval sweep is not ported: ROADMAP.md A.13")
-    if flag_eval_what == "SOTA_TEP":
-        raise NotImplementedError(
-            "flag_eval_what='SOTA_TEP' (external proposals) is not ported: ROADMAP.md A.6")
     if flag_eval_what not in _MODES:
         raise ValueError(f"flag_eval_what {flag_eval_what!r} not supported")
     kw = dict(eval_kwargs or {})
@@ -242,8 +265,9 @@ def eval_split_batched(
         return torch.from_numpy(x).to(dev, non_blocking=True)
 
     # decode-only fast path: no training-label synthesis in the batcher;
-    # cg / cg_extend need the label fields, and so do the val losses
-    decode_only = (not get_eval_loss) and flag_eval_what in ("tap", "tap_cg")
+    # cg / cg_extend need the label fields, and so do the val losses.  The
+    # external proposals' crop draws alike on both forms (data.batcher)
+    decode_only = (not get_eval_loss) and flag_eval_what in ("tap", "tap_cg", "SOTA_TEP")
     labels_before = loader.labels_for(split)
     feats_dtype_before = loader.feats_dtype_for(split)
     vocab = loader.dataset.ix_to_word
@@ -334,6 +358,7 @@ def eval_split_batched(
             else:
                 pp = pp_b[i][: meta.n_frames]
                 masks = np.asarray(batch.tap_masks)[: meta.n_frames]
+                # SOTA-less videos were left out at grouping: never None here
                 ind, soi, _, ts, tp = select_proposals(
                     flag_eval_what, batch, meta, pp, masks, cfg, nms_threshold=nms_threshold,
                     val_score_thres=val_score_thres, topN=topN)
@@ -497,6 +522,8 @@ def eval_split_batched(
             batch, meta = loader.get_batch(split)
             tm["loader"] += _clk.time() - t_load
             usable = meta.proposal_num > 0 and meta.n_frames > 1
+            if flag_eval_what == "SOTA_TEP" and meta.SOTA_scores is None:
+                usable = False  # reference: bad video for SOTA_TEP (eval_utils.py:77-80)
             if usable:
                 it_vids += 1
             # bad videos do not count toward num_vids_eval (eval_utils.py:44)

@@ -1,14 +1,13 @@
 """Host-side proposal selection (echr_tpu/engine/proposals.py), the port's
 numpy copy: score-threshold top-N selection over the [T, K] anchor grid,
-greedy temporal NMS (reference: eval_utils.py:259-331) and the top-10
-reranking (eval_utils.py:334-345), with the reference's order and
-tie-breaks.  echr_tpu's optional C++ NMS is not copied: the numpy loop is
-its reference and selects the same anchors.  Nor is the external
-proposals' NMS (ROADMAP.md A.6).
+greedy temporal NMS (reference: eval_utils.py:259-331), the external
+proposals' NMS (:230-256) and the top-10 reranking (:334-345), with the
+reference's order and tie-breaks.  echr_tpu's optional C++ NMS is not
+copied: the numpy loops are its reference and select the same proposals.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -72,6 +71,32 @@ def top_proposals_nms(pred_proposals: np.ndarray, tap_masks: np.ndarray,
     return ((nms_props[:, 1] - 1).astype(np.int64).tolist(), nms_props.tolist(),
             prop_gts[pick].tolist() if prop_gts is not None else [], timestamps,
             scores[pick].tolist())
+
+
+def external_proposals_nms(props: Sequence[Sequence[float]], prop_scores: Sequence[float],
+                           sent_score: Sequence[float], nms_overlap: float = 0.999,
+                           topN: int = 1000):
+    """NMS over external (SOTA) proposals in the order of their scores,
+    keeping from each overlap cluster the member of the best sentence
+    score (reference: gettopN_nms, eval_utils.py:230-256).  Returns
+    (props, scores, pick)."""
+    props = np.asarray(props, dtype=np.float64)
+    prop_scores = np.asarray(prop_scores, dtype=np.float64)
+    sent_score = np.asarray(sent_score, dtype=np.float64)
+    t1, t2 = props[:, 0], props[:, 1]
+    ind = np.argsort(prop_scores, kind="stable")
+    area = t2 - t1 + 1e-3
+    pick: List[int] = []
+    while len(ind) > 0 and len(pick) < topN:
+        i = ind[-1]
+        tt1 = np.maximum(t1[i], t1[ind])
+        tt2 = np.minimum(t2[i], t2[ind])
+        wh = np.maximum(0.0, tt2 - tt1 + 1e-3)
+        o = wh / (area[i] + area[ind] - wh)
+        same = ind[o >= nms_overlap]
+        pick.append(int(same[np.argmax(sent_score[same])]))
+        ind = ind[o <= nms_overlap]
+    return props[pick].tolist(), prop_scores[pick].tolist(), pick
 
 
 def rerank_top10(vid_info: List[dict]) -> List[dict]:

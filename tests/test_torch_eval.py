@@ -187,8 +187,6 @@ def test_unported_modes_raise(split, monkeypatch):
     # sample_max=0 is ported: multinomial decode captions the split
     preds, _, _ = split.port(dict(kw, sample_max=0, sample_seed=3), "tap_cg")
     assert preds and all(p["sentence_confidence"] <= 0.0 for v in preds.values() for p in v)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        split.port(kw, "SOTA_TEP")
     with pytest.raises(NotImplementedError, match="A.13"):
         split.port(kw, "tap_cg", multihost=True)
     with pytest.raises(NotImplementedError, match="A.9-A.10"):
