@@ -2,9 +2,10 @@
 """Drive echr_tpu_torch's batched greedy and beam serving paths, its XE
 training path, its three probes, its batched eval loop, its checkpointed
 training, its self-critical (SCST) training, its multinomial eval, the
-decoder family's other cores, and its on-disk data, external proposals,
-reference .pth import and serve CLI once on one NVIDIA GPU, and hold
-every kernel against its plain PyTorch version.
+decoder family's other cores, its on-disk data, external proposals,
+reference .pth import and serve CLI, its synchronous and pipelined train
+loops and its per-video eval, decode and SCST paths once on one NVIDIA
+GPU, and hold every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -224,7 +225,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      code is checked and whose kernel launches equal its decode steps
      (kernel 2 none for beam); its captions/s as the CLI logs it, and
      cli/score of its JSON against the val annotations.  The phase's
-     wall seconds.
+     wall seconds;
+  28. the train loops: engine.train.train on train_cfg() (B=32, N=64,
+     bf16, dropout on), the synchronous and the pipelined loop in turns
+     (sync, pipelined, pipelined, sync, three times), 8 steps a run, their
+     means, medians and the neighbouring pairs the pipelined run won, then
+     each once
+     with transfer_dtype bfloat16: ms/step and videos/s over steps 2-8
+     from CUDA events recorded after each step (the device's completion
+     times), timing_out's loader, compress, collate, put, step and fetch
+     seconds, the bytes sent to the device a group, peak memory, and
+     kernels 3 and 4 launched 29 times a step; a pipelined run with steps
+     3-5 inside utils.profiling.device_trace: the device-busy share of the
+     traced window, the share of the H2D copy time under a kernel and the
+     longest idle gap; then at f32 with TF32 and dropout off, 6 steps of
+     each loop: every parameter bit-equal;
+  29. the per-video paths on phase 18's val split and weights: eval_split
+     greedy with val losses and beam 4 decode-only after a warm-up of 4
+     videos (kernel 1 once a decode step and 29 times a val-loss call,
+     kernel 2 once a greedy step; eval videos/s), eval_split_batched's rate
+     beside it, python -m echr_tpu_torch.cli.eval without --batch_videos in
+     a child process (exit 0, eval_split ran); at f32 with phase 5's
+     weights and the window sort off, eval_split against
+     eval_split_batched (phase 27's near-tie rule, val losses within 1e-5
+     relative); 3 SCST steps of train() at batch_size 1 at f32 (the
+     replay's tokens the rollout's, its logps within 1e-5 up to each end
+     token, phase 23's launch counts); kernel 1 at the first call of each
+     per-video row count and kernel 2 at R = 64, 128, 256 and 1024 (C=1536,
+     V1=6001, bf16), each against its plain version and timed beside its
+     bound and the plain head.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1326,7 +1355,9 @@ def train_cfg(**runtime):
     """bench.py's e2e_train_cfg (bench.py:290-319): the flagship width on
     synthetic data, cotrain, batch 32, no eval or checkpoints.  Its 256
     synthetic videos (192 train) already cover 6 steps of 32: nothing is
-    cut."""
+    cut.  runtime.train_pipeline is False unless given: the phases before
+    28 run the synchronous loop, whose ms/step they have measured since
+    the first train phase, and phase 28 runs both loops."""
     from echr_tpu_torch.config import flagship_config
 
     cfg = flagship_config()
@@ -1339,8 +1370,7 @@ def train_cfg(**runtime):
                          m_batch=1)
     cfg = cfg.replace_in("save", losses_log_every=10**9, save_checkpoint_every=10**9,
                          min_epoch_when_save=10**9)
-    if runtime:
-        cfg = cfg.replace_in("runtime", **runtime)
+    cfg = cfg.replace_in("runtime", **{"train_pipeline": False, **runtime})
     return cfg.validate()
 
 
@@ -1375,9 +1405,12 @@ def phase_train(card):
     if any(n != expect for n in launches.values()):
         fail(f"kernel launches {launches} do not match {tf_steps} teacher-forced steps x "
              f"{out['iteration']} train steps = {expect}")
+    if timing["pipelined"]:
+        fail("phase 9 times the synchronous loop, whose steps end before their stamp")
     t = dict(timing["iters"])
     dt = (t[TRAIN_STEPS] - t[1]) / (TRAIN_STEPS - 1)
-    print(f"[9] training slice: {out['iteration']} steps of {TRAIN_B} videos (cotrain/tap_cg, "
+    print(f"[9] training slice, the synchronous loop: {out['iteration']} steps of {TRAIN_B} "
+          f"videos (cotrain/tap_cg, "
           f"vocab {VOCAB}, {tf_steps} teacher-forced steps, T={T_BUCKET}, "
           f"N={cfg.tap.prop_sample_num}, bf16, "
           f"dropout on, seed {cfg.train.seed}; synthetic_num_videos 256 as e2e_train_cfg, "
@@ -1448,6 +1481,7 @@ def phase_train_parity():
     (tk, ck), mk = steps.grad_step(state, batch, None, cfg, "tap_cg")
     with force_plain():
         (tp, cp), mp = steps.grad_step(state, batch, None, cfg, "tap_cg")
+    mk, mp = steps.fetch_metrics(mk, mp)
     rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
     names = ([f"tap.{n}" for n, _ in state.tap.named_parameters()]
              + [f"cg.{n}" for n, _ in state.cg.named_parameters()])
@@ -2159,7 +2193,7 @@ def phase_resume_parity():
 
     def no_dropout(state, batch, gen, *a, **k):
         state, m = steps_mod.train_step(state, batch, None, *a, **k)
-        losses.append(m["loss"])
+        losses.append(steps_mod.fetch_metrics(m)[0]["loss"])
         return state, m
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2406,6 +2440,7 @@ def phase_scst_parity():
     with force_plain():
         (tp, cp), mp = steps._phase_grads(state, cfg, phase, steps._rl_losses, batch, phase,
                                           gens(41)[0], gen_k, reward)
+    mk, mp = steps.fetch_metrics(mk, mp)
     rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
     names = ([f"tap.{n}" for n, _ in state.tap.named_parameters()]
              + [f"cg.{n}" for n, _ in state.cg.named_parameters()])
@@ -3365,6 +3400,444 @@ def phase_real_data(card):
     return launches, k1_rec, k2_rec
 
 
+PIPE_STEPS, PIPE_PARITY_STEPS = 8, 6  # phase 28: steps a run; steps of the f32 parity runs
+PIPE_ROUNDS = 3  # phase 28: rounds of (sync, pipelined, pipelined, sync)
+TRACE_FROM, TRACE_STEPS = 3, 3  # phase 28: the traced run's first traced step, traced steps
+HEAD_ROWS = (64, 128, 256, 1024)  # phase 29: kernel 2 at per-video decode rows
+PV_SCST_STEPS = 3  # phase 29: SCST steps at batch_size 1
+
+
+def _step_clock(train_mod):
+    """A wrapper on train_step that records a CUDA event after each step's
+    launches: the device's completion times, whatever the host runs ahead.
+    Returns (events, wrapper)."""
+    events = []
+    fn = train_mod.train_step
+
+    def clocked(*args, **kw):
+        out = fn(*args, **kw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return out
+    return events, clocked
+
+
+def pipeline_run(card, cfg, pipelined, steps, tag, trace_dir=None, dev="cuda"):
+    """One train() run of phase 28 on ``cfg`` with runtime.train_pipeline
+    ``pipelined``: ms/step and videos/s over steps 2-``steps`` from the
+    device's step events, timing_out's sections, the bytes a group sent to
+    the device, peak memory, kernels 3 and 4's launches (29 a step).  With
+    ``trace_dir`` steps TRACE_FROM .. TRACE_FROM + TRACE_STEPS - 1 run
+    inside utils.profiling.device_trace."""
+    from echr_tpu_torch.engine import train as train_mod
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd, attention_scores_dense
+    from echr_tpu_torch.utils.profiling import device_trace
+
+    cfg = cfg.replace_in("runtime", train_pipeline=pipelined)
+    events, clocked = _step_clock(train_mod)
+    trace = contextlib.ExitStack()
+
+    def step(*args, **kw):
+        if trace_dir and len(events) == TRACE_FROM - 1:
+            trace.enter_context(device_trace(trace_dir))
+        if trace_dir and len(events) == TRACE_FROM - 1 + TRACE_STEPS:
+            trace.close()
+        return clocked(*args, **kw)
+
+    for fn in (attention_scores_dense, attention_scores_bwd):
+        fn.launches = 0
+    timing = {}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, patched(train_mod, "train_step", step):
+        t0 = time.time()
+        out = train_mod.train(cfg.replace_in("save", checkpoint_path=tmp), max_iterations=steps,
+                              device=dev, timing_out=timing)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    trace.close()
+    launches = {"attention_scores_dense": attention_scores_dense.launches,
+                "attention_scores_bwd": attention_scores_bwd.launches}
+    want = (SEQ_LEN - 1) * steps
+    if out["iteration"] != steps or timing["pipelined"] != pipelined:
+        fail(f"{tag}: train stopped at {out['iteration']} (pipelined {timing['pipelined']})")
+    if any(n != want for n in launches.values()):
+        fail(f"{tag}: kernel 3 and 4 launches {launches}, want {SEQ_LEN - 1} x {steps} = {want}")
+    if not all(np.isfinite(v) for v in out["losses"].values()):
+        fail(f"{tag}: losses {out['losses']}")
+    dt = events[0].elapsed_time(events[-1]) / (steps - 1)
+    rec = {"ms_per_step": dt, "videos_per_s": TRAIN_B / dt * 1e3, "wall_s": wall,
+           "bytes_per_group": timing["put_bytes"] / timing["put_groups"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+           **{k: timing[k] for k in ("loader", "compress", "collate", "put", "step", "fetch")}}
+    print(f"[28] {tag}: {dt:.1f} ms/step, {rec['videos_per_s']:.2f} videos/s over steps 2-"
+          f"{steps} (device step events); sections (s) "
+          f"{ {k: round(rec[k], 3) for k in ('loader', 'compress', 'collate', 'put', 'step', 'fetch')} }; "
+          f"{rec['bytes_per_group'] / 2**20:.2f} MiB to the device a group; peak device memory "
+          f"{rec['peak_gib']:.2f} GiB; run wall {wall:.1f} s; launches {launches} [{card}]")
+    return out, rec
+
+
+def phase_pipeline(card, dev="cuda"):
+    """Phase 28: the synchronous and the pipelined train loop in turns on
+    train_cfg() (B=32, N=64, bf16, dropout on), each with compression once,
+    the f32 parity of the two, and one device trace of pipelined steps.
+    Returns kernels 3 and 4's launches by path."""
+    from echr_tpu_torch.utils.profiling import TRACE_FILE, device_timeline
+
+    cfg = train_cfg()
+    runs = {"sync": [], "pipelined": []}
+    launches = {"attention_scores_dense": 0, "attention_scores_bwd": 0}
+    for name in ("sync", "pipelined", "pipelined", "sync") * PIPE_ROUNDS:
+        _, rec = pipeline_run(card, cfg, name == "pipelined", PIPE_STEPS, f"{name} f32 transfer",
+                              dev=dev)
+        runs[name].append(rec)
+        for k, v in rec["launches"].items():
+            launches[k] += v
+    bf16 = {}
+    for name in ("sync", "pipelined"):
+        _, bf16[name] = pipeline_run(card, cfg.replace_in("runtime", transfer_dtype="bfloat16"),
+                                     name == "pipelined", PIPE_STEPS, f"{name} bf16 transfer",
+                                     dev=dev)
+        for k, v in bf16[name]["launches"].items():
+            launches[k] += v
+    ms = {k: [r["ms_per_step"] for r in v] for k, v in runs.items()}
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    median = {k: float(np.median(v)) for k, v in ms.items()}
+    # the pairs of neighbouring runs: (sync, pipelined) and (pipelined, sync) of each round
+    wins = sum(p < s_ for s_, p in zip(ms["sync"], ms["pipelined"]))
+    print(f"[28] in turns ((sync, pipelined, pipelined, sync) x {PIPE_ROUNDS}): sync "
+          f"{[round(x, 1) for x in ms['sync']]} ms/step, pipelined "
+          f"{[round(x, 1) for x in ms['pipelined']]}; means {mean['sync']:.1f} / "
+          f"{mean['pipelined']:.1f}, medians {median['sync']:.1f} / {median['pipelined']:.1f} "
+          f"ms/step; the pipelined run faster in {wins} of {len(ms['sync'])} neighbouring pairs; "
+          f"bytes "
+          f"to the device a group f32 {runs['sync'][0]['bytes_per_group'] / 2**20:.2f} MiB, "
+          f"bf16 transfer {bf16['sync']['bytes_per_group'] / 2**20:.2f} MiB; bf16 transfer "
+          f"sync {bf16['sync']['ms_per_step']:.1f}, pipelined "
+          f"{bf16['pipelined']['ms_per_step']:.1f} ms/step [{card}]")
+    print(f"[28] train_pipeline: the pipelined loop's median ms/step is "
+          f"{median['pipelined'] / median['sync']:.3f}x the synchronous loop's on this card")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, traced = pipeline_run(card, cfg, True, TRACE_FROM + TRACE_STEPS,
+                                 f"pipelined, steps {TRACE_FROM}-{TRACE_FROM + TRACE_STEPS - 1} "
+                                 f"traced", trace_dir=tmp, dev=dev)
+        tl = device_timeline(os.path.join(tmp, TRACE_FILE))
+    for k, v in traced["launches"].items():
+        launches[k] += v
+    if not tl["kernels"]:
+        fail("[28] the device trace holds no kernel")
+    print(f"[28] device trace of {TRACE_STEPS} pipelined steps: window {tl['window_ms']:.1f} ms, "
+          f"device busy {tl['busy_share']:.4f} of it ({tl['kernels']} kernels, "
+          f"{tl['kernel_ms']:.1f} ms); H2D copies {tl['h2d_copies']} ({tl['h2d_ms']:.2f} ms), "
+          f"{tl['h2d_overlap_share']} of their time under a kernel; longest idle gap "
+          f"{tl['longest_idle_ms']:.2f} ms [{card}]")
+    pipeline_parity(dev)
+    return launches
+
+
+def pipeline_parity(dev="cuda"):
+    """f32, TF32 off, dropout off (steps without a generator): the
+    pipelined loop's parameters after PIPE_PARITY_STEPS steps are bit-equal
+    to the synchronous loop's."""
+    from echr_tpu_torch.engine import steps as steps_mod
+    from echr_tpu_torch.engine import train as train_mod
+
+    def no_dropout(state, batch, gen, *a, **k):
+        return steps_mod.train_step(state, batch, None, *a, **k)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 28's parity needs TF32 off")
+    cfg = train_cfg(compute_dtype="float32")
+    states = {}
+    with tempfile.TemporaryDirectory() as tmp, patched(train_mod, "train_step", no_dropout):
+        for name in ("sync", "pipelined"):
+            c = cfg.replace_in("runtime", train_pipeline=name == "pipelined")
+            out = train_mod.train(c.replace_in("save", checkpoint_path=tmp).replace(run_id=name),
+                                  max_iterations=PIPE_PARITY_STEPS, device=dev)
+            states[name] = out["state"]
+    pairs = [(a, b) for m in ("tap", "cg")
+             for a, b in zip(getattr(states["sync"], m).parameters(),
+                             getattr(states["pipelined"], m).parameters())]
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    print(f"[28] f32, dropout off, {PIPE_PARITY_STEPS} steps: {len(pairs)} parameter leaves, "
+          f"{differ} differ between the pipelined and the synchronous loop")
+    if differ:
+        fail("the pipelined loop's f32 parameters are not the synchronous loop's")
+
+
+def pervideo_eval(card, name, args, kw, usable, durations, json_path, kept=None,
+                  dev="cuda"):
+    """One eval_split pass of phase 29 after a warm-up of 4 videos: kernel 1
+    launches once a decode step and 29 times a val-loss call, kernel 2 once
+    a greedy decode step.  ``kept`` collects the first kernel-1 call of
+    each new row count (per-video bucket) of the pass.  Returns (launches,
+    eval videos/s)."""
+    from echr_tpu_torch.engine import evaluate
+    from echr_tpu_torch.models.beam import beam_search_batched
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops import attention as attention_ops
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    tap, cg, loader, cfg = args
+    evaluate.eval_split(tap, cg, loader, cfg, json_path, dict(kw, num_vids_eval=4),
+                        device=dev)
+    torch.cuda.synchronize()
+    for fn in (attention_scores_masked, greedy_head):
+        fn.launches = 0
+    for fn in (decoder_sample_batched, beam_search_batched):
+        fn.steps = 0
+    val_calls = []
+
+    def keep(*a):
+        if kept is not None and a[1].shape[1] not in {k[1].shape[1] for k in kept}:
+            kept.append(tuple(x.detach().clone() for x in a))
+    timing = {}
+    t0 = time.time()
+    with wrapped(evaluate, "val_loss_step", lambda *a: val_calls.append(1)), \
+            wrapped(attention_ops, "attention_scores_masked", keep):
+        preds, _, losses = evaluate.eval_split(tap, cg, loader, cfg, json_path,
+                                               dict(kw, timing_out=timing), device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    k1, k2 = attention_scores_masked.launches, greedy_head.launches
+    beam = kw.get("beam_size", 1) > 1
+    steps = beam_search_batched.steps if beam else decoder_sample_batched.steps
+    check_predictions(preds, usable, loader.dataset.ix_to_word, durations)
+    want_k1 = steps + (SEQ_LEN - 1) * len(val_calls)
+    want_k2 = 0 if beam else steps
+    if not (steps > 0 and k1 == want_k1 and k2 == want_k2):
+        fail(f"[29] {name}: kernel 1 launched {k1} times (want {want_k1}), kernel 2 {k2} "
+             f"(want {want_k2}) in {steps} decode steps and {len(val_calls)} val-loss calls")
+    if kw.get("get_eval_loss") and not (np.isfinite(losses).all() and (losses[:3] > 0).all()):
+        fail(f"[29] {name}: val losses {losses}")
+    n_caps = sum(len(c) for c in preds.values())
+    print(f"[29] eval_split {name}: {len(preds)} videos, {n_caps} captions, {steps} decode "
+          f"steps, {len(val_calls)} val-loss calls, kernel 1 launches {k1}, kernel 2 {k2}; "
+          f"{len(preds) / wall:.2f} eval videos/s, {n_caps / wall:.1f} captions/s over "
+          f"{wall:.2f} s without scoring; selections on the device "
+          f"{timing['device_selections']} [{card}]")
+    return {"attention_scores_masked": k1, "greedy_head": k2}, len(preds) / wall
+
+
+def phase_pervideo(card, dev="cuda"):
+    """Phase 29: the per-video paths on phase 18's val split and weights:
+    eval_split greedy (val losses on) and beam 4 beside
+    eval_split_batched's rate, their f32 parity, the eval CLI's default in
+    a child process, SCST at batch_size 1, and kernels 1 and 2 at the
+    per-video shapes.  Returns (launches by path, kernel 1's records,
+    kernel 2's records by rows)."""
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    from echr_tpu_torch.ops.kernel_head import split_plan
+
+    t_phase = time.time()
+    cfg, tap, cg, ds, loader = eval_setup()
+    usable = usable_val_videos(cfg, ds)
+    durations = {ds.get_example(ix).vid: ds.get_example(ix).duration for ix in ds.split_ix["val"]}
+    base = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False}
+    paths, kept = {}, []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths["eval_per_video_greedy"], rate = pervideo_eval(
+                card, "greedy", (tap, cg, loader, cfg), dict(base, get_eval_loss=True), usable,
+                durations, f"{tmp}/g.json", kept, dev)
+            paths["eval_per_video_beam"], _ = pervideo_eval(
+                card, f"beam {BEAM}", (tap, cg, loader, cfg),
+                dict(base, get_eval_loss=False, beam_size=BEAM), usable, durations,
+                f"{tmp}/b.json", kept, dev)
+            t0 = time.time()
+            preds, _, _ = eval_split_batched(tap, cg, loader, cfg, f"{tmp}/B.json",
+                                             dict(base, get_eval_loss=True),
+                                             batch_videos=EVAL_B, device=dev)
+            torch.cuda.synchronize()
+            batched_rate = len(preds) / (time.time() - t0)
+            print(f"[29] greedy with val losses: eval_split {rate:.2f} eval videos/s, "
+                  f"eval_split_batched ({EVAL_B} videos a group) {batched_rate:.2f} [{card}]")
+            eval_cli_child(card, tap, cg, cfg, ds, tmp, dev)
+    finally:
+        loader.load_state(loader.state())
+    pervideo_parity(dev)
+    paths["scst_per_video"] = pervideo_scst(card, dev)
+    k1 = {}
+    for args in kept:
+        tag = f"per_video_N{args[1].shape[1]}"
+        k1[tag] = kernel1_timing(card, f"a per-video call, N={args[1].shape[1]} rows", args)
+    del kept
+    dev = torch.device(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.RandomState(29)
+    heads = {}
+    for R in HEAD_ROWS:
+        args = head_inputs(rng, R, 1536, VOCAB + 1, torch.bfloat16, dev)
+        plan = split_plan(R, VOCAB + 1, sms, torch.bfloat16)
+        err, outs = head_check("29", f"R={R} ({plan[1]} splits)", args)
+        heads[f"R{R}"] = {**head_timing(card, args, outs, plan, tag="29"), "max_abs_err": err}
+    slower = [k for k, r in heads.items() if r["ms"] > r["plain_ms"]]
+    print(f"[29] kernel 2 against the plain bf16 head at per-video rows: "
+          f"{ {k: (round(r['ms'], 4), round(r['plain_ms'], 4)) for k, r in heads.items()} } "
+          f"ms; the kernel loses at {slower or 'no R'} [{card}]")
+    print(f"[29] phase wall {time.time() - t_phase:.1f} s [{card}]")
+    return paths, k1, heads
+
+
+def eval_cli_child(card, tap, cg, cfg, ds, tmp, dev="cuda"):
+    """python -m echr_tpu_torch.cli.eval with no --batch_videos, on a
+    checkpoint of phase 18's weights, in a child process: exit code 0, the
+    per-video eval_split ran, and its predictions file."""
+    from echr_tpu_torch.engine import checkpoint, steps
+
+    state = steps.init_train_state(cfg, tap, cg)
+    checkpoint.save_checkpoint(os.path.join(tmp, "PV", "model-best.ckpt"), state, cfg,
+                               iteration=0, epoch=0, best_val_score=0.0, vocab=ds.ix_to_word)
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "echr_tpu_torch.cli.eval", "--folder_id", "PV",
+                          "--checkpoint_path", tmp, "--flag_eval_what", "tap_cg", "--topN",
+                          str(TOP_N), "--no_language_eval", "--device", dev],
+                         capture_output=True, text=True, timeout=600)
+    log_text = res.stdout + res.stderr
+    ran = re.search(r"eval wall ([\d.]+)s \(([\d.]+) videos/s, eval_split\)", log_text)
+    if res.returncode != 0 or not ran:
+        fail(f"[29] cli.eval without --batch_videos: exit {res.returncode}\n{log_text[-3000:]}")
+    print(f"[29] cli.eval without --batch_videos: exit 0, eval_split ran, {ran.group(2)} "
+          f"videos/s over {ran.group(1)} s as it logs them; child wall {time.time() - t0:.1f} s "
+          f"[{card}]")
+
+
+def pervideo_parity(dev="cuda"):
+    """f32, TF32 off, phase 5's sharpened logit weights, the window sort
+    off: eval_split against eval_split_batched (tap_cg, val losses on):
+    the same videos and proposals, proposal scores within TOL, sentences
+    equal but
+    where the first differing token is a near-tie of the per-video decode
+    (top-2 gap below TIE_GAP), confidences of equal sentences within TOL a
+    token, val losses within 1e-5 relative."""
+    from echr_tpu_torch.engine import evaluate
+    from echr_tpu_torch.models import decoder
+
+    cfg, tap, cg, ds, loader = eval_setup(compute_dtype="float32", sort_decode_props=False)
+    with torch.no_grad():
+        cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False, "get_eval_loss": True}
+    gaps, on_decode, on_head = gap_recorder()
+    order = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with wrapped(evaluate, "decode_step", on_decode), \
+                    wrapped(decoder, "greedy_head", on_head), \
+                    wrapped(evaluate, "_prop_bucket", lambda n: order.append(n)):
+                want, _, want_loss = evaluate.eval_split(tap, cg, loader, cfg, f"{tmp}/v.json",
+                                                         dict(kw), device=dev)
+            got, _, got_loss = evaluate.eval_split_batched(tap, cg, loader, cfg,
+                                                           f"{tmp}/b.json", dict(kw),
+                                                           batch_videos=EVAL_B, device=dev)
+    finally:
+        loader.load_state(loader.state())
+    if sorted(got) != sorted(want) or not want or len(gaps) != len(want):
+        fail(f"[29] parity: {len(got)} and {len(want)} videos captioned, {len(gaps)} decodes")
+    differ, firsts, worst, score_err, n = 0, [], 0.0, 0.0, 0
+    for u, vid in enumerate(want):  # the per-video pass inserts in decode order
+        g_steps = torch.stack(gaps[u]).cpu().numpy()  # [steps, nb]
+        if len(got[vid]) != len(want[vid]):
+            fail(f"[29] parity: {vid} has {len(got[vid])} predictions against {len(want[vid])}")
+        for j, (g, w) in enumerate(zip(got[vid], want[vid])):
+            n += 1
+            # the encode runs at B=1 here and at B=EVAL_B there: its products
+            # may round otherwise, so the proposal scores agree within TOL
+            score_err = max(score_err, abs(g["proposal_score"] - w["proposal_score"]))
+            if g["timestamp"] != w["timestamp"] or not score_err <= TOL:
+                fail(f"[29] parity: {vid} proposal {j} differs in timestamp or proposal score")
+            if g["sentence"] == w["sentence"]:
+                err = abs(g["sentence_confidence"] - w["sentence_confidence"])
+                worst = max(worst, err / (len(w["sentence"].split()) + 1))
+                continue
+            tg, tw = g["sentence"].split() + [""], w["sentence"].split() + [""]
+            step = next(i for i, (a, b) in enumerate(zip(tg, tw)) if a != b)
+            differ += 1
+            firsts.append(float(g_steps[min(step, len(g_steps) - 1), j]))
+    rel = float((np.abs(got_loss[:3] - want_loss[:3]) / np.abs(want_loss[:3])).max())
+    print(f"[29] f32 eval_split against eval_split_batched: {len(want)} videos, {n} captions "
+          f"(per-video buckets {sorted(set(order))}), {differ} sentences differ (top-2 gaps at "
+          f"their first difference {[round(x, 7) for x in firsts]}); max|d| confidence "
+          f"{worst:.3e} a token, proposal score {score_err:.3e}; val losses "
+          f"{np.round(want_loss[:3], 6).tolist()} (rel {rel:.2e})")
+    if any(x >= TIE_GAP for x in firsts) or not worst <= TOL or not rel <= 1e-5:
+        fail("[29] eval_split and eval_split_batched disagree beyond the near-ties")
+
+
+def pervideo_scst(card, dev="cuda"):
+    """PV_SCST_STEPS SCST steps of train() at batch_size 1 (the per-video
+    _self_critical_step) on scst_cfg() at f32 with TF32 off (phase 24's
+    gate: a bf16 replay rounds otherwise): the replay's tokens and active
+    equal the rollout's and its logps equal theirs within 1e-5 up to each
+    row's end token (the same dropout masks), finite losses, and kernels
+    1-4 launched as phase 23 counts them.  Returns their launches."""
+    from echr_tpu_torch.engine import rl
+    from echr_tpu_torch.engine import steps as steps_mod
+    from echr_tpu_torch.engine.train import train
+    from echr_tpu_torch.ops.kernel_attention import (attention_scores_bwd,
+                                                     attention_scores_dense,
+                                                     attention_scores_masked)
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    kernels = (attention_scores_masked, greedy_head, attention_scores_dense,
+               attention_scores_bwd)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 29's SCST needs TF32 off")
+    cfg = scst_cfg(compute_dtype="float32").replace_in("train", batch_size=1)
+    fn = steps_mod.decoder_sample_batched  # the rollout's and the replay's decode
+    sampled, replays = [], []
+
+    def keep(dec, cfg_, ctxs, dtype=torch.float32, greedy=True, temperature=1.0,
+             sample_gen=None, train=False, gen=None, forced=None):
+        out = fn(dec, cfg_, ctxs, dtype, greedy, temperature, sample_gen, train, gen, forced)
+        if forced is not None:
+            replays.append(tuple(x.detach() for x in out))
+        elif not greedy:
+            sampled.append(out)
+        return out
+    timing = {}
+    for k in kernels:
+        k.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp, patched(steps_mod, "decoder_sample_batched",
+                                                           keep):
+            out = train(cfg.replace_in("save", checkpoint_path=tmp),
+                        max_iterations=PV_SCST_STEPS, device=dev, timing_out=timing)
+            torch.cuda.synchronize()
+    finally:
+        rl.close_default_reward_pool()
+    launches = {k.__name__: k.launches for k in kernels}
+    sc = timing["scst"]
+    if not (out["iteration"] == len(sc) == len(sampled) == len(replays) == PV_SCST_STEPS):
+        fail(f"[29] SCST at batch_size 1: {out['iteration']} steps, {len(sampled)} rollouts, "
+             f"{len(replays)} replays")
+    worst = 0.0
+    for (s_seq, s_lp, s_act), (r_seq, r_lp, r_act) in zip(sampled, replays):
+        emitted = s_seq > 0
+        upto_end = torch.cat([torch.ones_like(emitted[..., :1]), emitted[..., :-1]], dim=-1)
+        if not (torch.equal(s_seq, r_seq) and torch.equal(s_act, r_act)):
+            fail("[29] SCST at batch_size 1: the replay's tokens are not the rollout's")
+        worst = max(worst, float(((s_lp - r_lp).abs() * upto_end).max()))
+    if not worst <= 1e-5 or not all(np.isfinite(v) for v in out["losses"].values()):
+        fail(f"[29] SCST at batch_size 1: replay logps max|d| {worst:.3e}, losses "
+             f"{out['losses']}")
+    n_samp = sum(s["sample_steps"] for s in sc)
+    n_greedy = sum(s["greedy_steps"] for s in sc)
+    want = {"attention_scores_masked": n_greedy, "greedy_head": n_greedy,
+            "attention_scores_dense": n_samp + SEQ_LEN * PV_SCST_STEPS,
+            "attention_scores_bwd": SEQ_LEN * PV_SCST_STEPS}
+    if launches != want:
+        fail(f"[29] SCST at batch_size 1: launches {launches}, want {want}")
+    part = {k: 1000 * np.mean([s[k] for s in sc[1:]]) for k in ("rollout", "reward", "update")}
+    print(f"[29] SCST at batch_size 1 (the per-video step, N={cfg.tap.prop_sample_num}, f32, "
+          f"TF32 off, dropout on): {out['iteration']} steps; the replay's logps equal the rollout's "
+          f"within {worst:.2e} up to each end token; launches {launches}; after the first step "
+          f"rollouts {part['rollout']:.1f} ms, reward {part['reward']:.1f} ms, update "
+          f"{part['update']:.1f} ms a step [{card}]")
+    return launches
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -3420,6 +3893,9 @@ def main():
     sample_k1 = phase_sample_eval(card)
     family, head["by_width"] = phase_family(card)
     real, k1_inputs["sota_eval"], head["sota_eval"] = phase_real_data(card)
+    pipe_launches = phase_pipeline(card)
+    pervideo, k1_pervideo, head["per_video_rows"] = phase_pervideo(card)
+    k1_inputs.update(k1_pervideo)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -3442,14 +3918,18 @@ def main():
                 "scst_train": scst_launches["attention_scores_masked"],
                 "eval_sampled": sample_k1,
                 "decoder_family": family["attention_scores_masked"],
-                **{name: n["attention_scores_masked"] for name, n in real.items()}}
+                **{name: n["attention_scores_masked"] for name, n in real.items()},
+                **{name: n["attention_scores_masked"] for name, n in pervideo.items()}}
     k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
                 "checkpointed_train": ckpt_launches["greedy_head"],
                 "scst_train": scst_launches["greedy_head"],
                 "decoder_family": family["greedy_head"],
-                **{name: n["greedy_head"] for name, n in real.items()}}
+                **{name: n["greedy_head"] for name, n in real.items()},
+                **{name: n["greedy_head"] for name, n in pervideo.items()}}
     k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k],
-                           "scst_train": scst_launches[k], "decoder_family": family[k]}
+                           "scst_train": scst_launches[k], "decoder_family": family[k],
+                           "train_sync_and_pipelined": pipe_launches[k],
+                           "scst_per_video": pervideo["scst_per_video"][k]}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",

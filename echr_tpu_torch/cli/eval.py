@@ -3,10 +3,12 @@ eval.py:26-154).
 
 Loads the best or last checkpoint of a run folder (either package's
 format v2), overlays the CLI flags onto the checkpoint's config
-(reference: eval.py:32-35), rebuilds the loader and runs the batched eval
-driver, ``eval_split_batched``, with ``--batch_videos`` videos a group
-(default 8), for --flag_eval_what in {tap, cg, tap_cg, cg_extend,
-SOTA_TEP}, on ``--device`` (default ``cuda``).  --SOTA_json overrides the
+(reference: eval.py:32-35), rebuilds the loader and runs the eval, for
+--flag_eval_what in {tap, cg, tap_cg, cg_extend, SOTA_TEP}, on
+``--device`` (default ``cuda``): without ``--batch_videos`` (or with 1)
+the per-video ``eval_split``, as echr_tpu's CLI does, and with
+``--batch_videos`` > 1 the batched driver, ``eval_split_batched``, with
+that many videos a group.  --SOTA_json overrides the
 external-proposal file (reference: eval.py:146).  ``--sample_max 0``
 decodes by multinomial sampling at ``--temperature`` with
 ``--sample_seed``.  Not ported, each raising NotImplementedError:
@@ -25,7 +27,7 @@ import numpy as np
 from echr_tpu_torch.data.dataset import build_dataset
 from echr_tpu_torch.data.loader import Loader
 from echr_tpu_torch.engine import checkpoint as ckpt
-from echr_tpu_torch.engine.evaluate import eval_split_batched
+from echr_tpu_torch.engine.evaluate import eval_split, eval_split_batched
 
 log = logging.getLogger("echr_tpu_torch.eval_cli")
 
@@ -59,8 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the multinomial draws (sample_max=0)")
     p.add_argument("--wait_for_checkpoint", type=int, default=0,
                    help="poll until the checkpoint exists (reference: eval.py:53-55)")
-    p.add_argument("--batch_videos", type=int, default=8,
-                   help="videos a group of the batched eval driver")
+    p.add_argument("--batch_videos", type=int, default=None,
+                   help="videos a group: unset or 1 runs the per-video eval_split, > 1 the "
+                        "batched eval_split_batched")
     p.add_argument("--data_parallel", type=int, default=0,
                    help=">1 would shard the eval over that many GPUs (not ported)")
     p.add_argument("--eval_inflight", type=int, default=None,
@@ -92,7 +95,7 @@ def _not_ported(ns) -> None:
     if any(os.environ.get(k) for k in _CLUSTER_ENV):
         raise NotImplementedError(
             f"a multi-host eval ({' / '.join(_CLUSTER_ENV)} set) is not ported: ROADMAP.md A.13")
-    if ns.batch_videos < 1:
+    if ns.batch_videos is not None and ns.batch_videos < 1:
         raise ValueError(f"--batch_videos must be >= 1, got {ns.batch_videos}")
 
 
@@ -101,6 +104,8 @@ def main(argv=None) -> str:
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(message)s")
     ns = build_parser().parse_args(argv)
     _not_ported(ns)
+    if ns.batch_videos is None:
+        ns.batch_videos = 1  # the per-video eval_split, echr_tpu's default
     folder = os.path.join(ns.checkpoint_path, ns.folder_id)
     path = ns.model_path or os.path.join(folder, f"model-{ns.which}.ckpt")
     while not os.path.exists(path):
@@ -129,7 +134,7 @@ def main(argv=None) -> str:
         cfg = cfg.replace_in("runtime", transfer_dtype=ns.transfer_dtype)
     # a group drains batch_videos items at once: a prefetch queue of two
     # groups keeps the producer ahead of the consumer
-    if cfg.data.prefetch < 2 * ns.batch_videos:
+    if ns.batch_videos > 1 and cfg.data.prefetch < 2 * ns.batch_videos:
         cfg = cfg.replace_in("data", prefetch=2 * ns.batch_videos)
     dataset = build_dataset(cfg)
     loader = Loader(dataset, cfg, process_index=0, process_count=1, seed=0)
@@ -145,8 +150,10 @@ def main(argv=None) -> str:
     json_path = os.path.join(folder, f"eval_{stamp}.json")
     tm: dict = {}
     t0 = time.time()
+    batched = ns.batch_videos > 1
     try:
-        preds, scores, _ = eval_split_batched(
+        run = eval_split_batched if batched else eval_split
+        preds, scores, _ = run(
             state.tap, state.cg, loader, cfg, json_path,
             eval_kwargs={
                 "split": ns.split,
@@ -170,15 +177,18 @@ def main(argv=None) -> str:
                 **({"device_select": bool(ns.device_select)}
                    if ns.device_select is not None else {}),
             },
-            flag_eval_what=ns.flag_eval_what, batch_videos=ns.batch_videos, device=ns.device)
+            flag_eval_what=ns.flag_eval_what, device=ns.device,
+            **({"batch_videos": ns.batch_videos} if batched else {}))
     finally:
         loader.load_state(loader.state())  # stops and joins the prefetch threads
     eval_wall = time.time() - t0
     avg = {k: float(np.asarray(v, dtype=float).mean()) for k, v in scores.items()}
     log.info("predictions: %d videos -> %s", len(preds), json_path)
     # the eval's own wall time: no process start, no checkpoint load
-    log.info("eval wall %.2fs (%.2f videos/s), grid_fallbacks %d", eval_wall,
-             len(preds) / max(eval_wall, 1e-9), tm.get("grid_fallbacks", 0))
+    log.info("eval wall %.2fs (%.2f videos/s, %s), grid_fallbacks %d", eval_wall,
+             len(preds) / max(eval_wall, 1e-9),
+             f"eval_split_batched, {ns.batch_videos} videos a group" if batched else "eval_split",
+             tm.get("grid_fallbacks", 0))
     log.info("avg scores: %s", {k: round(v, 4) for k, v in avg.items()})
     return json_path
 

@@ -9,10 +9,11 @@ properties, as in echr_tpu.
 RuntimeConfig holds only the runtime fields the port reads:
 ``compute_dtype``, ``transfer_dtype``, ``use_pallas`` (the decode kernels),
 ``use_pallas_train`` (the training kernels), ``sort_decode_props``,
-``decode_early_exit_batched``, ``fused_loss_head`` and ``hang_warn_s`` (the
-eval loop's watchdog).  echr_tpu's other runtime fields are TPU knobs
-(meshes, SPMD mode, buffer donation, pipelining, the Pallas T ceilings,
-the streaming-head gate, preemption checks) or options of paths not ported
+``decode_early_exit_batched``, ``fused_loss_head``, ``hang_warn_s`` (the
+eval loop's watchdog), ``train_pipeline`` and ``train_inflight`` (the
+pipelined train loop).  echr_tpu's other runtime fields are TPU knobs
+(meshes, SPMD mode, buffer donation, the Pallas T ceilings, the
+streaming-head gate, preemption checks) or options of paths not ported
 yet; they are dropped.
 ``from_json`` ignores them in echr_tpu's JSON, and ``replace_in`` and the
 CLI parser (``build_argparser`` / ``parse_config``, echr_tpu's flag
@@ -202,13 +203,29 @@ class RuntimeConfig:
     """Runtime knobs the port reads; see the module docstring."""
 
     compute_dtype: str = "bfloat16"  # matmul operands; sums stay f32
-    transfer_dtype: str = "float32"  # host->device C3D payload ("bfloat16" halves it)
+    # host->device C3D payload: "bfloat16" halves it, and the synchronous
+    # loop (SCST, m_batch > 1, batch_size 1) then pays the host cast on its
+    # main thread, where the pipelined loop pays it on the producer's
+    transfer_dtype: str = "float32"
     use_pallas: bool = True  # the port: the no-grad decode kernels
     use_pallas_train: bool = True  # the port: kernels 3 and 4
     sort_decode_props: bool = True  # decode sorts proposals by window start
     decode_early_exit_batched: bool = True  # batched decode: one batch-wide exit
     fused_loss_head: bool = True
     hang_warn_s: float = 600.0  # watchdog deadline of the eval loop; <= 0 disables it
+    # the pipelined train loop (engine/train.py, _TrainPrep): a host thread
+    # pulls, compresses and collates, a second uploads, and the metrics of
+    # the steps are fetched in deferred batches; the trajectory is the
+    # synchronous loop's.  Taken with batch_size > 1, m_batch 1 and no SCST.
+    # echr_tpu's default, kept: on an NVIDIA H100 80GB HBM3 at 700.00 W
+    # (chip_smoke.py phase 28, B=32 at the flagship width, bf16 compute, f32
+    # transfer, 24 pairs in turns over 6 runs of phase 28) it won 13 of 24
+    # pairs, median 756.0 against 780.65 ms/step, within the spread between
+    # runs; with transfer_dtype "bfloat16" it won all 6
+    train_pipeline: bool = True
+    # dispatched-but-unfetched steps before the pipelined loop fetches the
+    # older half of their metrics, which waits for those steps to finish
+    train_inflight: int = 2
 
 
 @dataclass(frozen=True)
@@ -358,8 +375,7 @@ _OVERWRITTEN_FLAGS = (
 _DROPPED_RUNTIME_FLAGS = (
     "decode_early_exit", "donate_step_args", "mesh_axis_names", "mesh_shape",
     "pallas_decode_t_max", "pallas_decode_t_max_sorted", "param_dtype",
-    "preempt_check_every", "scst_resident_vjp", "spmd_mode", "train_inflight",
-    "train_pipeline", "use_pallas_head",
+    "preempt_check_every", "scst_resident_vjp", "spmd_mode", "use_pallas_head",
 )
 
 

@@ -13,9 +13,14 @@ proposals, ``data.SOTA_json``).  A caption's re_score is
 group's draws from a generator seeded by (``sample_seed``, the group's
 dispatch index), so one seed gives one predictions JSON.
 
-Not ported, each raising NotImplementedError: the per-video ``eval_split``
-(ROADMAP.md A.9-A.10) and the multi-device sweep (``mesh`` / ``multihost``,
-A.13).
+``eval_split`` is echr_tpu's per-video loop: one video at a time through
+the encode, the selection, the decode of its proposals padded to their own
+bucket (``PROP_BUCKETS``, not topN) and its val losses, in every mode and
+option of the batched driver, with the same predictions.  It is the eval
+CLI's default and the training gate's at eval.batch_videos <= 1.
+
+Not ported, raising NotImplementedError: the multi-device sweep (``mesh`` /
+``multihost``, ROADMAP.md A.13).
 """
 from __future__ import annotations
 
@@ -39,11 +44,17 @@ from echr_tpu_torch.data.loader import Loader
 from echr_tpu_torch.engine import proposals as P
 from echr_tpu_torch.engine.steps import (
     batch_to_device,
+    beam_decode_step,
     beam_decode_step_batched,
+    decode_step,
     decode_step_batched,
+    encode_step,
     encode_step_batched,
+    fetch_host,
+    host_tensor,
     select_topk_batched,
     unpack_topk_selection,
+    val_loss_step,
     val_loss_step_batched,
 )
 from echr_tpu_torch.metrics.eval_score import eval_score
@@ -138,14 +149,15 @@ def select_proposals(flag_eval_what, batch, meta, pp, masks, cfg, *, nms_thresho
 
 
 def device_selection_row(flag_eval_what, idx_row, cnt, conf_row, nb_sel, batch, meta, cfg, *,
-                         nms_threshold, val_score_thres, topN, grid_fetch):
+                         nms_threshold, val_score_thres, topN, grid_fetch, want_cg_sel=False):
     """One video's selection from a select_topk_batched fetch: trusted when
     its count fits the nb_sel slots; for 'tap', whose host selection is
     unbounded, a count past them (a threshold-tie storm) falls back to the
     host path over the video's score grid, ``grid_fetch()`` (a host array;
-    rows past n_frames are cut here).  The batched loop computes its val
-    losses on the device, so cg_sel is not derived: it comes back empty
-    unless the host path ran.
+    rows past n_frames are cut here).  ``want_cg_sel`` derives cg_sel from
+    the video's label grids at the selected anchors, as P.top_proposals
+    does; the batched loop computes its val losses on the device and does
+    not ask for it, so cg_sel comes back empty unless the host path ran.
 
     Returns ((ind, soi, cg_sel, timestamps, tap_prob), fell_back)."""
     if flag_eval_what == "tap" and int(cnt) > nb_sel:
@@ -156,34 +168,229 @@ def device_selection_row(flag_eval_what, idx_row, cnt, conf_row, nb_sel, batch, 
                                 topN=topN), True
     ind, soi, ts, tp = unpack_topk_selection(idx_row, cnt, nb_sel, cfg.tap.K, meta.n_frames,
                                              meta.duration, conf_row)
-    return (ind, soi, [], ts, tp), False
+    cg_sel: List[int] = []
+    if want_cg_sel:
+        gi = getattr(meta, "gts_index", None)
+        iou = getattr(meta, "iou_scores", None)
+        if gi is not None and np.size(gi) and iou is not None:
+            cg_gts = np.asarray(gi) * (np.asarray(iou) >= cfg.tap.iou_threshold_for_good_proposal)
+            flat = np.asarray(idx_row)[: min(int(cnt), nb_sel)].astype(np.int64)
+            cg_sel = cg_gts[flat // cfg.tap.K, flat % cfg.tap.K].astype(np.int64).tolist()
+    return (ind, soi, cg_sel, ts, tp), False
 
 
-def eval_split(*args, **kwargs):
-    """The per-video eval loop (echr_tpu/engine/evaluate.py:174) is not
-    ported: it needs the per-video decode.  eval_split_batched gives the
-    same predictions."""
-    raise NotImplementedError(
-        "eval_split (per-video decode) is not ported: ROADMAP.md A.9-A.10; "
-        "use eval_split_batched")
+def _write_predictions(predictions: Dict, json_path: str) -> None:
+    pred2json = {
+        "results": predictions,
+        "version": "VERSION 1.0",
+        "external_data": {"used": True, "details": "C3D features"},
+    }
+    os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
+    with open(json_path, "w") as f:
+        json.dump(pred2json, f)
+
+
+def _score(json_path: str, loader: Loader, cfg: Config, kw: Dict, flag_eval_what: str,
+           topN: int, val_all_metrics: bool) -> Dict[str, np.ndarray]:
+    """The dense-captioning metrics of a predictions JSON (empty without
+    language_eval)."""
+    score: Dict[str, np.ndarray] = {}
+    if kw.get("language_eval", cfg.eval.language_eval):
+        references = kw.get("references") or list(cfg.eval.references)
+        sample_score = eval_score(
+            json_path, only_recall=(flag_eval_what == "tap"), verbose=bool(val_all_metrics),
+            topN=topN, references=references, gt_from_loader=loader,
+            meteor_synonyms=cfg.eval.meteor_synonyms,
+            meteor_paraphrases=cfg.eval.meteor_paraphrases)
+        for k, v in sample_score.items():
+            score[k] = np.array(v)
+    return score
+
+
+def eval_split(
+    tap: SST,
+    cg: Captioner,
+    loader: Loader,
+    cfg: Config,
+    json_path: str,
+    eval_kwargs: Optional[Dict] = None,
+    flag_eval_what: str = "tap_cg",
+    device="cuda",
+) -> Tuple[Dict, Dict, np.ndarray]:
+    """echr_tpu's per-video eval loop (echr_tpu/engine/evaluate.py:174-414):
+    returns (predictions, score dict, mean val losses [5]) and writes the
+    predictions JSON to ``json_path``.
+
+    Each usable video in turn: the SST encode, the proposal selection (on
+    the device for 'tap' / 'tap_cg' without NMS, else on the host), the
+    greedy, multinomial (``sample_max=0``) or beam decode of its proposals
+    padded to their bucket (``_prop_bucket``), whose padding rows are cut,
+    and its val losses when the selection matched a GT row (``cg_sel`` not
+    empty).  The models move to ``device`` and are cast to the compute
+    dtype once, here; every product runs on the caller's thread.  The
+    multinomial draws of the k-th usable video come from a generator seeded
+    by (``sample_seed``, k).  ``eval_kwargs`` takes eval_split_batched's
+    keys; a ``timing_out`` dict receives device_selections, grid_fallbacks
+    and grid_fetches, as echr_tpu's."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"eval_split(device={device!r}): CUDA is not available")
+    if flag_eval_what not in _MODES:
+        raise ValueError(f"flag_eval_what {flag_eval_what!r} not supported")
+    kw = dict(eval_kwargs or {})
+    split = kw.get("split", "val")
+    val_score_thres = kw.get("val_score_thres", cfg.eval.val_score_thres)
+    nms_threshold = kw.get("nms_threshold", cfg.eval.nms_threshold)
+    is_reranking = kw.get("reranking", cfg.eval.reranking)
+    topN = kw.get("topN", cfg.eval.topN)
+    num_vids_eval = kw.get("num_vids_eval", cfg.eval.num_vids_eval) or loader.split_size(split)
+    get_eval_loss = kw.get("get_eval_loss", True)
+    val_all_metrics = kw.get("val_all_metrics", cfg.eval.val_all_metrics)
+    greedy = bool(int(kw.get("sample_max", cfg.eval.sample_max)))
+    temperature = float(kw.get("temperature", cfg.eval.temperature))
+    sample_seed = int(kw.get("sample_seed", 0))
+    beam_size = int(kw.get("beam_size", cfg.eval.beam_size) or 1)
+    length_alpha = float(kw.get("beam_length_alpha", cfg.eval.beam_length_alpha))
+    use_dev_sel = (bool(kw.get("device_select", cfg.eval.device_select))
+                   and flag_eval_what in ("tap", "tap_cg") and not nms_threshold)
+    tm = kw.get("timing_out")
+    if tm is not None:
+        for k in ("device_selections", "grid_fallbacks", "grid_fetches"):
+            tm.setdefault(k, 0)
+
+    dt = cfg.runtime.compute_dtype
+    tap = cast_compute_dtype(tap.to(dev), dt)
+    cg = cast_compute_dtype(cg.to(dev), dt)
+
+    def to_dev(x) -> torch.Tensor:
+        return host_tensor(x).to(dev, non_blocking=True)
+
+    # decode-only: no training-label synthesis in the batcher; cg /
+    # cg_extend need the label fields, and so do the val losses
+    decode_only = (not get_eval_loss) and flag_eval_what in ("tap", "tap_cg", "SOTA_TEP")
+    labels_before = loader.labels_for(split)
+    vocab = loader.dataset.ix_to_word
+    predictions: Dict[str, List[dict]] = {}
+    loss_sum = np.zeros(5)
+    it = 0
+    progress_every = max(num_vids_eval // 100, 1)
+    gc_was_enabled = _gc.isenabled()
+    wd = HangWatchdog("eval", cfg.runtime.hang_warn_s)
+    try:
+        loader.set_labels(not decode_only, split)
+        loader.reset_iterator(split)
+        if gc_was_enabled and bool(kw.get("gc_pause", True)):
+            _gc.disable()
+        wd.start()
+        while True:
+            wd.beat()
+            batch, meta = loader.get_batch(split)
+            if it % progress_every == 0 and it:
+                log.info("generating result.json: %.1f%%", 100.0 * it / num_vids_eval)
+            if meta.proposal_num <= 0 or meta.n_frames <= 1:
+                if meta.wrapped or it >= num_vids_eval:
+                    break
+                continue
+
+            feats = to_dev(batch.feats).float()
+            tap_feats, pred_props = encode_step(tap, feats, cfg)
+            sel = None
+            if use_dev_sel:
+                nb_sel = PROP_BUCKETS[-1]
+                idx, cnt, conf = fetch_host(*select_topk_batched(
+                    pred_props[None], to_dev(np.array([meta.n_frames], np.int32)), topN=topN,
+                    nb=nb_sel, val_score_thres=val_score_thres))
+                sel, fell_back = device_selection_row(
+                    flag_eval_what, idx[0], cnt[0], conf[0], nb_sel, batch, meta, cfg,
+                    nms_threshold=nms_threshold, val_score_thres=val_score_thres, topN=topN,
+                    grid_fetch=lambda: fetch_host(pred_props.float())[0], want_cg_sel=True)
+                if tm is not None:
+                    tm["grid_fallbacks"] += int(fell_back)
+                    tm["device_selections"] += int(not fell_back)
+            if sel is None:
+                need_grid = flag_eval_what in ("tap", "tap_cg")
+                pp = masks = None
+                if need_grid:
+                    if tm is not None:
+                        tm["grid_fetches"] += 1
+                    pp = fetch_host(pred_props.float())[0][: meta.n_frames]
+                    masks = np.asarray(batch.tap_masks)[: meta.n_frames]
+                sel = select_proposals(flag_eval_what, batch, meta, pp, masks, cfg,
+                                       nms_threshold=nms_threshold,
+                                       val_score_thres=val_score_thres, topN=topN)
+            if sel is None:  # SOTA_TEP video without external proposals
+                log.info("bad video for SOTA_TEP, vid:%s", meta.vid)
+                if meta.wrapped or it >= num_vids_eval:
+                    break
+                continue
+            ind, soi, cg_sel, timestamps, tap_prob = sel
+
+            sents: List[str] = []
+            cg_score: List[float] = []
+            if len(ind) and flag_eval_what == "tap":
+                sents = ["" for _ in ind]
+                cg_score = [0.0] * len(ind)
+            elif len(ind):
+                nb = _prop_bucket(len(ind))
+                n_real = min(len(ind), nb)
+                props = ProposalBatch(*(to_dev(x) for x in _pad_props(ind[:nb], soi[:nb], nb)))
+                args = (cg, cfg, tap_feats, feats, to_dev(batch.lda).float(),
+                        to_dev(batch.frame_mask).float(), props)
+                if beam_size > 1:
+                    seq, logprob = fetch_host(*beam_decode_step(*args, beam_size,
+                                                                length_alpha=length_alpha))
+                    cg_score = logprob[:n_real].astype(float).tolist()
+                    sents = decode_sequence(vocab, seq[:n_real])
+                else:
+                    sample_gen = None
+                    if not greedy:
+                        sample_gen = torch.Generator(device=dev)
+                        sample_gen.manual_seed(_group_seed(sample_seed, it))
+                    seq, logps, active = fetch_host(*decode_step(
+                        *args, greedy=greedy, temperature=temperature, sample_gen=sample_gen))
+                    if bool(active[0]):  # else the reference's sample() returned []
+                        cg_score = logps[:n_real].sum(axis=1).astype(float).tolist()
+                        sents = decode_sequence(vocab, seq[:n_real])
+
+            if get_eval_loss and split != "test" and len(cg_sel):
+                m = val_loss_step(tap, cg, batch_to_device(batch, dev), cfg,
+                                  phase=("tap" if flag_eval_what == "tap" else "tap_cg"))
+                names = list(m)
+                m = dict(zip(names, fetch_host(*(m[k] for k in names))))
+                loss_sum[0] += float(m["tap_loss"])
+                if flag_eval_what != "tap":
+                    loss_sum[1] += float(m["cg_loss"])
+                    loss_sum[2] += float(m["total_loss"])
+
+            vid_info = [
+                {"sentence": sent, "timestamp": list(timestamps[i]),
+                 "sentence_confidence": cg_score[i], "proposal_score": float(tap_prob[i]),
+                 "re_score": 10 * float(tap_prob[i]) + float(cg_score[i]),
+                 "num": [i, len(sents)]}
+                for i, sent in enumerate(sents)
+            ]
+            if vid_info:
+                if is_reranking:
+                    vid_info = P.rerank_top10(vid_info)
+                predictions[meta.vid] = vid_info
+            it += 1
+            if meta.wrapped or it >= num_vids_eval:
+                break
+    finally:
+        wd.stop()
+        loader.set_labels(labels_before, split)
+        if gc_was_enabled and not _gc.isenabled():
+            _gc.enable()
+            _gc.collect()
+    _write_predictions(predictions, json_path)
+    score = _score(json_path, loader, cfg, kw, flag_eval_what, topN, val_all_metrics)
+    return predictions, score, loss_sum / max(it, 1)
 
 
 def _group_seed(sample_seed: int, dispatch: int) -> int:
     """The seed of a multinomial decode's draws: one stream per group, by
     its dispatch index (echr_tpu's fold_in(PRNGKey(sample_seed), k))."""
     return int(np.random.SeedSequence([sample_seed, dispatch]).generate_state(1, np.uint64)[0])
-
-
-def _fetch(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
-    """Host copies of ``tensors`` with one synchronisation: the copies are
-    queued on the current stream, then one event is waited on."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return tuple(t.numpy() for t in tensors)
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    done = torch.cuda.Event()
-    done.record()
-    done.synchronize()
-    return tuple(h.numpy() for h in host)
 
 
 def eval_split_batched(
@@ -229,7 +436,6 @@ def eval_split_batched(
         raise ValueError(f"flag_eval_what {flag_eval_what!r} not supported")
     kw = dict(eval_kwargs or {})
     split = kw.get("split", "val")
-    lang_eval = kw.get("language_eval", cfg.eval.language_eval)
     val_score_thres = kw.get("val_score_thres", cfg.eval.val_score_thres)
     nms_threshold = kw.get("nms_threshold", cfg.eval.nms_threshold)
     is_reranking = kw.get("reranking", cfg.eval.reranking)
@@ -339,10 +545,10 @@ def eval_split_batched(
 
         t0 = _clk.time()
         if a["device_sel"]:
-            idx_np, cnt_np, conf_np = _fetch(*a["sel_dev"])
+            idx_np, cnt_np, conf_np = fetch_host(*a["sel_dev"])
             pp_b = None
         else:
-            (pp_b,) = _fetch(a["pred_props_b"].float())
+            (pp_b,) = fetch_host(a["pred_props_b"].float())
         tm["select_fetch"] += _clk.time() - t0
 
         t0 = _clk.time()
@@ -353,7 +559,7 @@ def eval_split_batched(
                 (ind, soi, _, ts, tp), fell_back = device_selection_row(
                     flag_eval_what, idx_np[i], cnt_np[i], conf_np[i], a["nb_sel"], batch, meta,
                     cfg, nms_threshold=nms_threshold, val_score_thres=val_score_thres,
-                    topN=topN, grid_fetch=lambda i=i: _fetch(a["pred_props_b"][i].float())[0])
+                    topN=topN, grid_fetch=lambda i=i: fetch_host(a["pred_props_b"][i].float())[0])
                 tm["grid_fallbacks"] += int(fell_back)
             else:
                 pp = pp_b[i][: meta.n_frames]
@@ -369,7 +575,7 @@ def eval_split_batched(
         if "loss_m" in a and any(len(s[0]) for s in sel):
             t0 = _clk.time()
             names = list(a["loss_m"])
-            m = dict(zip(names, _fetch(*(a["loss_m"][k] for k in names))))
+            m = dict(zip(names, fetch_host(*(a["loss_m"][k] for k in names))))
             has_sel = np.array([len(s[0]) > 0 for s in sel], bool)
             loss_sum[0] += float(m["tap_loss"][:B][has_sel].sum())
             if flag_eval_what != "tap":
@@ -422,10 +628,10 @@ def eval_split_batched(
         is_beam = active_b is None  # beam entries carry [B, N] total logprobs
         with on_device():
             if is_beam:
-                seq_np, logps_np = _fetch(seq_b, logps_b)
+                seq_np, logps_np = fetch_host(seq_b, logps_b)
                 active_np = None
             else:
-                seq_np, logps_np, active_np = _fetch(seq_b, logps_b, active_b)
+                seq_np, logps_np, active_np = fetch_host(seq_b, logps_b, active_b)
         tm["decode_fetch"] += _clk.time() - t0
         t0 = _clk.time()
         for i, ((batch, meta), (ind, soi, ts, tp)) in enumerate(zip(items, sel)):
@@ -557,23 +763,6 @@ def eval_split_batched(
     if isinstance(kw.get("timing_out"), dict):
         kw["timing_out"].update(tm)
 
-    pred2json = {
-        "results": predictions,
-        "version": "VERSION 1.0",
-        "external_data": {"used": True, "details": "C3D features"},
-    }
-    os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
-    with open(json_path, "w") as f:
-        json.dump(pred2json, f)
-
-    score: Dict[str, np.ndarray] = {}
-    if lang_eval:
-        references = kw.get("references") or list(cfg.eval.references)
-        sample_score = eval_score(
-            json_path, only_recall=(flag_eval_what == "tap"), verbose=bool(val_all_metrics),
-            topN=topN, references=references, gt_from_loader=loader,
-            meteor_synonyms=cfg.eval.meteor_synonyms,
-            meteor_paraphrases=cfg.eval.meteor_paraphrases)
-        for k, v in sample_score.items():
-            score[k] = np.array(v)
+    _write_predictions(predictions, json_path)
+    score = _score(json_path, loader, cfg, kw, flag_eval_what, topN, val_all_metrics)
     return predictions, score, loss_sum / max(it_vids, 1)

@@ -22,6 +22,15 @@ reference casts inside every jitted step; here CaptionService and
 ``engine.evaluate.eval_split_batched`` cast at entry) and runs under
 ``torch.inference_mode``; ``val_loss_step_batched`` takes them cast too
 and runs under ``torch.no_grad``.
+
+The per-video steps (``encode_step``, ``val_loss_step``, ``decode_step``,
+``beam_decode_step``, ``rl_rollout_step``, ``rl_update_step``) take one
+video's tensors and run the batched step on a batch of one.
+
+Every training step returns its metrics as 0-d tensors on the device, so
+that no metric makes the host wait; ``fetch_metrics`` copies them to the
+host with one synchronisation.  ``batch_to_device`` takes a plain or a
+compressed batch (bf16 features, uint8 grids) and lifts it on the device.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from echr_tpu_torch.models.captioner import (
     Captioner,
     ProposalBatch,
     captioner_sample,
+    captioner_sample_one,
     captioner_train_forward,
     captioner_train_loss,
     make_contexts,
@@ -89,19 +99,68 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
     return state
 
 
-def batch_to_device(batch: VideoBatch, device) -> VideoBatch:
-    """A numpy VideoBatch stacked over [B] -> tensors on ``device``: integer
-    fields as int64, every other field as f32 (uint8 grids and bf16 features
-    are lifted to f32, as the reference's decompress_batch does).  The
-    copies are queued without a stream sync: each source is a fresh
-    pageable array, which the copy stages before it returns."""
-    def up(x):
-        a = np.asarray(x)
-        if np.issubdtype(a.dtype, np.integer) and a.dtype != np.uint8:
-            return torch.from_numpy(a.astype(np.int64)).to(device, non_blocking=True)
-        return torch.from_numpy(a.astype(np.float32)).to(device, non_blocking=True)
+def upload_batch(batch: VideoBatch, device) -> VideoBatch:
+    """Copies on ``device`` of a VideoBatch's fields (numpy arrays or CPU
+    tensors) in their own dtypes: what crosses to the device is the host
+    bytes, so a compressed batch (engine.train._compress_batch: feats as
+    bf16 tensors, the {0,1} grids as uint8) crosses compressed.  The copies
+    are queued without a stream sync: each source is pageable, and the copy
+    stages it before it returns."""
+    return VideoBatch(*(host_tensor(x).to(device, non_blocking=True, copy=True)
+                        for x in batch))
 
-    return VideoBatch(*(up(x) for x in batch))
+
+def host_tensor(x) -> torch.Tensor:
+    """A CPU tensor of ``x`` (a tensor, a numpy array or scalar), sharing
+    the array's memory where it is writable."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def lift_batch(batch: VideoBatch) -> VideoBatch:
+    """The step's dtypes, on the batch's device: integer fields as int64
+    and every other field as f32, so bf16 features and uint8 grids become
+    f32 as echr_tpu's decompress_batch makes them (exact for the grids)."""
+    def up(t):
+        if t.is_floating_point() or t.dtype == torch.uint8:
+            return t.float()
+        return t.long()
+
+    return VideoBatch(*(up(t) for t in batch))
+
+
+def batch_to_device(batch: VideoBatch, device) -> VideoBatch:
+    """A VideoBatch, compressed or not, as the step's tensors on
+    ``device``: upload_batch, then lift_batch there."""
+    return lift_batch(upload_batch(batch, device))
+
+
+def fetch_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """Host copies of ``tensors`` with one synchronisation: the copies are
+    queued on the current stream, then one event is waited on."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return tuple(t.numpy() for t in tensors)
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return tuple(h.numpy() for h in host)
+
+
+def fetch_metrics(*metrics: Dict) -> List[Dict[str, float]]:
+    """The steps' metric dicts (0-d tensors, as the steps return them, or
+    floats) as dicts of floats: every tensor stacked on its device and
+    copied to the host with one synchronisation."""
+    keys = [(i, k) for i, m in enumerate(metrics) for k, v in m.items()
+            if isinstance(v, torch.Tensor)]
+    out = [dict(m) for m in metrics]
+    if keys:
+        (vals,) = fetch_host(torch.stack([metrics[i][k].float() for i, k in keys]))
+        for (i, k), v in zip(keys, vals.tolist()):
+            out[i][k] = v
+    return [{k: float(v) for k, v in m.items()} for m in out]
 
 
 def _select_props(batch: VideoBatch, phase: str
@@ -157,18 +216,20 @@ def _batch_losses(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: 
 
 def grad_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generator],
               cfg: Config, phase: str, ss_prob: float = 0.0
-              ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, float]]:
+              ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, torch.Tensor]]:
     """Gradients of the phase loss (the mean over the batch's videos) for
-    every parameter of both models, and the metrics as floats.  Dropout and
-    scheduled sampling draw from ``gen``; ``gen=None`` turns both off."""
+    every parameter of both models, and the metrics as 0-d tensors on the
+    device (``fetch_metrics`` makes them floats).  Dropout and scheduled
+    sampling draw from ``gen``; ``gen=None`` turns both off."""
     return _phase_grads(state, cfg, phase, _batch_losses, batch, phase, gen, ss_prob)
 
 
 def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args
-                 ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, float]]:
+                 ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, torch.Tensor]]:
     """Gradients of the phase loss of losses_fn(models, cfg, *args), a dict
     of batch-mean losses computed with the weights in the compute dtype,
-    for every parameter of both models; and the metrics as floats."""
+    for every parameter of both models; and the metrics as detached 0-d
+    tensors on the device, so that no metric makes the host wait."""
     models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})  # one cast for both
     params = list(models.parameters())
     metrics = call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
@@ -178,8 +239,8 @@ def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args
     # an unused parameter has a zero gradient (Adam still steps it, as optax does)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     n_tap = len(list(state.tap.parameters()))
-    out = {k: float(v.detach()) for k, v in metrics.items()}
-    out["loss"] = float(loss.detach())
+    out = {k: v.detach() for k, v in metrics.items()}
+    out["loss"] = loss.detach()
     return (grads[:n_tap], grads[n_tap:]), out
 
 
@@ -207,9 +268,9 @@ def apply_grads(state: TrainState, tap_g: List[torch.Tensor], cg_g: List[torch.T
 
 def train_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generator],
                cfg: Config, phase: str, ss_prob: float = 0.0
-               ) -> Tuple[TrainState, Dict[str, float]]:
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One training step over a [B]-video batch of tensors on the models'
-    device (``batch_to_device``)."""
+    device (``batch_to_device``); the metrics stay on the device."""
     (tap_g, cg_g), metrics = grad_step(state, batch, gen, cfg, phase, ss_prob)
     return apply_grads(state, tap_g, cg_g, cfg, phase), metrics
 
@@ -297,13 +358,14 @@ def _rl_losses(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: str
 
 def rl_update_step_batched(state: TrainState, batch: VideoBatch, cfg: Config, phase: str,
                            gen: Optional[torch.Generator], gen_seq: torch.Tensor,
-                           reward: torch.Tensor) -> Tuple[TrainState, Dict[str, float]]:
+                           reward: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """The policy-gradient update of a [B]-video batch: the rollout's tokens
     ``gen_seq`` replayed with ``gen`` in the state the rollout started from,
     each video's reward loss (``reward`` [B, N, L]) with its own
     denominators, the mean over videos, and one dual-Adam step: the TAP
-    model only in 'tap_cg' / 'gt_tap_cg', the captioner always.  Metrics:
-    tap_loss, cg_loss (the reward loss), total_loss, avg_reward and loss."""
+    model only in 'tap_cg' / 'gt_tap_cg', the captioner always.  Metrics
+    (0-d tensors on the device): tap_loss, cg_loss (the reward loss),
+    total_loss, avg_reward and loss."""
     grads, metrics = _phase_grads(state, cfg, phase, _rl_losses, batch, phase, gen, gen_seq,
                                   reward)
     return apply_grads(state, grads[0], grads[1], cfg, phase), metrics
@@ -404,3 +466,81 @@ def beam_decode_step_batched(cg: Captioner, cfg: Config, tap_feats: torch.Tensor
                               early_exit=bool(cfg.runtime.decode_early_exit_batched),
                               dtype=compute_dtype(cfg.runtime.compute_dtype))
     return res.seq, res.logprob
+
+
+# ---------------------------------------------------------------------------
+# per-video steps: one video's tensors, no batch axis (echr_tpu's
+# encode_step, val_loss_step, decode_step, beam_decode_step, rl_rollout_step
+# and rl_update_step), each the batched step on a batch of one
+# ---------------------------------------------------------------------------
+
+
+def one_video(batch: VideoBatch) -> VideoBatch:
+    """A one-video VideoBatch as a batch of one."""
+    return VideoBatch(*(x[None] for x in batch))
+
+
+def _one_props(props: ProposalBatch) -> ProposalBatch:
+    return ProposalBatch(*(x[None] for x in props))
+
+
+def encode_step(sst: SST, feats: torch.Tensor, cfg: Config
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode SST over one video's [T, D] -> (tap_feats [T, H], scores
+    [T, K])."""
+    tap_feats, scores = encode_step_batched(sst, feats[None], cfg)
+    return tap_feats[0], scores[0]
+
+
+def val_loss_step(tap: SST, cg: Captioner, batch: VideoBatch, cfg: Config,
+                  phase: str = "tap_cg") -> Dict[str, torch.Tensor]:
+    """Eval-mode losses of one video (reference: eval_utils.py:139-155):
+    tap_loss, and cg_loss and total_loss unless phase is 'tap', 0-d each.
+    ``tap`` and ``cg`` are cast to the compute dtype already."""
+    return {k: v[0] for k, v in val_loss_step_batched(tap, cg, one_video(batch), cfg,
+                                                      phase).items()}
+
+
+@torch.inference_mode()
+def decode_step(cg: Captioner, cfg: Config, tap_feats: torch.Tensor, feats: torch.Tensor,
+                lda: torch.Tensor, frame_mask: torch.Tensor, props: ProposalBatch,
+                greedy: bool = True, temperature: float = 1.0,
+                sample_gen: Optional[torch.Generator] = None):
+    """Greedy, or multinomial at ``temperature``, decode of one video's
+    proposals (props of [N] rows, padded to a bucket): (seq [N, L], logps
+    [N, L], active [L]).  The early exit is the video's own."""
+    return captioner_sample_one(cg, cfg, tap_feats, feats, lda, props, frame_mask,
+                                compute_dtype(cfg.runtime.compute_dtype), greedy, temperature,
+                                sample_gen)
+
+
+def beam_decode_step(cg: Captioner, cfg: Config, tap_feats: torch.Tensor,
+                     feats: torch.Tensor, lda: torch.Tensor, frame_mask: torch.Tensor,
+                     props: ProposalBatch, beam_size: int, length_alpha: float = 0.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam decode of one video's proposals: (seq [N, L] of the best beam,
+    its logprob [N]); bucket-padding rows come back as zeros."""
+    seq, logprob = beam_decode_step_batched(cg, cfg, tap_feats[None], feats[None], lda[None],
+                                            frame_mask[None], _one_props(props), beam_size,
+                                            length_alpha)
+    return seq[0], logprob[0]
+
+
+def rl_rollout_step(state: TrainState, batch: VideoBatch, cfg: Config, phase: str,
+                    gen: Optional[torch.Generator], sample_gen: torch.Generator
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """SCST rollouts of one video: (tap_loss, gen_seq [N, L], greedy_seq
+    [N, L]), as rl_rollout_step_batched makes them."""
+    tap_l, gen_seq, greedy_seq = rl_rollout_step_batched(state, one_video(batch), cfg, phase,
+                                                         gen, sample_gen)
+    return tap_l[0], gen_seq[0], greedy_seq[0]
+
+
+def rl_update_step(state: TrainState, batch: VideoBatch, cfg: Config, phase: str,
+                   gen: Optional[torch.Generator], gen_seq: torch.Tensor, reward: torch.Tensor
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The policy-gradient update of one video's rollout ``gen_seq`` [N, L]
+    with ``reward`` [N, L] (``gen`` restored to its state before the
+    rollout), as rl_update_step_batched makes it."""
+    return rl_update_step_batched(state, one_video(batch), cfg, phase, gen, gen_seq[None],
+                                  reward[None])

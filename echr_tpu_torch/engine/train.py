@@ -29,9 +29,17 @@ only with dropout and scheduled sampling off (the cores' fixed dropout of
 0.5 on their streams has no setting: only steps without a generator are
 free of it).
 
-Not ported, raising NotImplementedError: transfer compression (ROADMAP.md
-A.8).  The pipelined producer is not ported either; this loop is the
-reference's synchronous one, which gives the same trajectory.
+With ``train_pipeline`` (batch_size > 1, m_batch 1, no SCST) the loop is
+echr_tpu's pipelined one (``_loop_pipelined``): a host thread pulls,
+skips bad videos, compresses and collates, a second thread uploads each
+group on its own CUDA stream, and the steps' metrics are fetched in
+deferred batches; the trajectory is the synchronous loop's, bit for bit.
+Otherwise the synchronous loop fetches each step's metrics with one
+synchronisation.  ``transfer_dtype="bfloat16"`` sends the features as bf16
+and the {0,1} grids as uint8 (``_compress_batch``); the step lifts them to
+f32 on the device.  At batch_size 1 SCST takes the per-video step
+(``_self_critical_step``), and at eval.batch_videos <= 1 the gate runs the
+per-video ``eval_split``.
 
 ``get_training_list``, ``current_lr``, ``current_ss_prob``, ``_collate``,
 ``_BucketCollator``, ``overlay_resumed_config`` and the preemption handler
@@ -41,9 +49,11 @@ from __future__ import annotations
 
 import logging
 import os
+import queue
 import shutil
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,14 +64,21 @@ from echr_tpu_torch.data.batcher import VideoBatch
 from echr_tpu_torch.data.dataset import build_dataset
 from echr_tpu_torch.data.loader import Loader
 from echr_tpu_torch.engine import checkpoint as ckpt
-from echr_tpu_torch.engine.evaluate import eval_split_batched
-from echr_tpu_torch.engine.rl import default_reward_pool, self_critical_reward_batched
+from echr_tpu_torch.engine.evaluate import eval_split, eval_split_batched
+from echr_tpu_torch.engine.rl import (
+    default_reward_pool,
+    self_critical_reward_batched,
+)
 from echr_tpu_torch.engine.steps import (
     TrainState,
     apply_grads,
     batch_to_device,
+    fetch_host,
+    fetch_metrics,
     grad_step,
+    host_tensor,
     init_train_state,
+    lift_batch,
     rl_rollout_step_batched,
     rl_update_step_batched,
     set_lr,
@@ -127,13 +144,64 @@ def current_ss_prob(cfg: Config, epoch: int) -> float:
     return min(t.scheduled_sampling_increase_prob * (frac + 1), t.scheduled_sampling_max_prob)
 
 
+def _stack(xs) -> object:
+    """Stack arrays, or bf16 CPU tensors (a compressed batch's features:
+    numpy has no bf16), over a new leading axis.  The tensors are stacked
+    as their 16-bit patterns in numpy, so that no torch op runs on the
+    producer's thread."""
+    if isinstance(xs[0], torch.Tensor):
+        return _bf16_tensor(np.stack([x.view(torch.int16).numpy() for x in xs]))
+    return np.stack([np.asarray(x) for x in xs])
+
+
 def _stack_batch(batch: VideoBatch) -> VideoBatch:
-    return VideoBatch(*(np.asarray(x)[None] for x in batch))
+    return VideoBatch(*(_stack([x]) for x in batch))
 
 
 def _collate(batches: List[VideoBatch]) -> VideoBatch:
     """Stack same-bucket videos into a [B, ...] batch."""
-    return VideoBatch(*(np.stack([np.asarray(x) for x in xs]) for xs in zip(*batches)))
+    return VideoBatch(*(_stack(xs) for xs in zip(*batches)))
+
+
+def _nbytes(batch: VideoBatch) -> int:
+    return sum(host_tensor(x).nbytes for x in batch)
+
+
+# {0,1}-valued grids: exact in uint8 (steps.lift_batch restores f32)
+_BINARY_FIELDS = ("tap_labels", "tap_masks", "frame_mask", "prop_mask",
+                  "cg_masks", "gts_mask", "gts_cg_masks")
+
+
+def _bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    """A bf16 CPU tensor over an array of bf16 bit patterns (int16)."""
+    return torch.from_numpy(bits).view(torch.bfloat16)
+
+
+def _to_bf16(x) -> torch.Tensor:
+    """f32 -> a bf16 CPU tensor, rounded to nearest even by integer ops on
+    the f32 bits in numpy: the bits of echr_tpu's ml_dtypes cast (a NaN
+    stays a quiet NaN of its sign).  A torch cast here would start
+    an intra-op thread team on the producer's thread beside the steps'."""
+    f = np.ascontiguousarray(x, np.float32)
+    u = f.view(np.uint32)
+    bits = ((u + (np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))) >> 16).astype(np.uint16)
+    nan = np.isnan(f)
+    bits[nan] = (u[nan] >> 16).astype(np.uint16) & np.uint16(0x8000) | np.uint16(0x7FC0)
+    return _bf16_tensor(bits.view(np.int16))
+
+
+def _compress_batch(batch: VideoBatch, cfg: Config) -> VideoBatch:
+    """With runtime.transfer_dtype "bfloat16", the host->device payload of
+    one video shrinks: the features travel as bf16 (a CPU tensor, rounded to
+    nearest even: the bits of echr_tpu's ml_dtypes cast) and the {0,1}
+    grids as uint8 (exact).  steps.lift_batch restores f32 on the device.
+    Any other transfer_dtype returns the batch as it is."""
+    if cfg.runtime.transfer_dtype != "bfloat16":
+        return batch
+    reps = {"feats": _to_bf16(batch.feats)}
+    for f in _BINARY_FIELDS:
+        reps[f] = np.asarray(getattr(batch, f)).astype(np.uint8)
+    return batch._replace(**reps)
 
 
 class _BucketCollator:
@@ -155,31 +223,226 @@ class _BucketCollator:
         return None
 
 
-def _not_ported(cfg: Config) -> None:
-    """Raise for the options whose code is not ported yet."""
-    if cfg.runtime.transfer_dtype != "float32":
-        raise NotImplementedError("not ported to echr_tpu_torch yet: transfer compression "
-                                  "(runtime.transfer_dtype, ROADMAP.md A.8)")
+class _PrepItem(NamedTuple):
+    stacked: VideoBatch  # the host [B, ...] group; after the put stage, its device copy
+    metas: List  # each video's BatchMeta
+    last_batch: VideoBatch  # the completing pull's host batch (the checkpoint histograms)
+    epoch_at_step: int  # the step's epoch: wraps before the completing pull
+    epoch_after: int  # the epoch after the completing pull's wrap
+    bad_delta: int  # bad-video skips in this item's span of pulls
+    loader_state: Dict  # loader.state() right after the completing pull
+    ready: Optional[torch.cuda.Event] = None  # the upload's completion
+
+
+_PREP_STOP = object()
+
+
+def _upload(batch: VideoBatch, device: torch.device, stream) -> tuple:
+    """The put stage's copy of a host group to ``device``, in its own
+    dtypes (compressed bytes cross compressed): on CUDA from pinned memory
+    on ``stream``, waited for here, so the pinned sources may go when this
+    returns.  Returns (device batch, the copy's event or None)."""
+    if stream is None:
+        return VideoBatch(*(host_tensor(x).to(device, copy=True) for x in batch)), None
+    pinned = [host_tensor(x).pin_memory() for x in batch]
+    with torch.cuda.stream(stream):
+        raw = [p.to(device, non_blocking=True) for p in pinned]
+    ready = torch.cuda.Event()
+    ready.record(stream)
+    ready.synchronize()
+    return VideoBatch(*raw), ready
+
+
+def _consume(raw: VideoBatch, ready: Optional[torch.cuda.Event], device) -> VideoBatch:
+    """A put-stage batch on the caller's stream: the stream waits for the
+    upload's event, and each tensor is marked as used there
+    (record_stream), so that the caching allocator does not hand its memory
+    back to the upload stream while the step still reads it; then
+    lift_batch."""
+    if ready is not None:
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(ready)
+        for t in raw:
+            t.record_stream(cur)
+    return lift_batch(raw)
+
+
+class _TrainPrep:
+    """The pipelined train loop's producer (echr_tpu/engine/train.py
+    _TrainPrep): the host stage (thread "train-prep": loader pulls,
+    bad-video skips, compression, bucket collation) and the put stage
+    (thread "train-put": the host-to-device upload on its own CUDA stream)
+    run beside the steps that the main thread queues.  It produces the
+    synchronous loop's stream of groups from the one Loader, in its order,
+    and each item carries the bookkeeping from which the consumer rebuilds
+    the synchronous loop's epochs and its checkpointable loader state.
+
+    Neither stage runs a product: while any thread holds a bf16 block of
+    ops.core.matmul, TF32 is on for every thread's f32 products."""
+
+    def __init__(self, loader: Loader, cfg: Config, batch_size: int, epoch0: int,
+                 n_epochs: int, device: torch.device, depth: int = 2):
+        if device.type == "cuda" and device.index is None:  # the put thread sets it
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.loader, self.cfg, self.batch_size = loader, cfg, batch_size
+        self.epoch0, self.n_epochs, self.device = epoch0, n_epochs, device
+        self.q_host: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.abort = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.progress = 0  # pulls and uploads done: get() beats the watchdog on it
+        self.final_epoch = epoch0  # valid once the host stage exits
+        self.tm = {"loader": 0.0, "compress": 0.0, "collate": 0.0, "put": 0.0, "put_bytes": 0,
+                   "put_groups": 0}
+        self.thread = threading.Thread(target=self._run, daemon=True, name="train-prep")
+        self.put_thread = threading.Thread(target=self._run_put, daemon=True, name="train-put")
+        self.thread.start()
+        self.put_thread.start()
+
+    def _run(self) -> None:
+        tic = time.perf_counter
+        try:
+            collator = _BucketCollator(self.batch_size)
+            wraps, bad = 0, 0
+            while not self.abort.is_set() and self.epoch0 + wraps < self.n_epochs:
+                t0 = tic()
+                batch, meta = self.loader.get_batch("train")
+                self.tm["loader"] += tic() - t0
+                self.progress += 1
+                if meta.proposal_num <= 0 or meta.n_frames <= 1:
+                    bad += 1
+                    wraps += int(meta.wrapped)
+                    continue
+                t0 = tic()
+                batch = _compress_batch(batch, self.cfg)
+                self.tm["compress"] += tic() - t0
+                epoch_at_step = self.epoch0 + wraps
+                t0 = tic()
+                res = collator.add(batch, meta)
+                self.tm["collate"] += tic() - t0
+                if res is None:
+                    wraps += int(meta.wrapped)
+                    continue
+                stacked, metas = res
+                item = _PrepItem(stacked, metas, batch, epoch_at_step,
+                                 epoch_at_step + int(meta.wrapped), bad, self.loader.state())
+                bad = 0
+                wraps += int(meta.wrapped)
+                if not self._enqueue(self.q_host, item):
+                    return  # aborted
+            self.final_epoch = self.epoch0 + wraps
+        except BaseException as e:  # raised by get() on the main thread
+            self.error = e
+        finally:
+            self._enqueue(self.q_host, _PREP_STOP)
+
+    def _run_put(self) -> None:
+        """The put stage: uploads the host groups in their order."""
+        tic = time.perf_counter
+        try:
+            stream = None
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+                stream = torch.cuda.Stream(self.device)
+            while not self.abort.is_set():
+                try:
+                    item = self.q_host.get(timeout=0.2)
+                except queue.Empty:
+                    if not self.thread.is_alive() and self.q_host.empty():
+                        break
+                    continue
+                if item is _PREP_STOP:
+                    break
+                t0 = tic()
+                raw, ready = _upload(item.stacked, self.device, stream)
+                self.tm["put"] += tic() - t0
+                self.tm["put_bytes"] += _nbytes(item.stacked)
+                self.tm["put_groups"] += 1
+                self.progress += 1
+                if not self._enqueue(self.q, item._replace(stacked=raw, ready=ready)):
+                    return  # aborted
+        except BaseException as e:
+            if self.error is None:
+                self.error = e
+        finally:
+            self._enqueue(self.q, _PREP_STOP)
+
+    def _enqueue(self, q: "queue.Queue", item) -> bool:
+        while not self.abort.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def get(self, stop_requested, beat=lambda: None):
+        """The next group.  Returns _PREP_STOP once the curriculum is done or
+        stop_requested() turns true while waiting; raises the producer's
+        exception.  While it waits, beat() is called whenever the producer
+        has pulled or uploaded since the last look: a wait on a live
+        producer is no hang, a stuck one leaves the watchdog to fire."""
+        seen = self.progress
+        while True:
+            try:
+                item = self.q.get(timeout=0.2)
+            except queue.Empty:
+                if self.error is not None:
+                    raise self.error
+                if self.progress != seen:
+                    seen = self.progress
+                    beat()
+                if stop_requested():
+                    return _PREP_STOP
+                if not self.put_thread.is_alive() and self.q.empty():
+                    if self.error is not None:
+                        raise self.error
+                    return _PREP_STOP
+                continue
+            if item is _PREP_STOP and self.error is not None:
+                raise self.error
+            return item
+
+    def stop(self) -> None:
+        """Abort both stages and join them."""
+        self.abort.set()
+        for q in (self.q, self.q_host):
+            try:  # drain, so that a blocked _enqueue wakes and sees the abort
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        self.thread.join(timeout=10.0)
+        self.put_thread.join(timeout=10.0)
+        if self.thread.is_alive() or self.put_thread.is_alive():
+            log.warning("train prep / put thread did not join within 10 s")
 
 
 def train(cfg: Config, max_iterations: Optional[int] = None, device="cuda",
           timing_out: Optional[Dict] = None) -> Dict:
     """Run the curriculum on ``device``.  Returns a summary: iteration,
-    epoch, best_val_score, save_folder, the last step's losses, the state,
-    the config and the loader (stopped).
+    epoch, best_val_score, save_folder, the last step's losses (floats),
+    the state, the config and the loader (stopped).
 
     ``timing_out`` (optional) receives cumulative seconds per loop section,
-    "loader" (get_batch), "collate", "step" (the step up to its metrics on
-    the host, which waits for the device) and "boundary" (log, eval and
-    checkpoint work); "iters", (iteration, perf_counter) after each step;
-    "ckpt", (iteration, seconds) of each checkpoint boundary; and for
-    each SCST step "scst", a dict of the rollouts', the host reward's and
-    the update's seconds, the sampled and the greedy decode's steps, the
-    reward rows, the pool's workers and the step's avg_reward."""
+    "loader" (get_batch), "compress" (the host bf16 / uint8 casts),
+    "collate", "put" (the pipelined loop's upload stage), "step" (the step's
+    launches, with the synchronous loop's upload), "fetch" (the metrics'
+    copies to the host, which wait for the device) and "boundary" (log,
+    eval and checkpoint work); "put_bytes" and "put_groups", the bytes the
+    groups sent to the device and their count (the pipelined loop's
+    producer runs ahead of the steps); "pipelined", whether the pipelined
+    loop ran; "iters",
+    (iteration, perf_counter) after each step is queued; "ckpt",
+    (iteration, seconds) of each checkpoint boundary; and for each SCST step
+    "scst", a dict of the rollouts', the host reward's and the update's
+    seconds, the sampled and the greedy decode's steps, the reward rows, the
+    pool's workers and the step's avg_reward.  The pipelined loop's
+    "loader", "compress", "collate" and "put" are its threads' seconds, which
+    overlap the steps."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"train(device={str(device)!r}): CUDA is not available")
-    _not_ported(cfg)
     save_folder = os.path.join(cfg.save.checkpoint_path, cfg.run_id)
     os.makedirs(os.path.join(save_folder, "pred_sent"), exist_ok=True)
     handler = _setup_logger(save_folder)
@@ -246,9 +509,19 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
     metrics: Dict[str, float] = {}
     acc_grads = None  # m_batch gradient accumulation
     t_start = time.time()
-    tm: Dict = {"loader": 0.0, "collate": 0.0, "step": 0.0, "boundary": 0.0, "iters": [],
+    tm: Dict = {"loader": 0.0, "compress": 0.0, "collate": 0.0, "put": 0.0, "step": 0.0,
+                "fetch": 0.0, "boundary": 0.0, "put_bytes": 0, "put_groups": 0, "iters": [],
                 "ckpt": [], "scst": []}
     tic = time.perf_counter
+
+    def _add_metrics(fetched: Dict[str, float], it: int, vid: str, phase: str) -> None:
+        nonlocal loss_count
+        if not np.isfinite(fetched["loss"]):
+            log.warning("non-finite loss %s at iter %d (vid %s, phase %s)", fetched["loss"],
+                        it, vid, phase)
+        for k, v in fetched.items():
+            loss_sum[k] = loss_sum.get(k, 0.0) + v
+        loss_count += 1
 
     def _log_boundary(phase: str) -> None:
         """losses_log_every boundary: the averaged-loss log line and TB
@@ -266,12 +539,14 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
         loss_sum, loss_count, bad_video_num = {}, 0, 0
         t_start = time.time()
 
-    def _ckpt_boundary(phase: str, ss_prob: float, hist_batch_raw: VideoBatch) -> None:
+    def _ckpt_boundary(phase: str, ss_prob: float, hist_batch_raw: VideoBatch,
+                       loader_state: Optional[Dict] = None) -> None:
         """save_checkpoint_every boundary: the gating eval, parameter and
         gradient histograms, last / best checkpoints (reference:
         train.py:360-466).  hist_batch_raw is the last single-video batch
-        pulled; its gradients are a fresh grad_step, as the reference logs
-        the latest step's .grad."""
+        consumed; its gradients are a fresh grad_step, as the reference logs
+        the latest step's .grad.  loader_state: the consumed snapshot, which
+        the pipelined loop passes (its producer runs ahead)."""
         nonlocal best_val_score
         # the gate runs minutes on a full split and has its own watchdog
         wd.suspend()
@@ -295,21 +570,119 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                 k: (np.asarray(v).tolist() if hasattr(v, "tolist") else v)
                 for k, v in eval_scores.items()}
             _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader, histories,
-                  dataset)
+                  dataset, loader_state=loader_state)
             if current_score > best_val_score:
                 best_val_score = current_score
                 _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader,
-                      histories, dataset, best=True)
+                      histories, dataset, best=True, loader_state=loader_state)
                 log.info("new best %.4f at iter %d", best_val_score, iteration)
         finally:
             wd.resume()
 
-    # preemption (echr_tpu's, which the reference lacks): SIGTERM sets a
-    # flag, the loop stops at the next iteration boundary, and the exit
-    # path below writes a resumable model-last.ckpt
-    preempt = _install_preemption_handler()
-    wd = HangWatchdog("train", cfg.runtime.hang_warn_s).start()
-    try:
+    def _loop_pipelined() -> None:
+        """echr_tpu's pipelined loop (engine/train.py _loop_pipelined): a
+        _TrainPrep producer overlaps the pulls, collation and upload with
+        the steps, and the metrics of the steps are fetched in deferred
+        batches.  A flush copies the oldest pending steps' metrics with one
+        synchronisation, which waits for those steps: it is also the bound
+        on the steps in flight (runtime.train_inflight).  The main thread
+        runs the steps in order, so dropout and scheduled sampling draw as
+        in the synchronous loop; the epoch, learning rate and phase follow
+        from each item's epoch_at_step / epoch_after, and checkpoints store
+        the consumed loader snapshot (item.loader_state), not the
+        producer's cursor."""
+        nonlocal state, epoch, iteration, lr, bad_video_num, metrics
+        # the snapshot before any item, taken before the producer starts
+        # pulling: a preemption before the first item checkpoints it
+        last_consumed = loader.state()
+        prep = _TrainPrep(loader, cfg, cfg.train.batch_size, epoch, len(curriculum), device)
+        pending: List = []  # (iteration, device metrics, vid, phase) awaiting a fetch
+        inflight = max(1, int(cfg.runtime.train_inflight))
+
+        def _flush_pending(n: Optional[int] = None) -> None:
+            """Fetch the oldest n pending steps' metrics (all at log and
+            checkpoint boundaries, which need the exact sums).  Past the
+            in-flight bound only the older half: a full flush would drain
+            the queue of steps and serialise the host with the device."""
+            nonlocal metrics
+            drain = pending if n is None else pending[:n]
+            if not drain:
+                return
+            t0 = tic()
+            fetched = fetch_metrics(*(p[1] for p in drain))
+            tm["fetch"] += tic() - t0
+            for (it_i, _, vid_i, phase_i), m in zip(drain, fetched):
+                _add_metrics(m, it_i, vid_i, phase_i)
+            metrics = fetched[-1]
+            del pending[:len(drain)]
+
+        try:
+            while True:
+                wd.beat()
+                item = prep.get(lambda: preempt["hit"], wd.beat)
+                if item is _PREP_STOP:
+                    if preempt["hit"]:
+                        log.warning("preemption: stopping before iter %d; resume with "
+                                    "--start_from", iteration + 1)
+                    else:
+                        # curriculum done: wraps on the dropped partial groups
+                        # advance the epoch as in the synchronous loop
+                        epoch = max(epoch, prep.final_epoch)
+                    break
+                bad_video_num += item.bad_delta
+                epoch = item.epoch_at_step
+                phase = (curriculum[min(iteration, len(curriculum) - 1)] if iter_indexed
+                         else curriculum[epoch])
+                new_lr = current_lr(cfg, epoch)
+                if new_lr != lr:
+                    lr = new_lr
+                    set_lr(state, lr)
+                ss_prob = current_ss_prob(cfg, epoch)
+                t0 = tic()
+                state, step_metrics = train_step(state, _consume(item.stacked, item.ready, device),
+                                                 gen, cfg, phase, ss_prob=ss_prob)
+                tm["step"] += tic() - t0
+                iteration += 1
+                epoch = item.epoch_after
+                last_consumed = item.loader_state
+                pending.append((iteration, step_metrics, item.metas[-1].vid, phase))
+                tm["iters"].append((iteration, tic()))
+
+                t_boundary = tic()
+                at_log = iteration % cfg.save.losses_log_every == 0
+                at_ckpt = (iteration % cfg.save.save_checkpoint_every == 0
+                           and epoch >= cfg.save.min_epoch_when_save)
+                if at_log or at_ckpt:
+                    _flush_pending()
+                elif len(pending) >= inflight:
+                    _flush_pending(max(1, len(pending) // 2))
+                if at_log:
+                    _log_boundary(phase)
+                if at_ckpt:
+                    t0 = tic()
+                    _ckpt_boundary(phase, ss_prob, item.last_batch, item.loader_state)
+                    tm["ckpt"].append((iteration, tic() - t0))
+                tm["boundary"] += tic() - t_boundary
+                if max_iterations and iteration >= max_iterations:
+                    break
+                if preempt["hit"]:
+                    log.warning("preemption: checkpointing at iter %d and exiting; resume "
+                                "with --start_from", iteration)
+                    break
+        finally:
+            prep.stop()
+            for k, v in prep.tm.items():
+                tm[k] += v
+        _flush_pending()
+        # rewind the loader to the last consumed snapshot: the producer ran
+        # ahead, and the exit's _save stores loader.state()
+        loader.load_state(last_consumed)
+
+    def _loop_sync() -> None:
+        """The reference's synchronous loop (train.py:252-349, echr_tpu's
+        single-host form): one step at a time, its metrics fetched with one
+        synchronisation."""
+        nonlocal state, epoch, iteration, lr, bad_video_num, metrics, acc_grads
         while epoch < len(curriculum):
             wd.beat()
             if preempt["hit"]:
@@ -332,21 +705,21 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                 if meta.wrapped:
                     epoch += 1
                 continue
+            t0 = tic()
+            batch = _compress_batch(batch, cfg)
+            tm["compress"] += tic() - t0
             sc_flag = (cfg.train.self_critical_after != -1
                        and epoch >= cfg.train.self_critical_after and phase != "tap")
-            if cfg.train.m_batch > 1 and not sc_flag:
-                # summed gradients over m_batch videos, one update
-                # (reference: train.py:281-283,294,316-329)
+            if sc_flag and collator is None:
+                # the per-video SCST step (echr_tpu's _self_critical_step)
+                tm["put_bytes"] += _nbytes(batch)
+                tm["put_groups"] += 1
                 t0 = tic()
-                grads, metrics = grad_step(state, batch_to_device(_stack_batch(batch), device),
-                                           gen, cfg, phase, ss_prob)
-                acc_grads = grads if acc_grads is None else tuple(
-                    [a + g for a, g in zip(acc, new)] for acc, new in zip(acc_grads, grads))
-                if (iteration + 1) % cfg.train.m_batch == 0:
-                    apply_grads(state, acc_grads[0], acc_grads[1], cfg, phase)
-                    acc_grads = None
+                state, step_metrics, sc_tm = _self_critical_step(
+                    state, batch, meta, cfg, phase, gen, sample_gen, dataset, device)
+                tm["scst"].append(sc_tm)
                 tm["step"] += tic() - t0
-            else:
+            elif sc_flag or cfg.train.m_batch <= 1:
                 t0 = tic()
                 if collator is not None:
                     res = collator.add(batch, meta)
@@ -357,26 +730,40 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                         continue
                     stacked, metas = res
                 else:
-                    stacked, metas = _stack_batch(batch), [meta]
+                    stacked = _stack_batch(batch)
                 tm["collate"] += tic() - t0
+                tm["put_bytes"] += _nbytes(stacked)
+                tm["put_groups"] += 1
                 t0 = tic()
                 if sc_flag:
-                    # batch_size <= 1 takes the batched step on one video
-                    state, metrics, sc_tm = _self_critical_step_batched(
+                    state, step_metrics, sc_tm = _self_critical_step_batched(
                         state, batch_to_device(stacked, device), metas, cfg, phase, gen,
                         sample_gen, dataset)
                     tm["scst"].append(sc_tm)
                 else:
-                    state, metrics = train_step(state, batch_to_device(stacked, device), gen,
-                                                cfg, phase, ss_prob=ss_prob)
+                    state, step_metrics = train_step(state, batch_to_device(stacked, device),
+                                                     gen, cfg, phase, ss_prob=ss_prob)
+                tm["step"] += tic() - t0
+            else:
+                # summed gradients over m_batch videos, one update
+                # (reference: train.py:281-283,294,316-329)
+                tm["put_bytes"] += _nbytes(batch)
+                tm["put_groups"] += 1
+                t0 = tic()
+                grads, step_metrics = grad_step(
+                    state, batch_to_device(_stack_batch(batch), device), gen, cfg, phase,
+                    ss_prob)
+                acc_grads = grads if acc_grads is None else tuple(
+                    [a + g for a, g in zip(acc, new)] for acc, new in zip(acc_grads, grads))
+                if (iteration + 1) % cfg.train.m_batch == 0:
+                    apply_grads(state, acc_grads[0], acc_grads[1], cfg, phase)
+                    acc_grads = None
                 tm["step"] += tic() - t0
             iteration += 1
-            if not np.isfinite(metrics["loss"]):
-                log.warning("non-finite loss %s at iter %d (vid %s, phase %s)",
-                            metrics["loss"], iteration, meta.vid, phase)
-            for k, v in metrics.items():
-                loss_sum[k] = loss_sum.get(k, 0.0) + v
-            loss_count += 1
+            t0 = tic()
+            (metrics,) = fetch_metrics(step_metrics)
+            tm["fetch"] += tic() - t0
+            _add_metrics(metrics, iteration, meta.vid, phase)
             tm["iters"].append((iteration, tic()))
             if meta.wrapped:
                 epoch += 1
@@ -396,6 +783,23 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                 log.warning("preemption: checkpointing at iter %d and exiting; resume with "
                             "--start_from", iteration)
                 break
+
+    # the pipelined loop's eligibility (echr_tpu's): batched groups, no
+    # m_batch accumulation and no SCST, which interleave host work with
+    # several device programs an update; the port is one process
+    pipelined = bool(cfg.runtime.train_pipeline and collator is not None
+                     and cfg.train.m_batch == 1 and cfg.train.self_critical_after == -1)
+    tm["pipelined"] = pipelined
+    # preemption (echr_tpu's, which the reference lacks): SIGTERM sets a
+    # flag, the loop stops at the next iteration boundary, and the exit
+    # path below writes a resumable model-last.ckpt
+    preempt = _install_preemption_handler()
+    wd = HangWatchdog("train", cfg.runtime.hang_warn_s).start()
+    try:
+        if pipelined:
+            _loop_pipelined()
+        else:
+            _loop_sync()
     finally:
         wd.stop()
         _restore_preemption_handler(preempt)
@@ -417,6 +821,18 @@ def _executed_steps(seq: np.ndarray) -> int:
     return min(last + 2, seq.shape[-1])
 
 
+def _self_critical_step(state: TrainState, batch: VideoBatch, meta, cfg: Config, phase: str,
+                        gen: Optional[torch.Generator], sample_gen: torch.Generator, dataset,
+                        device):
+    """One SCST step on one video, the host batch ``batch`` (echr_tpu's
+    _self_critical_step, batch_size 1): _self_critical_step_batched on a
+    batch of one, so the rollouts, the METEOR rewards of the video's
+    proposal rows and the replayed update are the batched step's.
+    Returns (state, metrics, timing)."""
+    return _self_critical_step_batched(state, batch_to_device(_stack_batch(batch), device),
+                                       [meta], cfg, phase, gen, sample_gen, dataset)
+
+
 def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg: Config,
                                 phase: str, gen: Optional[torch.Generator],
                                 sample_gen: torch.Generator, dataset):
@@ -431,14 +847,14 @@ def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg
     t0 = tic()
     drop_state = gen.get_state() if gen is not None else None
     _, gen_seq, greedy_seq = rl_rollout_step_batched(state, batch, cfg, phase, gen, sample_gen)
-    gen_np, greedy_np = gen_seq.cpu().numpy(), greedy_seq.cpu().numpy()
+    gen_np, greedy_np = fetch_host(gen_seq, greedy_seq)
     t1 = tic()
     if phase in ("cg", "gt_tap_cg"):
         gts = {i: list(m.sentences) for i, m in enumerate(metas)}
-        masks = batch.gts_mask.cpu().numpy()
+        (masks,) = fetch_host(batch.gts_mask)
     else:
         gts = {i: [m.sentences[int(j)] for j in m.cg_select] for i, m in enumerate(metas)}
-        masks = batch.prop_mask.cpu().numpy()
+        (masks,) = fetch_host(batch.prop_mask)
     pool = default_reward_pool()
     rewards = self_critical_reward_batched(
         {i: gen_np[i] for i in range(len(metas))}, {i: greedy_np[i] for i in range(len(metas))},
@@ -449,6 +865,7 @@ def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg
         gen.set_state(drop_state)
     state, metrics = rl_update_step_batched(state, batch, cfg, phase, gen, gen_seq,
                                             torch.from_numpy(rewards).to(gen_seq.device))
+    (metrics,) = fetch_metrics(metrics)
     t3 = tic()
     timing = {"rollout": t1 - t0, "reward": t2 - t1, "update": t3 - t2,
               "sample_steps": _executed_steps(gen_np), "greedy_steps": _executed_steps(greedy_np),
@@ -466,14 +883,16 @@ def _run_eval(state: TrainState, loader: Loader, cfg: Config, save_folder: str,
     ``num_vids_eval`` caps each pass.  Returns (score, the gating pass's
     score dict).
 
-    Every pass runs eval_split_batched with max(eval.batch_videos, 1)
-    videos a group: echr_tpu takes its per-video eval_split at
-    batch_videos <= 1, which the port does not have (ROADMAP.md A.9-A.10),
-    and tests/test_train_gate_batched.py holds the two equal in echr_tpu."""
+    eval.batch_videos > 1 runs eval_split_batched with that many videos a
+    group, and otherwise the per-video eval_split, as echr_tpu does;
+    tests/test_train_gate_batched.py holds the two equal in echr_tpu."""
     def run(json_path, kw, mode):
-        return eval_split_batched(state.tap, state.cg, loader, cfg, json_path, kw,
-                                  flag_eval_what=mode, batch_videos=max(cfg.eval.batch_videos, 1),
-                                  device=device)
+        if cfg.eval.batch_videos > 1:
+            return eval_split_batched(state.tap, state.cg, loader, cfg, json_path, kw,
+                                      flag_eval_what=mode, batch_videos=cfg.eval.batch_videos,
+                                      device=device)
+        return eval_split(state.tap, state.cg, loader, cfg, json_path, kw, flag_eval_what=mode,
+                          device=device)
 
     json_path = os.path.join(save_folder, "pred_sent", f"pred_iter{iteration}.json")
     n_eval = cfg.eval.num_vids_eval or loader.split_size("val")
@@ -535,11 +954,15 @@ def _restore_preemption_handler(box: Dict) -> None:
 
 def _save(state: TrainState, cfg: Config, save_folder: str, iteration: int, epoch: int,
           best_val_score: float, loader: Loader, histories: Dict, dataset,
-          best: bool = False) -> None:
+          best: bool = False, loader_state: Optional[Dict] = None) -> None:
+    """model-last.ckpt (or model-best.ckpt).  ``loader_state``: the snapshot
+    of the last consumed pull, which the pipelined loop passes because its
+    producer's cursor runs ahead; by default loader.state()."""
     name = "model-best.ckpt" if best else "model-last.ckpt"
     path = os.path.join(save_folder, name)
     ckpt.save_checkpoint(path, state, cfg, iteration=iteration, epoch=epoch,
-                         best_val_score=best_val_score, loader_state=loader.state(),
+                         best_val_score=best_val_score,
+                         loader_state=loader.state() if loader_state is None else loader_state,
                          histories=histories, vocab=dataset.ix_to_word)
     if not best and cfg.save.save_all_checkpoint:
         # per-iteration files (reference: --save_all_checkpoint, train.py:463-466)

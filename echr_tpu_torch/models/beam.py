@@ -34,6 +34,7 @@ from echr_tpu_torch.models.decoder import (
     Decoder,
     DecoderState,
     init_state,
+    one_video_ctxs,
     precompute_attention,
     sort_ctxs_by_window,
     sort_gate,
@@ -174,3 +175,16 @@ def beam_search_batched(dec: Decoder, cfg: Config, ctxs: Contexts, beam_size: in
 # taken, by all calls
 beam_search_batched.steps = 0
 beam_search_batched.host_syncs = 0
+
+
+def beam_search(dec: Decoder, cfg: Config, ctxs: Contexts, beam_size: int,
+                length_alpha: float = 0.0, early_exit: bool = True,
+                dtype: torch.dtype = torch.float32) -> BeamResult:
+    """Beam search of one video's proposals (echr_tpu's beam_search):
+    beam_search_batched on a batch of one, with the window sort and its
+    un-permute and the video's own early exit.  Bucket-padding rows come
+    back as zeros.  Returns a BeamResult without the batch axis (seq
+    [N, L], logprob [N], all_seqs [N, k, L], all_logprobs [N, k])."""
+    res = beam_search_batched(dec, cfg, one_video_ctxs(ctxs), beam_size, length_alpha,
+                              early_exit, dtype)
+    return BeamResult(*(x[0] for x in res))

@@ -146,3 +146,29 @@ def captioner_train_rl(
     greedy_seq, greedy_logps, _ = captioner_sample(cg, cfg, tap_feats, c3d_feats, lda_feats,
                                                    props, frame_mask, dtype)
     return (gen_seq, gen_logps), (greedy_seq, greedy_logps)
+
+
+def captioner_sample_one(
+    cg: Captioner,
+    cfg: Config,
+    tap_feats: torch.Tensor,  # [T, H]
+    c3d_feats: torch.Tensor,  # [T, D]
+    lda_feats: torch.Tensor,  # [lda_dim]
+    props: ProposalBatch,  # [N] rows
+    frame_mask: Optional[torch.Tensor] = None,  # [T]
+    dtype: torch.dtype = torch.float32,
+    greedy: bool = True,
+    temperature: float = 1.0,
+    sample_gen: Optional[torch.Generator] = None,
+    train: bool = False,
+    gen: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One video's decode (echr_tpu's per-video captioner_sample):
+    captioner_sample on a batch of one.  Returns (seq [N, L], logps [N, L],
+    active [L])."""
+    seq, logps, active = captioner_sample(
+        cg, cfg, tap_feats[None], c3d_feats[None], lda_feats[None],
+        ProposalBatch(*(x[None] for x in props)),
+        None if frame_mask is None else frame_mask[None], dtype, greedy, temperature,
+        sample_gen, train, gen)
+    return seq[0], logps[0], active[0]

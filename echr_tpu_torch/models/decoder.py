@@ -847,3 +847,30 @@ def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
 # token selections run, and early-exit host syncs taken, by all calls
 decoder_sample_batched.steps = 0
 decoder_sample_batched.host_syncs = 0
+
+
+def one_video_ctxs(ctxs: Contexts) -> Contexts:
+    """One video's Contexts ([N, ...] rows, [T, ...] frames) as a batch of
+    one."""
+    return Contexts(*(None if x is None else x[None] for x in ctxs))
+
+
+def decoder_sample(dec: Decoder, cfg: Config, ctxs: Contexts,
+                   dtype: torch.dtype = torch.float32, greedy: bool = True,
+                   temperature: float = 1.0, sample_gen: Optional[torch.Generator] = None,
+                   train: bool = False, gen: Optional[torch.Generator] = None,
+                   forced_tokens: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy or multinomial decode of one video's proposals (echr_tpu's
+    decoder_sample): decoder_sample_batched on a batch of one, so the
+    batch-wide early exit is the video's own, and greedy eval-mode decode
+    sorts by window and takes kernel 2 at R = N rows.  ``forced_tokens``
+    [N, L] replays a rollout over all L steps.  Bucket-padding rows decode
+    from their [0, 1) windows and are not zeroed, as in echr_tpu; the
+    callers cut them.
+
+    Returns (seq [N, L], logps [N, L], active [L])."""
+    forced = None if forced_tokens is None else forced_tokens[None]
+    seq, logps, active = decoder_sample_batched(dec, cfg, one_video_ctxs(ctxs), dtype, greedy,
+                                                temperature, sample_gen, train, gen, forced)
+    return seq[0], logps[0], active[0]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from echr_tpu.ops import pallas_attention as PA
 from echr_tpu.ops import pallas_windowed_attention as PW
 

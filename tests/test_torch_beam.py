@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ops import small_cfg
 from test_torch_serve import _decode_inputs, _params, _requests, _vocab
 

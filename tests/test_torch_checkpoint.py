@@ -34,6 +34,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_eval import Split
 from test_torch_train import GATOL, GRTOL, REL, _batch, _cfg, _close_trees, _params
 from test_train_e2e import tiny_cfg
@@ -341,7 +342,7 @@ def test_sigterm_checkpoints_and_resumes(tmp_path):
         f"out = train(Config.from_json(open({str(cfg_path)!r}).read()), device='cpu');"
         "print('PREEMPT_EXIT', out['iteration'], flush=True)")
     log_path = tmp_path / "child.log"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     with open(log_path, "w") as f:
         proc = subprocess.Popen([sys.executable, "-c", script], env=env, stdout=f,
                                 stderr=subprocess.STDOUT, cwd=tmp_path)
@@ -416,7 +417,7 @@ def test_parse_config_matches_jax_on_experiment_scripts(script):
     assert config.parse_config(argv) == config.Config.from_json(want.to_json())
 
 
-@pytest.mark.parametrize("argv", [["--mesh_shape", "2", "4"], ["--train_pipeline", "0"],
+@pytest.mark.parametrize("argv", [["--mesh_shape", "2", "4"], ["--preempt_check_every", "4"],
                                   ["--use_pallas_head"]])
 def test_parse_config_refuses_dropped_runtime_knobs(argv):
     jconfig.parse_config(argv)  # echr_tpu takes it

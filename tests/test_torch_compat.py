@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from oracle_torch import ShowAttendTellOracle, SSTOracle, ThreeStreamOracle, TSRMOracle
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_cores import core_cfg
 from test_torch_ops import small_cfg, to_np
 from test_torch_serve import SHARPEN, TOL, _decode_inputs

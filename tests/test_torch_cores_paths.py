@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_checkpoint import (
     REPO,
     _equal_trees,

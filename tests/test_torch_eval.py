@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ops import to_np
 from test_train_e2e import tiny_cfg
 
@@ -189,8 +190,11 @@ def test_unported_modes_raise(split, monkeypatch):
     assert preds and all(p["sentence_confidence"] <= 0.0 for v in preds.values() for p in v)
     with pytest.raises(NotImplementedError, match="A.13"):
         split.port(kw, "tap_cg", multihost=True)
-    with pytest.raises(NotImplementedError, match="A.9-A.10"):
-        E.eval_split(None, None, split.loader, split.cfg, str(split.tmp / "x.json"))
+    # the per-video eval_split is ported: it captions the split
+    preds, _, losses = E.eval_split(tap_from_jax(split.tap_np, split.cfg),
+                                    captioner_from_jax(split.cg_np, split.cfg), split.loader,
+                                    split.cfg, str(split.tmp / "x.json"), kw, device="cpu")
+    assert preds and losses[0] > 0
     with pytest.raises(ValueError, match="not supported"):
         split.port(kw, "gt")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

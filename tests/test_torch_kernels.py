@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from echr_tpu.ops import pallas_attention, pallas_head
 
 from echr_tpu_torch.ops import force_plain, use_plain

@@ -159,7 +159,7 @@ def test_port_runs_without_jax(tmp_path):
     tap, cg = _params(cfg)
     ckpt = tmp_path / "m.ckpt"
     _save_jax_checkpoint(ckpt, cfg, tap, cg, _vocab(cfg))
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD.format(modules=_all_modules(), ckpt=str(ckpt))],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)

@@ -31,6 +31,20 @@ ATOL_BF16 = 2e-4
 
 
 @pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test runs torch on one intra-op thread (the port's test files
+    import this autouse fixture).  The suite runs several worker processes
+    on a few cores at once, and an OpenMP team as wide as the machine in
+    each of them spins against the others' teams, which stretches a small
+    training step by orders of magnitude; one thread runs the same work
+    with no such wait.  The previous count is restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
 def _forward_only():
     """These tests compare forward values; the port's parameters are
     trainable, so run without recording gradients."""

@@ -34,6 +34,7 @@ from echr_tpu_torch.ops.kernel_probe_head import (  # noqa: E402
     stream_head,
     stream_head_on,
 )
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_probes import _assert_head_equal, _pallas_head  # noqa: E402
 
 SOURCE = ROOT / "echr_tpu_torch" / "csrc" / "probe_stream_head.cu"

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from echr_tpu_torch.ops import kernel_probe_scores as kps
 
 SOURCE = Path(__file__).resolve().parent.parent / "echr_tpu_torch" / "csrc" / \

@@ -29,6 +29,7 @@ from experiments import probe_greedy_head as PG  # noqa: E402
 from experiments import probe_mxu_vpu_overlap as PM  # noqa: E402
 from experiments import probe_streaming_head2 as PS  # noqa: E402
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from echr_tpu_torch.experiments import probe_greedy_head  # noqa: E402
 from echr_tpu_torch.experiments import probe_mxu_vpu_overlap, probe_streaming_head2  # noqa: E402
 from echr_tpu_torch.ops.kernel_probe_head import (  # noqa: E402

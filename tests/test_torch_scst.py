@@ -28,6 +28,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_eval import Split
 from test_torch_train import GATOL, GRTOL, REL, _as_jax, _batch, _cfg, _close_trees, _loop_cfg
 from test_torch_train import _params

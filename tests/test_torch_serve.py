@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ops import small_cfg, to_np
 
 from echr_tpu.engine import steps as jsteps

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_eval import Split
 
 from echr_tpu.cli.serve import main as jax_serve_cli

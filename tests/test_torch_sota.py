@@ -17,6 +17,7 @@ import json
 import numpy as np
 import pytest
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_eval import Split, _kw, assert_same_predictions
 from test_train_e2e import tiny_cfg
 

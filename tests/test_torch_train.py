@@ -24,6 +24,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ops import small_cfg, to_np
 
 from echr_tpu import losses as jlosses
@@ -375,9 +376,12 @@ def test_train_loop_raises_for_what_is_not_ported(tmp_path):
     cfg = _loop_cfg(tmp_path).replace_in("train", self_critical_after=0)
     out = ttrain.train(cfg, max_iterations=1, device="cpu")
     assert out["iteration"] == 1 and "avg_reward" in out["losses"]
+    # transfer compression is ported: one bf16-transfer step runs
     cfg = _loop_cfg(tmp_path).replace_in("runtime", transfer_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="transfer compression"):
-        ttrain.train(cfg, max_iterations=1, device="cpu")
+    timing = {}
+    out = ttrain.train(cfg, max_iterations=1, device="cpu", timing_out=timing)
+    assert out["iteration"] == 1 and np.isfinite(out["losses"]["loss"])
+    assert timing["put_bytes"] > 0
 
 
 def test_schedule_helpers_match_jax():

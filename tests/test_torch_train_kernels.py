@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 from echr_tpu.ops import pallas_attention
 from echr_tpu.ops.masked import masked_softmax as jax_masked_softmax
 
