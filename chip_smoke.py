@@ -4,8 +4,9 @@ training path, its three probes, its batched eval loop, its checkpointed
 training, its self-critical (SCST) training, its multinomial eval, the
 decoder family's other cores, its on-disk data, external proposals,
 reference .pth import and serve CLI, its synchronous and pipelined train
-loops and its per-video eval, decode and SCST paths once on one NVIDIA
-GPU, and hold every kernel against its plain PyTorch version.
+loops, its per-video eval, decode and SCST paths and its data-parallel
+training once on one NVIDIA GPU, and hold every kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -253,7 +254,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      token, phase 23's launch counts); kernel 1 at the first call of each
      per-video row count and kernel 2 at R = 64, 128, 256 and 1024 (C=1536,
      V1=6001, bf16), each against its plain version and timed beside its
-     bound and the plain head.
+     bound and the plain head;
+  30. data parallel: engine.train.train at train_cfg()'s width (B=32,
+     N=64, tap_cg), f32, TF32 off, dropout off, 4 steps with the gate at 4
+     over 32 val videos (the cg pass), in turns without a group and inside
+     a one-rank NCCL group on a local TCP store (no group, group, group,
+     no group), the group destroyed after each run: parameters bit-equal
+     (a world-1 all-reduce and a division by 1.0 change no bit), best
+     scores and the gate's predictions JSON equal; ms/step of both from
+     device step events, the gradient all-reduce's own device ms (CUDA
+     events around parallel.mesh.all_reduce_grads: flatten, all_reduce,
+     divide, views) and its bytes a step; kernels 1-4 launched as in
+     phase 20 (29 a step and a histogram step for 3 and 4).  Then two
+     gloo ranks on the one card (NCCL refuses two ranks on one device) in
+     two child processes, if gloo's all_reduce takes CUDA tensors: 2 XE
+     steps of train() at B=8 (4 videos a rank, f32, dropout off), step 1's
+     loss within 1e-5 relative and its all-reduced gradient leaves within
+     atol 2e-4, rtol 1e-3 of one process's at B=8, the ranks' parameters
+     bit-equal, kernels 3 and 4 launched 29 times a step in each rank.  No
+     time of this part is a scaling number.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3838,6 +3857,307 @@ def pervideo_scst(card, dev="cuda"):
     return launches
 
 
+DP_STEPS = 4  # phase 30: steps a run, the gate at the last
+DP_RUNS = (False, True, True, False)  # phase 30: runs in turns, in a one-rank NCCL group or not
+DP_TWO_B, DP_TWO_STEPS = 8, 2  # phase 30: two gloo ranks on the one card
+DP_TIMEOUT_S = 300  # phase 30: a collective's and a child's longest wait
+DP_CHILD = """
+import sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+chip_smoke.dp_gloo_rank({rank}, {port}, {tmp!r}, {dev!r})
+"""
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _no_dropout(state, batch, gen, *a, **k):
+    from echr_tpu_torch.engine import steps as steps_mod
+
+    return steps_mod.train_step(state, batch, None, *a, **k)
+
+
+def dp_cfg(folder, run_id):
+    """Phase 30's run: ckpt_train_cfg (train_cfg()'s width, B=32, N=64,
+    tap_cg) at f32, its one gate at step DP_STEPS over EVAL_B val videos,
+    the cg pass (fast_eval_cg)."""
+    cfg = ckpt_train_cfg(folder, compute_dtype="float32").replace(run_id=run_id)
+    return cfg.replace_in("save", save_checkpoint_every=DP_STEPS).replace_in(
+        "eval", fast_eval_cg=True)
+
+
+def dp_run(grouped, tag, dev="cuda"):
+    """One phase-30 run of train() for DP_STEPS steps, dropout off, in a
+    one-rank group (NCCL on CUDA, gloo on the CPU) when ``grouped``, which
+    is destroyed before this returns.  Returns (train's output, a record:
+    ms/step over steps 2-DP_STEPS from device step events, the all-reduces'
+    device ms and bytes, kernels 1-4's launches, the decode steps, the gate's
+    predictions JSON)."""
+    from echr_tpu_torch.engine import train as train_mod
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops.kernel_attention import (attention_scores_bwd,
+                                                     attention_scores_dense,
+                                                     attention_scores_masked)
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.parallel import distributed as pdist
+    from echr_tpu_torch.parallel import mesh
+
+    kernels = (attention_scores_masked, greedy_head, attention_scores_dense,
+               attention_scores_bwd)
+    reduce_fn, reduces = mesh.all_reduce_grads, []
+
+    def timed_reduce(tensors):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = reduce_fn(tensors)
+        b.record()
+        reduces.append((a, b, nbytes(*tensors)))
+        return out
+
+    with patched(train_mod, "train_step", _no_dropout):
+        events, clocked = _step_clock(train_mod)
+    for fn in kernels:
+        fn.launches = 0
+    decoder_sample_batched.steps = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        if grouped:
+            pdist.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev,
+                             timeout_s=DP_TIMEOUT_S)
+        try:
+            with patched(train_mod, "train_step", clocked), \
+                    patched(mesh, "all_reduce_grads", timed_reduce):
+                out = train_mod.train(dp_cfg(tmp, tag), max_iterations=DP_STEPS, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            if grouped:
+                pdist.destroy()
+        folder = os.path.join(out["save_folder"], "pred_sent")
+        preds = {}
+        for name in sorted(os.listdir(folder)):
+            with open(os.path.join(folder, name)) as f:
+                preds[name] = json.load(f)
+    rec = {"ms_per_step": events[0].elapsed_time(events[-1]) / (DP_STEPS - 1),
+           "reduce_ms": [a.elapsed_time(b) for a, b, _ in reduces],
+           "reduce_bytes": [n for _, _, n in reduces],
+           "launches": {fn.__name__: fn.launches for fn in kernels},
+           "decode_steps": decoder_sample_batched.steps, "preds": preds}
+    if grouped != bool(reduces):
+        fail(f"[30] {tag}: {len(reduces)} all-reduces in a run {'with' if grouped else 'without'}"
+             " a group")
+    return out, rec
+
+
+def _xe_capture(caught):
+    """A train_step without dropout that keeps each step's gradients (after
+    the ranks' all-reduce) and metrics in ``caught``."""
+    from echr_tpu_torch.engine import steps as steps_mod
+
+    def step(state, batch, gen, cfg, phase, ss_prob=0.0):
+        grads, m = steps_mod.grad_step(state, batch, None, cfg, phase, ss_prob)
+        caught.append(([g.detach().clone() for g in grads[0] + grads[1]],
+                       steps_mod.fetch_metrics(m)[0]))
+        return steps_mod.apply_grads(state, grads[0], grads[1], cfg, phase), m
+    return step
+
+
+def dp_two_cfg(folder, run_id):
+    """train_cfg() at f32 and B=DP_TWO_B: two ranks take 4 videos each."""
+    return train_cfg(compute_dtype="float32").replace(run_id=run_id).replace_in(
+        "train", batch_size=DP_TWO_B).replace_in("save", checkpoint_path=folder)
+
+
+def dp_gloo_rank(rank, port, tmp, dev="cuda"):
+    """A child of phase 30: rank ``rank`` of two gloo ranks, both on the one
+    card (NCCL refuses two ranks on one device).  First whether gloo's
+    all_reduce takes CUDA tensors; if it does, DP_TWO_STEPS XE steps of
+    train() at B=DP_TWO_B (f32, dropout off), each rank's step-1 gradients
+    and loss held to the one-process run that the parent saved in ``tmp``,
+    and a digest of the parameters.  Writes <tmp>/rank<r>.json."""
+    import hashlib
+
+    from echr_tpu_torch.engine import train as train_mod
+    from echr_tpu_torch.ops import native
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd, attention_scores_dense
+    from echr_tpu_torch.parallel import distributed as pdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev != "cpu":
+        native.library()
+    os.environ["LOCAL_RANK"] = "0"
+    rec = {"rank": rank}
+    pdist.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=dev,
+                     timeout_s=DP_TIMEOUT_S)
+    try:
+        t = torch.full((4,), float(rank + 1), device=dev)
+        try:
+            torch.distributed.all_reduce(t)
+            rec["gloo_cuda"] = t.tolist() == [3.0] * 4
+        except RuntimeError as e:
+            rec["gloo_cuda"], rec["refused"] = False, str(e)[:300]
+        if rec["gloo_cuda"]:
+            caught = []
+            for fn in (attention_scores_dense, attention_scores_bwd):
+                fn.launches = 0
+            t0 = time.time()
+            with patched(train_mod, "train_step", _xe_capture(caught)):
+                out = train_mod.train(dp_two_cfg(os.path.join(tmp, f"r{rank}"), "two"),
+                                      max_iterations=DP_TWO_STEPS, device=dev)
+            torch.cuda.synchronize()
+            rec["wall_s"] = time.time() - t0
+            want = torch.load(os.path.join(tmp, "one.pt"))
+            grads, m = caught[0]
+            bad = [i for i, (g, w) in enumerate(zip(grads, want["grads"]))
+                   if not torch.allclose(g.cpu(), w, atol=2e-4, rtol=1e-3)]
+            rec.update(
+                iteration=out["iteration"], loss=m["loss"], want_loss=want["loss"],
+                grad_leaves=len(grads), grads_outside_gate=bad,
+                grad_max_abs_err=max(float((g.cpu() - w).abs().max())
+                                     for g, w in zip(grads, want["grads"])),
+                launches={fn.__name__: fn.launches for fn in (attention_scores_dense,
+                                                              attention_scores_bwd)},
+                digest=hashlib.sha256(b"".join(
+                    p.detach().cpu().numpy().tobytes() for m_ in (out["state"].tap,
+                                                                  out["state"].cg)
+                    for p in m_.parameters())).hexdigest())
+    finally:
+        pdist.destroy()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def dp_two_ranks(card, dev="cuda"):
+    """Phase 30's two gloo ranks on the one card against one process: the
+    one-process run first (its step-1 gradients saved for the ranks), then
+    the ranks in two child processes.  Returns kernels 3-4's launches in
+    the ranks' run (by rank), or None where gloo refuses CUDA tensors."""
+    from echr_tpu_torch.engine import train as train_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        caught = []
+        with patched(train_mod, "train_step", _xe_capture(caught)):
+            one = train_mod.train(dp_two_cfg(os.path.join(tmp, "one"), "one"),
+                                  max_iterations=DP_TWO_STEPS, device=dev)
+        torch.cuda.synchronize()
+        torch.save({"grads": [g.cpu() for g in caught[0][0]], "loss": caught[0][1]["loss"]},
+                   os.path.join(tmp, "one.pt"))
+        del one, caught
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DP_CHILD.format(repo=os.path.dirname(os.path.abspath(
+                __file__)), rank=r, port=port, tmp=tmp, dev=dev)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        if any(p.returncode for p in procs):
+            fail(f"[30] two gloo ranks: exit codes {[p.returncode for p in procs]}; rank 0 "
+                 f"said {logs[0][-3000:]}\nrank 1 said {logs[-1][-3000:]}")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    if not all(r["gloo_cuda"] for r in recs):
+        print(f"[30] two gloo ranks on the one card: gloo's all_reduce refused CUDA tensors "
+              f"({recs[0].get('refused')}); left out [{card}]")
+        return None
+    a, b = recs
+    want = {k: (SEQ_LEN - 1) * DP_TWO_STEPS for k in a["launches"]}
+    ok = (a["iteration"] == b["iteration"] == DP_TWO_STEPS and a["digest"] == b["digest"]
+          and a["launches"] == b["launches"] == want
+          and not a["grads_outside_gate"] and not b["grads_outside_gate"]
+          and abs(a["loss"] - a["want_loss"]) <= 1e-5 * abs(a["want_loss"]))
+    print(f"[30] two gloo ranks on the one card, {DP_TWO_B // 2} videos each, f32, dropout off, "
+          f"{DP_TWO_STEPS} XE steps: step 1's loss {a['loss']:.6f} against one process's "
+          f"{a['want_loss']:.6f}; gradient leaves outside atol 2e-4, rtol 1e-3: "
+          f"{len(a['grads_outside_gate'])} of {a['grad_leaves']} (max|d| "
+          f"{a['grad_max_abs_err']:.3e}); parameters bit-equal between the ranks: "
+          f"{a['digest'] == b['digest']}; kernels 3-4 launches by rank {a['launches']}, "
+          f"{b['launches']}; the ranks' train() wall {a['wall_s']:.1f}, {b['wall_s']:.1f} s "
+          f"(two processes time-slicing one card: no scaling number) [{card}]")
+    if not ok:
+        fail(f"[30] two gloo ranks against one process: {recs}")
+    return {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+
+
+def phase_data_parallel(card, dev="cuda"):
+    """Phase 30: engine.train.train at train_cfg()'s width (B=32, N=64,
+    tap_cg), f32, TF32 off, dropout off, DP_STEPS steps with the gate at the
+    last over EVAL_B val videos, in turns without a group and inside a
+    one-rank NCCL group (DP_RUNS): parameters bit-equal, best scores and
+    predictions JSON equal; ms/step of both, the all-reduce's own device ms
+    and bytes a step, kernels 1-4's launches in the grouped runs; then two
+    gloo ranks on the one card (dp_two_ranks).  Returns the launches by
+    path."""
+    t_phase = time.time()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 30 needs TF32 off")
+    runs, first = [], None
+    launches = {"attention_scores_masked": 0, "greedy_head": 0, "attention_scores_dense": 0,
+                "attention_scores_bwd": 0}
+    for i, grouped in enumerate(DP_RUNS):
+        out, rec = dp_run(grouped, f"dp{i}", dev)
+        params = [p.detach() for m in (out["state"].tap, out["state"].cg) for p in m.parameters()]
+        if first is None:
+            first = (params, out, rec)
+        else:
+            differ = sum(not torch.equal(a, b) for a, b in zip(first[0], params))
+            if (differ or out["best_val_score"] != first[1]["best_val_score"]
+                    or rec["preds"] != first[2]["preds"] or out["iteration"] != DP_STEPS):
+                fail(f"[30] run {i} ({'one-rank group' if grouped else 'no group'}): {differ} of "
+                     f"{len(params)} parameter leaves differ from run 0, best "
+                     f"{out['best_val_score']} against {first[1]['best_val_score']}, predictions "
+                     f"JSON equal: {rec['preds'] == first[2]['preds']}")
+        if grouped:
+            tf = SEQ_LEN - 1
+            want = {"attention_scores_dense": tf * (DP_STEPS + 1),
+                    "attention_scores_bwd": tf * (DP_STEPS + 1),
+                    "attention_scores_masked": rec["decode_steps"] + tf,
+                    "greedy_head": rec["decode_steps"]}
+            if not (rec["decode_steps"] > 0 and rec["launches"] == want):
+                fail(f"[30] one-rank group: launches {rec['launches']}, want {want}")
+            for k, v in rec["launches"].items():
+                launches[k] += v
+        runs.append((grouped, rec))
+        del out, params
+    ms = {g: [r["ms_per_step"] for gg, r in runs if gg == g] for g in (False, True)}
+    red = [r for g, r in runs if g]
+    # a run's first all-reduce also makes the NCCL communicator
+    per_step = [ms_ for r in red for ms_ in r["reduce_ms"][1:DP_STEPS]]
+    order = ", ".join("one-rank group" if g else "no group" for g in DP_RUNS)
+    print(f"[30] train() at B={TRAIN_B}, N={TRAIN_N}, tap_cg, f32, TF32 off, dropout off, "
+          f"{DP_STEPS} steps and a gate at {DP_STEPS} over {EVAL_B} val videos, in turns "
+          f"({order}): "
+          f"{[round(r['ms_per_step'], 1) for _, r in runs]} ms/step over steps 2-{DP_STEPS}; "
+          f"means without a group {np.mean(ms[False]):.1f}, in the group "
+          f"{np.mean(ms[True]):.1f} [{card}]")
+    print(f"[30] the all-reduce (flatten, NCCL all_reduce, divide, views) a step: "
+          f"{red[0]['reduce_bytes'][0] / 2**20:.1f} MiB, {np.mean(per_step):.3f} ms (min "
+          f"{min(per_step):.3f}, max {max(per_step):.3f}) from CUDA events over "
+          f"{len(per_step)} steps 2-{DP_STEPS}; step 1's (with the communicator's set-up) "
+          f"{[round(r['reduce_ms'][0], 3) for r in red]} ms, the histogram step's "
+          f"{[round(r['reduce_ms'][-1], 3) for r in red]} ms [{card}]")
+    print(f"[30] parameters bit-equal, best score {first[1]['best_val_score']:.4f} and the "
+          f"predictions JSON ({', '.join(first[2]['preds'])}) equal over the {len(runs)} runs; "
+          f"kernels 1-4 in the grouped runs: {launches}")
+    paths = {"data_parallel": launches}
+    two = dp_two_ranks(card, dev)
+    if two is not None:
+        paths["data_parallel_two_ranks"] = two
+    print(f"[30] phase wall {time.time() - t_phase:.1f} s [{card}]")
+    return paths
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -3896,6 +4216,7 @@ def main():
     pipe_launches = phase_pipeline(card)
     pervideo, k1_pervideo, head["per_video_rows"] = phase_pervideo(card)
     k1_inputs.update(k1_pervideo)
+    dp = phase_data_parallel(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -3919,17 +4240,20 @@ def main():
                 "eval_sampled": sample_k1,
                 "decoder_family": family["attention_scores_masked"],
                 **{name: n["attention_scores_masked"] for name, n in real.items()},
-                **{name: n["attention_scores_masked"] for name, n in pervideo.items()}}
+                **{name: n["attention_scores_masked"] for name, n in pervideo.items()},
+                "data_parallel": dp["data_parallel"]["attention_scores_masked"]}
     k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
                 "checkpointed_train": ckpt_launches["greedy_head"],
                 "scst_train": scst_launches["greedy_head"],
                 "decoder_family": family["greedy_head"],
                 **{name: n["greedy_head"] for name, n in real.items()},
-                **{name: n["greedy_head"] for name, n in pervideo.items()}}
+                **{name: n["greedy_head"] for name, n in pervideo.items()},
+                "data_parallel": dp["data_parallel"]["greedy_head"]}
     k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k],
                            "scst_train": scst_launches[k], "decoder_family": family[k],
                            "train_sync_and_pipelined": pipe_launches[k],
-                           "scst_per_video": pervideo["scst_per_video"][k]}
+                           "scst_per_video": pervideo["scst_per_video"][k],
+                           **{name: n[k] for name, n in dp.items()}}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",

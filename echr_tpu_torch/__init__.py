@@ -19,6 +19,9 @@ port is held against (tests/test_torch_*.py).  Module names mirror
                 (train), SCST's host rewards (rl), checkpoints, the
                 batched eval loop (evaluate) and the host proposal
                 selection (proposals)
+  parallel/   — data parallelism on torch.distributed, one rank a device:
+                joining the group, the gradient all-reduce, a rank's rows,
+                the state broadcast and the eval gathers
   config.py, data/, utils/ — the port's own copies of echr_tpu's host code:
                 the Config tree, the datasets, batcher and loader, and
                 caption rendering

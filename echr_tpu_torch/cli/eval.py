@@ -11,28 +11,37 @@ the per-video ``eval_split``, as echr_tpu's CLI does, and with
 that many videos a group.  --SOTA_json overrides the
 external-proposal file (reference: eval.py:146).  ``--sample_max 0``
 decodes by multinomial sampling at ``--temperature`` with
-``--sample_seed``.  Not ported, each raising NotImplementedError:
---data_parallel > 1 and a multi-host launch (ROADMAP.md A.13).
+``--sample_seed``.
+
+Data parallel (echr_tpu's multi-host eval and ``--data_parallel``): under
+echr_tpu's cluster variables (``ECHR_COORDINATOR`` / ``ECHR_NUM_PROCESSES``
+/ ``ECHR_PROCESS_ID``, or torchrun's with ``ECHR_DISTRIBUTED=1``) the same
+command on every rank joins the group after parsing, each rank evaluates
+its shard of ``--split`` through the batched driver (``--batch_videos``
+default 8) and every rank scores the gathered split; rank 0 writes the
+predictions JSON, rank r ``<json>.proc<r>``.  ``--data_parallel N``
+outside such a group spawns N ranks on N local devices (gloo ranks with
+``--device cpu``) and raises when N exceeds the local devices.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+import socket
 import sys
 import time
 
 import numpy as np
+import torch
 
 from echr_tpu_torch.data.dataset import build_dataset
 from echr_tpu_torch.data.loader import Loader
 from echr_tpu_torch.engine import checkpoint as ckpt
 from echr_tpu_torch.engine.evaluate import eval_split, eval_split_batched
+from echr_tpu_torch.parallel import distributed as pdist
 
 log = logging.getLogger("echr_tpu_torch.eval_cli")
-
-# echr_tpu's cluster launch (echr_tpu/parallel/distributed.py)
-_CLUSTER_ENV = ("ECHR_COORDINATOR", "ECHR_DISTRIBUTED")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="videos a group: unset or 1 runs the per-video eval_split, > 1 the "
                         "batched eval_split_batched")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help=">1 would shard the eval over that many GPUs (not ported)")
+                   help=">1 shards the eval over that many local devices, one rank each")
     p.add_argument("--eval_inflight", type=int, default=None,
                    help="dispatched-but-uncollected device batches the pipeline keeps in "
                         "flight (default cfg.eval.eval_inflight)")
@@ -89,22 +98,80 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(ns) -> None:
-    if ns.data_parallel > 1:
-        raise NotImplementedError("--data_parallel > 1 is not ported: ROADMAP.md A.13")
-    if any(os.environ.get(k) for k in _CLUSTER_ENV):
-        raise NotImplementedError(
-            f"a multi-host eval ({' / '.join(_CLUSTER_ENV)} set) is not ported: ROADMAP.md A.13")
-    if ns.batch_videos is not None and ns.batch_videos < 1:
-        raise ValueError(f"--batch_videos must be >= 1, got {ns.batch_videos}")
-
-
 def main(argv=None) -> str:
-    """Run the eval; returns the path of the predictions JSON."""
+    """Run the eval; returns the path of the predictions JSON (rank 0's)."""
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(message)s")
     ns = build_parser().parse_args(argv)
-    _not_ported(ns)
-    if ns.batch_videos is None:
+    if ns.batch_videos is not None and ns.batch_videos < 1:
+        raise ValueError(f"--batch_videos must be >= 1, got {ns.batch_videos}")
+    # parse before joining: a --help or a typo exits before the rendezvous
+    device = pdist.maybe_initialize_from_env(ns.device)
+    try:
+        if ns.data_parallel > 1 and pdist.world_size() != ns.data_parallel:
+            if device is not None:
+                raise ValueError(
+                    f"--data_parallel {ns.data_parallel} in a group of {pdist.world_size()} "
+                    "ranks: one rank drives one device; launch that many ranks or drop "
+                    "--data_parallel")
+            return _spawn_ranks(list(argv or []), ns)
+        return _run(ns, device or ns.device)
+    finally:
+        if device is not None:
+            pdist.destroy()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(argv, ns) -> str:
+    """--data_parallel N: N ranks on N local devices (echr_tpu's N local
+    chips in one process), spawned here and joined in a group of their own."""
+    n = ns.data_parallel
+    if torch.device(ns.device).type == "cuda":
+        local = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > local:
+            raise ValueError(f"--data_parallel {n} exceeds the {local} local devices")
+    torch.multiprocessing.spawn(_rank_main, args=(argv, n, _free_port()), nprocs=n, join=True)
+    return _json_path(ns, os.path.join(ns.checkpoint_path, ns.folder_id))
+
+
+def _rank_main(r: int, argv, n: int, port: int) -> None:
+    """One spawned rank of --data_parallel: device cuda:r or the CPU."""
+    logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(message)s")
+    ns = build_parser().parse_args(argv)
+    os.environ["LOCAL_RANK"] = str(r)
+    device = pdist.initialize(f"127.0.0.1:{port}", n, r, device=ns.device)
+    try:
+        _run(ns, device)
+    finally:
+        pdist.destroy()
+
+
+def _json_path(ns, folder: str) -> str:
+    stamp = f"{ns.flag_eval_what}_top{ns.topN}_thr{ns.val_score_thres}_nms{ns.nms_threshold}"
+    # decode-mode dimensions, so that a beam or sampling run does not
+    # overwrite the greedy run's predictions for the same proposal settings
+    if ns.beam_size > 1:
+        stamp += f"_beam{ns.beam_size}"
+    if not ns.sample_max:
+        stamp += f"_sampleT{ns.temperature}_s{ns.sample_seed}"
+    return os.path.join(folder, f"eval_{stamp}.json")
+
+
+def _run(ns, device) -> str:
+    """The eval on ``device``, over the whole split or, in a group of
+    several ranks, over this rank's shard with the predictions gathered."""
+    multihost = pdist.world_size() > 1
+    if multihost:
+        if ns.batch_videos is None:
+            ns.batch_videos = 8  # the data-parallel sweep is the batched driver's
+        elif ns.batch_videos <= 1:
+            raise ValueError("a data-parallel eval runs the batched driver only: --batch_videos "
+                             "must be > 1 (or omitted for 8)")
+    elif ns.batch_videos is None:
         ns.batch_videos = 1  # the per-video eval_split, echr_tpu's default
     folder = os.path.join(ns.checkpoint_path, ns.folder_id)
     path = ns.model_path or os.path.join(folder, f"model-{ns.which}.ckpt")
@@ -114,7 +181,7 @@ def main(argv=None) -> str:
         log.info("waiting for checkpoint %s ...", path)
         time.sleep(60)
 
-    payload = ckpt.load_checkpoint(path, ns.device)
+    payload = ckpt.load_checkpoint(path, device)
     cfg = payload["config"].replace_in(
         "eval",
         topN=ns.topN,
@@ -137,17 +204,11 @@ def main(argv=None) -> str:
     if ns.batch_videos > 1 and cfg.data.prefetch < 2 * ns.batch_videos:
         cfg = cfg.replace_in("data", prefetch=2 * ns.batch_videos)
     dataset = build_dataset(cfg)
-    loader = Loader(dataset, cfg, process_index=0, process_count=1, seed=0)
+    # each rank of a group its strided shard of the split
+    loader = Loader(dataset, cfg, process_index=pdist.rank(), process_count=pdist.world_size(),
+                    seed=0, shard_splits=(ns.split,))
     state = payload["state"]
-
-    stamp = f"{ns.flag_eval_what}_top{ns.topN}_thr{ns.val_score_thres}_nms{ns.nms_threshold}"
-    # decode-mode dimensions, so that a beam or sampling run does not
-    # overwrite the greedy run's predictions for the same proposal settings
-    if ns.beam_size > 1:
-        stamp += f"_beam{ns.beam_size}"
-    if not ns.sample_max:
-        stamp += f"_sampleT{ns.temperature}_s{ns.sample_seed}"
-    json_path = os.path.join(folder, f"eval_{stamp}.json")
+    json_path = _json_path(ns, folder)
     tm: dict = {}
     t0 = time.time()
     batched = ns.batch_videos > 1
@@ -177,8 +238,8 @@ def main(argv=None) -> str:
                 **({"device_select": bool(ns.device_select)}
                    if ns.device_select is not None else {}),
             },
-            flag_eval_what=ns.flag_eval_what, device=ns.device,
-            **({"batch_videos": ns.batch_videos} if batched else {}))
+            flag_eval_what=ns.flag_eval_what, device=device,
+            **({"batch_videos": ns.batch_videos, "multihost": multihost} if batched else {}))
     finally:
         loader.load_state(loader.state())  # stops and joins the prefetch threads
     eval_wall = time.time() - t0

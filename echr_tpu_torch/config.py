@@ -11,10 +11,11 @@ RuntimeConfig holds only the runtime fields the port reads:
 ``use_pallas_train`` (the training kernels), ``sort_decode_props``,
 ``decode_early_exit_batched``, ``fused_loss_head``, ``hang_warn_s`` (the
 eval loop's watchdog), ``train_pipeline`` and ``train_inflight`` (the
-pipelined train loop).  echr_tpu's other runtime fields are TPU knobs
-(meshes, SPMD mode, buffer donation, the Pallas T ceilings, the
-streaming-head gate, preemption checks) or options of paths not ported
-yet; they are dropped.
+pipelined train loop), ``mesh_shape`` (the data-parallel layout, checked
+against the group's size) and ``preempt_check_every`` (the ranks'
+preemption agreement).  echr_tpu's other runtime fields are TPU knobs
+(mesh axis names, SPMD mode, buffer donation, the Pallas T ceilings, the
+streaming-head gate) or options of paths not ported; they are dropped.
 ``from_json`` ignores them in echr_tpu's JSON, and ``replace_in`` and the
 CLI parser (``build_argparser`` / ``parse_config``, echr_tpu's flag
 surface) reject them, so setting one fails instead of doing nothing.
@@ -226,6 +227,12 @@ class RuntimeConfig:
     # dispatched-but-unfetched steps before the pipelined loop fetches the
     # older half of their metrics, which waits for those steps to finish
     train_inflight: int = 2
+    # (dp, tp) over the torch.distributed group (parallel/mesh.check_layout):
+    # dp 1 or the world size, tp 1 (tensor parallelism is not ported)
+    mesh_shape: Tuple[int, int] = (1, 1)
+    # under more than one rank, the train loop's iterations between the
+    # ranks' agreement on a SIGTERM (an all-reduce MAX of the flag)
+    preempt_check_every: int = 16
 
 
 @dataclass(frozen=True)
@@ -371,11 +378,13 @@ _OVERWRITTEN_FLAGS = (
 )
 
 # echr_tpu's runtime fields that the port dropped (TPU knobs and options of
-# paths not ported): a flag setting one is refused, naming it
+# paths not ported; mesh_axis_names and spmd_mode name GSPMD's choices, and
+# each rank's program is explicit already): a flag setting one is refused,
+# naming it
 _DROPPED_RUNTIME_FLAGS = (
-    "decode_early_exit", "donate_step_args", "mesh_axis_names", "mesh_shape",
-    "pallas_decode_t_max", "pallas_decode_t_max_sorted", "param_dtype",
-    "preempt_check_every", "scst_resident_vjp", "spmd_mode", "use_pallas_head",
+    "decode_early_exit", "donate_step_args", "mesh_axis_names", "pallas_decode_t_max",
+    "pallas_decode_t_max_sorted", "param_dtype", "scst_resident_vjp", "spmd_mode",
+    "use_pallas_head",
 )
 
 

@@ -8,6 +8,14 @@ batch, and a restorable iterator / order state for resume.  That state is
 tracked on the consumer side, since the prefetch threads run ahead.
 
 The process rank and count are arguments: the port has no runtime to ask.
+``shard_splits`` names the splits that each process strides over ("train"
+by default; the data-parallel gating eval shards "val").  An item of a
+sharded split draws its label-synthesis seed from its position in the
+whole split (shard position x process_count + process_index), so that a
+shard's batches are the ones one process makes for those videos, and the
+sharded eval's val losses are one process's.  echr_tpu seeds by the
+position in the shard, so its sharded val losses differ from its single
+process's (ROADMAP.md C.7).
 The eval loop toggles two settings per split and restores them after the
 pass: the decode-only fetch (``set_labels``) and the feature dtype the
 workers emit (``set_feats_dtype``).  A dataset with external proposals
@@ -37,14 +45,17 @@ def _derived_seed(base: int, split: str, epoch: int, pos: int) -> int:
 
 class Loader:
     def __init__(self, dataset: BaseDataset, cfg: Config, process_index: int,
-                 process_count: int, seed: int = 0):
+                 process_count: int, seed: int = 0,
+                 shard_splits: Tuple[str, ...] = ("train",)):
         """``process_index`` of ``process_count`` processes iterates a
-        strided shard of the train split; the other splits stay whole."""
+        strided shard of each split in ``shard_splits``; the other splits
+        stay whole."""
         self.dataset = dataset
         self.cfg = cfg
         self.prefetch = max(1, int(cfg.data.prefetch))
         self.base_seed = int(seed)
         self.process_index, self.process_count = process_index, process_count
+        self._sharded = set(shard_splits) if process_count > 1 else set()
         # per split, so a decode-only eval never reaches a train fetcher
         self._labels: Dict[str, bool] = {}
         self._feats_dtype: Dict[str, Optional[torch.dtype]] = {}
@@ -52,7 +63,7 @@ class Loader:
         self.iterators: Dict[str, int] = {s: 0 for s in dataset.split_ix}
         self.split_order: Dict[str, List[int]] = {
             s: (list(ix[process_index::process_count])
-                if process_count > 1 and s == "train" else list(ix))
+                if process_count > 1 and s in shard_splits else list(ix))
             for s, ix in dataset.split_ix.items()}
         self.epochs: Dict[str, int] = {s: 0 for s in dataset.split_ix}
         self._shuffle_if_needed("train", epoch=0)
@@ -180,7 +191,10 @@ class _Prefetcher:
             wrapped = pos + 1 >= len(order)
             seq = self._seq
             self._seq += 1
-            seed = _derived_seed(ld.base_seed, self.split, epoch, pos)
+            # a sharded split's item: its position in the whole split
+            gpos = (pos * ld.process_count + ld.process_index if self.split in ld._sharded
+                    else pos)
+            seed = _derived_seed(ld.base_seed, self.split, epoch, gpos)
             if wrapped:
                 ld.iterators[self.split] = 0
                 ld.epochs[self.split] = epoch + 1

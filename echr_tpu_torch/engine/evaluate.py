@@ -19,8 +19,11 @@ bucket (``PROP_BUCKETS``, not topN) and its val losses, in every mode and
 option of the batched driver, with the same predictions.  It is the eval
 CLI's default and the training gate's at eval.batch_videos <= 1.
 
-Not ported, raising NotImplementedError: the multi-device sweep (``mesh`` /
-``multihost``, ROADMAP.md A.13).
+``eval_split_batched(multihost=True)`` is the data-parallel sweep: each
+rank of a torch.distributed group evaluates its shard of the split, and
+the predictions and val losses are gathered, so every rank scores the
+whole split (echr_tpu's multi-host sweep).  echr_tpu's single-process
+``mesh`` has no counterpart: one rank drives one device.
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ from echr_tpu_torch.engine.steps import (
     val_loss_step_batched,
 )
 from echr_tpu_torch.metrics.eval_score import eval_score
+from echr_tpu_torch.parallel import distributed as pdist
 from echr_tpu_torch.models.captioner import Captioner, ProposalBatch
 from echr_tpu_torch.models.sst import SST
 from echr_tpu_torch.ops.core import cast_compute_dtype
@@ -426,12 +430,23 @@ def eval_split_batched(
     get_eval_loss, val_all_metrics, sample_max, temperature, sample_seed,
     beam_size, beam_length_alpha, eval_inflight, device_select,
     async_assemble, gc_pause, references); a ``timing_out`` dict receives
-    the wall-time breakdown."""
+    the wall-time breakdown.
+
+    ``multihost``: the data-parallel sweep (echr_tpu's multi-host one).
+    Each rank of the torch.distributed group evaluates its shard of the
+    split (a Loader with ``shard_splits`` holding it); then the
+    predictions, the loss sums and the video counts are gathered, so every
+    rank returns and scores the whole split's.  Rank 0 writes
+    ``json_path``, rank r ``json_path + ".proc<r>"``.  Without a group, or
+    in a group of one, it is the plain pass.  ``mesh`` is refused: one
+    rank drives one device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"eval_split_batched(device={device!r}): CUDA is not available")
-    if mesh is not None or multihost:
-        raise NotImplementedError("the multi-device eval sweep is not ported: ROADMAP.md A.13")
+    if mesh is not None:
+        raise NotImplementedError(
+            "eval_split_batched(mesh=...): a single-process mesh has no torch counterpart (one "
+            "rank drives one device); launch one rank a device and pass multihost=True")
     if flag_eval_what not in _MODES:
         raise ValueError(f"flag_eval_what {flag_eval_what!r} not supported")
     kw = dict(eval_kwargs or {})
@@ -763,6 +778,14 @@ def eval_split_batched(
     if isinstance(kw.get("timing_out"), dict):
         kw["timing_out"].update(tm)
 
+    if multihost and pdist.world_size() > 1:
+        # every rank: the whole split's predictions, loss sums and video count
+        predictions = pdist.gather_predictions(predictions)
+        parts = pdist.allgather_object((loss_sum.tolist(), it_vids))
+        loss_sum = np.sum([np.asarray(p[0]) for p in parts], axis=0)
+        it_vids = int(sum(p[1] for p in parts))
+        if pdist.rank() != 0:
+            json_path = f"{json_path}.proc{pdist.rank()}"
     _write_predictions(predictions, json_path)
     score = _score(json_path, loader, cfg, kw, flag_eval_what, topN, val_all_metrics)
     return predictions, score, loss_sum / max(it_vids, 1)

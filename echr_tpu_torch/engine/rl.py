@@ -89,11 +89,17 @@ class RewardPool:
 _DEFAULT_POOL: Optional[RewardPool] = None
 
 
-def default_reward_pool() -> RewardPool:
-    """Lazily-created shared pool (one per process, reused across steps)."""
+def default_reward_pool(ranks_on_host: int = 1) -> RewardPool:
+    """Lazily-created shared pool (one per process, reused across steps).
+    With ``ranks_on_host`` data-parallel ranks on this host, each rank's
+    pool takes its share of the cores: cpu_count // ranks_on_host - 1
+    workers."""
     global _DEFAULT_POOL
+    workers = max((os.cpu_count() or 1) // max(ranks_on_host, 1) - 1, 0)
+    if _DEFAULT_POOL is not None and _DEFAULT_POOL.workers != workers:
+        close_default_reward_pool()
     if _DEFAULT_POOL is None:
-        _DEFAULT_POOL = RewardPool()
+        _DEFAULT_POOL = RewardPool(workers)
     return _DEFAULT_POOL
 
 

@@ -27,6 +27,11 @@ The per-video steps (``encode_step``, ``val_loss_step``, ``decode_step``,
 ``beam_decode_step``, ``rl_rollout_step``, ``rl_update_step``) take one
 video's tensors and run the batched step on a batch of one.
 
+Under a torch.distributed group every gradient passes ``_phase_grads``,
+which averages the ranks' gradients and metrics in one all-reduce a dtype
+(``parallel.mesh.all_reduce_grads``) before ``apply_grads`` clips: the XE
+step, the SCST update and the checkpoint's histogram step alike.
+
 Every training step returns its metrics as 0-d tensors on the device, so
 that no metric makes the host wait; ``fetch_metrics`` copies them to the
 host with one synchronisation.  ``batch_to_device`` takes a plain or a
@@ -39,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from echr_tpu_torch.config import Config
@@ -58,6 +64,7 @@ from echr_tpu_torch.models.beam import beam_search_batched
 from echr_tpu_torch.models.decoder import decoder_sample_batched
 from echr_tpu_torch.models.sst import SST, sst_forward_batched
 from echr_tpu_torch.ops.core import call_in_compute_dtype, compute_dtype
+from echr_tpu_torch.parallel import mesh
 
 UPDATES_TAP = ("tap", "tap_cg", "gt_tap_cg")
 UPDATES_CG = ("cg", "gt_tap_cg", "tap_cg", "LP_cg")
@@ -241,6 +248,12 @@ def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args
     n_tap = len(list(state.tap.parameters()))
     out = {k: v.detach() for k, v in metrics.items()}
     out["loss"] = loss.detach()
+    if dist.is_initialized():
+        # data parallel: the mean over the ranks of each rank's batch-mean
+        # gradients and metrics (echr_tpu's gradient psum), before any clip
+        names = list(out)
+        reduced = mesh.all_reduce_grads(grads + [out[k] for k in names])
+        grads, out = reduced[:len(params)], dict(zip(names, reduced[len(params):]))
     return (grads[:n_tap], grads[n_tap:]), out
 
 

@@ -1,5 +1,5 @@
-"""The XE and self-critical training loop (echr_tpu/engine/train.py),
-synchronous, one GPU, with checkpoints.
+"""The XE and self-critical training loop (echr_tpu/engine/train.py) on
+one GPU, or data parallel with one rank a GPU, with checkpoints.
 
 The reference's single-host synchronous loop: the run folder (its
 config.json, pred_sent/ and a snapshot of echr_tpu_torch/), resume from
@@ -40,6 +40,28 @@ and the {0,1} grids as uint8 (``_compress_batch``); the step lifts them to
 f32 on the device.  At batch_size 1 SCST takes the per-video step
 (``_self_critical_step``), and at eval.batch_videos <= 1 the gate runs the
 per-video ``eval_split``.
+
+Data parallel (echr_tpu's multi-host train(), on torch.distributed: one
+rank a device, the group joined before the call, ``parallel.distributed``).
+Every rank walks the whole train split in the same order from the same
+seed and collates the same global groups; each takes its rows of a group
+(``parallel.mesh.shard_rows``), and ``steps._phase_grads`` averages the
+gradients and metrics over the ranks, so the update is that of the mean
+over the global group.  Time buckets, bad-video skips and the loader state
+agree on every rank by construction.  Rank 0 alone writes config.json, the
+source snapshot, train.log, TensorBoard events and checkpoints.  The gating
+eval shards the val split over the ranks and gathers the predictions and
+losses (``eval_split_batched(multihost=True)``), so every rank makes the
+same best-checkpoint decision.  SCST rolls out and scores each rank's own
+rows.  The pipelined loop runs only in one process; under several ranks
+a SIGTERM stops the loop when the ranks agree on it, every
+``runtime.preempt_check_every`` iterations (an all-reduce MAX of the
+flag).  Rank r's dropout generator is seeded with ``train.seed + 1 + 2r``
+and its token-draw generator with ``train.seed + 2 + 2r``: rank 0's are a
+single process's, and no two ranks or kinds share a seed.  The parameters
+and optimizer state are rank 0's on every rank after the init or resume
+(``parallel.mesh.broadcast_state``); a checkpoint resumes under any number
+of ranks.
 
 ``get_training_list``, ``current_lr``, ``current_ss_prob``, ``_collate``,
 ``_BucketCollator``, ``overlay_resumed_config`` and the preemption handler
@@ -85,6 +107,8 @@ from echr_tpu_torch.engine.steps import (
     train_step,
 )
 from echr_tpu_torch.models.registry import init_captioner, init_tap
+from echr_tpu_torch.parallel import distributed as pdist
+from echr_tpu_torch.parallel.mesh import broadcast_state, check_layout, shard_rows
 from echr_tpu_torch.utils.tb import TBWriter
 from echr_tpu_torch.utils.watchdog import HangWatchdog
 
@@ -443,29 +467,61 @@ def train(cfg: Config, max_iterations: Optional[int] = None, device="cuda",
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"train(device={str(device)!r}): CUDA is not available")
+    rank, world = pdist.rank(), pdist.world_size()
+    check_data_parallel(cfg, world)
     save_folder = os.path.join(cfg.save.checkpoint_path, cfg.run_id)
     os.makedirs(os.path.join(save_folder, "pred_sent"), exist_ok=True)
-    handler = _setup_logger(save_folder)
+    handler = _setup_logger(save_folder) if rank == 0 else None
     try:
-        with open(os.path.join(save_folder, "config.json"), "w") as f:
-            f.write(cfg.to_json())
-        _snapshot_source(save_folder)
+        if rank == 0:
+            with open(os.path.join(save_folder, "config.json"), "w") as f:
+                f.write(cfg.to_json())
+            _snapshot_source(save_folder)
         dataset = build_dataset(cfg)
-        # the gating eval shares this loader, as echr_tpu's single-host loop does
+        # replicated: every rank walks the whole train split in one order
         loader = Loader(dataset, cfg, seed=cfg.train.seed, process_index=0, process_count=1)
+        # the gating eval shares this loader in one process, as echr_tpu's
+        # single-host loop does; under several ranks each evaluates its val shard
+        eval_loader = loader if world == 1 else Loader(
+            dataset, cfg, seed=cfg.train.seed, process_index=rank, process_count=world,
+            shard_splits=("val",))
         try:
-            out = _train(cfg, dataset, loader, save_folder, max_iterations, device, timing_out)
+            out = _train(cfg, dataset, loader, eval_loader, save_folder, max_iterations, device,
+                         timing_out)
         finally:
-            loader.load_state(loader.state())  # stops and joins the prefetch threads
+            for lo in {id(loader): loader, id(eval_loader): eval_loader}.values():
+                lo.load_state(lo.state())  # stops and joins the prefetch threads
     finally:
-        logging.getLogger("echr_tpu_torch").removeHandler(handler)
-        handler.close()
+        if handler is not None:
+            logging.getLogger("echr_tpu_torch").removeHandler(handler)
+            handler.close()
     return out
 
 
-def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
+def check_data_parallel(cfg: Config, world: int) -> None:
+    """The refusals of a run of ``world`` ranks (echr_tpu/engine/train.py
+    :388-403): ``runtime.mesh_shape`` against the group
+    (``parallel.mesh.check_layout``), and under several ranks a batch_size
+    that the ranks do not divide (SCST at batch_size 1 among them: the
+    ranks share the batched step's rows) and m_batch accumulation."""
+    check_layout(cfg, world)
+    if world == 1:
+        return
+    if cfg.train.batch_size % world:
+        raise ValueError(
+            f"data-parallel training splits each group of train.batch_size videos over the "
+            f"{world} ranks: set batch_size to a multiple of {world}, got "
+            f"{cfg.train.batch_size}")
+    if cfg.train.m_batch > 1:
+        raise NotImplementedError(
+            "m_batch accumulation is a single-process path: under several ranks raise "
+            "train.batch_size instead")
+
+
+def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folder: str,
            max_iterations: Optional[int], device: torch.device,
            timing_out: Optional[Dict]) -> Dict:
+    rank, world = pdist.rank(), pdist.world_size()
     cfg = cfg.replace_in(
         "decoder", CG_vocab_size=dataset.vocab_size, CG_seq_length=dataset.seq_length)
     init_gen = torch.Generator().manual_seed(cfg.train.seed)
@@ -474,7 +530,8 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
     epoch, iteration, best_val_score = 0, 0, -1.0
     histories: Dict[str, Dict] = {"loss": {}, "lr": {}, "val": {}}
     resume_path = os.path.join(save_folder, f"model-{cfg.save.start_from_mode}.ckpt")
-    if cfg.save.start_from and os.path.exists(resume_path):
+    resumed = bool(cfg.save.start_from and os.path.exists(resume_path))
+    if resumed:
         payload = ckpt.load_checkpoint(resume_path, device)
         cfg = overlay_resumed_config(cfg, payload["config"])
         state = payload["state"]
@@ -493,14 +550,22 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                 cg = captioner_from_jax(warm["cg_params"], cfg, device)
             log.info("warm-started %s from %s", cfg.save.pretrain, cfg.save.pretrain_path)
         state = init_train_state(cfg, tap, cg)
+    if world > 1:
+        check_data_parallel(cfg, world)  # the checkpoint's batch_size, if resumed
+        seen = pdist.allgather_object((resumed, iteration, epoch))
+        if len(set(seen)) > 1:
+            raise RuntimeError(
+                f"the ranks disagree on the resume from {resume_path}: (resumed, iteration, "
+                f"epoch) by rank {seen}; the ranks need one shared save.checkpoint_path")
+        broadcast_state(state)
     # dropout masks and scheduled-sampling draws, and SCST's token draws,
-    # on the device
-    gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
-    sample_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 2)
+    # on the device; rank r's seeds are seed + 1 + 2r and seed + 2 + 2r
+    gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1 + 2 * rank)
+    sample_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 2 + 2 * rank)
 
     curriculum = get_training_list(cfg)
     log.info("curriculum: %s (%d epochs)", cfg.train.training_mode, len(curriculum))
-    tb = TBWriter(os.path.join(save_folder, "tf_summary_train"))
+    tb = TBWriter(os.path.join(save_folder, "tf_summary_train") if rank == 0 else None)
     iter_indexed = cfg.train.training_mode == "alter2"  # reference: train.py:249-250
     collator = _BucketCollator(cfg.train.batch_size) if cfg.train.batch_size > 1 else None
     lr = None
@@ -551,12 +616,13 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
         # the gate runs minutes on a full split and has its own watchdog
         wd.suspend()
         try:
-            current_score, eval_scores = _run_eval(state, loader, cfg, save_folder, iteration,
-                                                   phase, device)
+            current_score, eval_scores = _run_eval(state, eval_loader, cfg, save_folder,
+                                                   iteration, phase, device, world)
             tb.scalar("val_score", current_score, iteration)
             for k, v in eval_scores.items():
                 tb.scalar(f"val_{k}", float(np.asarray(v, dtype=float).mean()), iteration)
-            # dropout from a copy of the training generator, which stays as it was
+            # dropout from a copy of the training generator, which stays as it
+            # was; every rank takes this step (its gradients are all-reduced)
             hist_gen = torch.Generator(device=device)
             hist_gen.set_state(gen.get_state())
             (tap_g, cg_g), _ = grad_step(
@@ -569,12 +635,14 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
             histories["val"][iteration] = {
                 k: (np.asarray(v).tolist() if hasattr(v, "tolist") else v)
                 for k, v in eval_scores.items()}
-            _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader, histories,
-                  dataset, loader_state=loader_state)
+            if rank == 0:
+                _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader,
+                      histories, dataset, loader_state=loader_state)
             if current_score > best_val_score:
                 best_val_score = current_score
-                _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader,
-                      histories, dataset, best=True, loader_state=loader_state)
+                if rank == 0:
+                    _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader,
+                          histories, dataset, best=True, loader_state=loader_state)
                 log.info("new best %.4f at iter %d", best_val_score, iteration)
         finally:
             wd.resume()
@@ -678,14 +746,38 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
         # ahead, and the exit's _save stores loader.state()
         loader.load_state(last_consumed)
 
+    checked = [-1]  # the iteration of the ranks' last preemption agreement
+    every = max(int(cfg.runtime.preempt_check_every), 1)
+
+    def _preempted() -> bool:
+        """The stop decision at an iteration boundary: the SIGTERM flag in
+        one process.  Under several ranks it is collective (echr_tpu's
+        train.py:763-787): an all-reduce MAX of the flag once at each
+        iteration that preempt_check_every divides, so every rank stops at
+        the same boundary; a flag set in between waits for the next check.
+        The ranks run the same iterations, so the schedule is collective."""
+        if world == 1:
+            return preempt["hit"]
+        if iteration % every or checked[0] == iteration:
+            return False
+        checked[0] = iteration
+        return pdist.any_rank(preempt["hit"])
+
+    def _my_rows(stacked: VideoBatch, metas: List) -> tuple:
+        """This rank's rows of a collated group, and their metas."""
+        if world == 1:
+            return stacked, metas
+        b = len(metas) // world
+        return shard_rows(stacked, rank, world), metas[rank * b:(rank + 1) * b]
+
     def _loop_sync() -> None:
         """The reference's synchronous loop (train.py:252-349, echr_tpu's
-        single-host form): one step at a time, its metrics fetched with one
-        synchronisation."""
+        single-host form; under several ranks its multi-host form): one step
+        at a time, its metrics fetched with one synchronisation."""
         nonlocal state, epoch, iteration, lr, bad_video_num, metrics, acc_grads
         while epoch < len(curriculum):
             wd.beat()
-            if preempt["hit"]:
+            if _preempted():
                 log.warning("preemption: stopping before iter %d; resume with --start_from",
                             iteration + 1)
                 break
@@ -728,7 +820,7 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
                         if meta.wrapped:
                             epoch += 1
                         continue
-                    stacked, metas = res
+                    stacked, metas = _my_rows(*res)
                 else:
                     stacked = _stack_batch(batch)
                 tm["collate"] += tic() - t0
@@ -779,15 +871,17 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
             tm["boundary"] += tic() - t_boundary
             if max_iterations and iteration >= max_iterations:
                 break
-            if preempt["hit"]:
+            if _preempted():
                 log.warning("preemption: checkpointing at iter %d and exiting; resume with "
                             "--start_from", iteration)
                 break
 
     # the pipelined loop's eligibility (echr_tpu's): batched groups, no
     # m_batch accumulation and no SCST, which interleave host work with
-    # several device programs an update; the port is one process
-    pipelined = bool(cfg.runtime.train_pipeline and collator is not None
+    # several device programs an update, and one process (the ranks'
+    # preemption agreement and gating eval are collectives, which a
+    # producer running ahead would skew)
+    pipelined = bool(cfg.runtime.train_pipeline and collator is not None and world == 1
                      and cfg.train.m_batch == 1 and cfg.train.self_critical_after == -1)
     tm["pipelined"] = pipelined
     # preemption (echr_tpu's, which the reference lacks): SIGTERM sets a
@@ -803,7 +897,9 @@ def _train(cfg: Config, dataset, loader: Loader, save_folder: str,
     finally:
         wd.stop()
         _restore_preemption_handler(preempt)
-    _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader, histories, dataset)
+    if rank == 0:
+        _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader, histories,
+              dataset)
     tb.close()
     if timing_out is not None:
         timing_out.update(tm)
@@ -842,6 +938,8 @@ def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg
     before the rollout.  Each proposal's GT sentence: 'cg' / 'gt_tap_cg'
     take every GT sentence under gts_mask, the other phases the sentence
     each sampled proposal was matched to (cg_select) under prop_mask.
+    Under several ranks ``batch`` and ``metas`` are the rank's rows, and
+    the update's gradients are all-reduced (steps._phase_grads).
     Returns (state, metrics, timing)."""
     tic = time.perf_counter
     t0 = tic()
@@ -855,7 +953,7 @@ def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg
     else:
         gts = {i: [m.sentences[int(j)] for j in m.cg_select] for i, m in enumerate(metas)}
         (masks,) = fetch_host(batch.prop_mask)
-    pool = default_reward_pool()
+    pool = default_reward_pool(pdist.local_world_size())
     rewards = self_critical_reward_batched(
         {i: gen_np[i] for i in range(len(metas))}, {i: greedy_np[i] for i in range(len(metas))},
         gts, dataset.ix_to_word, {i: masks[i] for i in range(len(metas))}, len(metas),
@@ -875,7 +973,7 @@ def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg
 
 
 def _run_eval(state: TrainState, loader: Loader, cfg: Config, save_folder: str,
-              iteration: int, phase: str, device="cuda"):
+              iteration: int, phase: str, device="cuda", world: int = 1):
     """The checkpoint-gating eval (reference: train.py:366-415): TAP phases
     score proposals only (F1, topN 1000); CG phases run the GT-proposal
     eval with every metric (topN 100) and, unless eval.fast_eval_cg, the
@@ -885,17 +983,28 @@ def _run_eval(state: TrainState, loader: Loader, cfg: Config, save_folder: str,
 
     eval.batch_videos > 1 runs eval_split_batched with that many videos a
     group, and otherwise the per-video eval_split, as echr_tpu does;
-    tests/test_train_gate_batched.py holds the two equal in echr_tpu."""
+    tests/test_train_gate_batched.py holds the two equal in echr_tpu.
+
+    Under ``world`` > 1 ranks, ``loader`` is the val-sharded eval loader:
+    each rank runs eval_split_batched(multihost=True) over its shard, with
+    at least 2 videos a group, and the gathered predictions and losses give
+    every rank the whole split's score; ``num_vids_eval`` is divided over
+    the ranks, rounded up."""
+    multi = world > 1
+
     def run(json_path, kw, mode):
-        if cfg.eval.batch_videos > 1:
+        if multi or cfg.eval.batch_videos > 1:
             return eval_split_batched(state.tap, state.cg, loader, cfg, json_path, kw,
-                                      flag_eval_what=mode, batch_videos=cfg.eval.batch_videos,
-                                      device=device)
+                                      flag_eval_what=mode,
+                                      batch_videos=max(cfg.eval.batch_videos, 2 if multi else 1),
+                                      device=device, multihost=multi)
         return eval_split(state.tap, state.cg, loader, cfg, json_path, kw, flag_eval_what=mode,
                           device=device)
 
     json_path = os.path.join(save_folder, "pred_sent", f"pred_iter{iteration}.json")
     n_eval = cfg.eval.num_vids_eval or loader.split_size("val")
+    if multi and cfg.eval.num_vids_eval:
+        n_eval = -(-cfg.eval.num_vids_eval // world)
     if phase == "tap":
         preds, scores, val_loss = run(
             json_path, {"num_vids_eval": n_eval, "topN": 1000, "val_all_metrics": False}, "tap")
@@ -910,6 +1019,11 @@ def _run_eval(state: TrainState, loader: Loader, cfg: Config, save_folder: str,
             preds, scores, val_loss = run(
                 json_path, {"num_vids_eval": n_eval, "topN": 100, "val_all_metrics": False},
                 "tap_cg")
+    if multi:
+        # each rank scored the gathered split, in its own process's set
+        # order (the scorers' sums differ in the last bits): rank 0's scores
+        # make every rank's best-checkpoint decision
+        scores, scores2, val_loss = pdist.allgather_object((scores, scores2, val_loss))[0]
     recall = np.asarray(scores.get("Recall", [0.0]))
     precision = np.asarray(scores.get("Precision", [0.0]))
     f1 = float((2 * recall * precision / np.maximum(recall + precision, 1e-8)).mean())

@@ -9,11 +9,13 @@ shapes:
   probe_mxu_vpu_overlap  — kernels 9 and 10: does tensor-core work hide
                            under the tanh work?
 
-and one probe of the port's own, with no JAX original:
+and two probes of the port's own, with no JAX original:
 
   probe_tanh             — csrc/tanh.cuh's tanh against CUDA's tanhf in
                            kernels 1 and 4: SASS, accuracy, time (the card
                            only)
+  probe_scst_replay      — SCST's replay against its rollout: the first
+                           product that differs (ROADMAP.md C.2)
 
 Each has ``run(device="cuda", ...)``, which prints the probe's table and
 returns its record, and runs as ``python -m echr_tpu_torch.experiments.<name>``.

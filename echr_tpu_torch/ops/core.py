@@ -80,7 +80,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     operands on CUDA the TF32 tensor cores multiply exactly and accumulate
     in f32: the numbers of bf16 x bf16 -> f32, at tensor-core speed.  f32
     operands always take full-f32 matmuls, except while another thread
-    runs a bf16 product (the flag is process-wide)."""
+    runs a bf16 product (the flag is process-wide).
+
+    A [..., K] left operand against a [K, N] right one is one [M, K] x
+    [K, N] product whether or not b requires grad: torch.matmul folds the
+    leading dimensions only where it can without a copy or where b requires
+    grad, and otherwise runs a batched product, which sums in another
+    order.  So SCST's replay under autograd gets the products of its
+    rollout under no grad (ROADMAP.md C.2)."""
+    if b.dim() == 2 and a.dim() > 2:
+        return matmul(a.reshape(-1, a.shape[-1]), b, dtype).view(*a.shape[:-1], b.shape[-1])
     if dtype != torch.bfloat16 or not a.is_cuda:
         return torch.matmul(a, b)
     with _TF32_BLOCKS.on():

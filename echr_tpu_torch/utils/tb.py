@@ -4,6 +4,7 @@ Uses torch.utils.tensorboard; only logs a warning if that is unavailable."""
 from __future__ import annotations
 
 import logging
+from typing import Optional
 
 import numpy as np
 
@@ -11,8 +12,12 @@ log = logging.getLogger("echr_tpu_torch.tb")
 
 
 class TBWriter:
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: Optional[str]):
+        """``logdir`` None writes nothing (a data-parallel run's ranks but
+        rank 0)."""
         self._w = None
+        if logdir is None:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 

@@ -420,12 +420,22 @@ def test_parse_config_matches_jax_on_experiment_scripts(script):
 @pytest.mark.parametrize("argv", [["--mesh_shape", "2", "4"], ["--preempt_check_every", "4"],
                                   ["--use_pallas_head"]])
 def test_parse_config_refuses_dropped_runtime_knobs(argv):
-    jconfig.parse_config(argv)  # echr_tpu takes it
-    with pytest.raises(ValueError, match=re.escape(argv[0])):
-        config.parse_config(argv)
+    """A flag for a runtime knob the port dropped raises, naming it; the
+    data-parallel knobs (mesh_shape, preempt_check_every) parse as
+    echr_tpu's do."""
+    want = jconfig.parse_config(argv)  # echr_tpu takes it
+    name = argv[0][2:]
+    if name in ("mesh_shape", "preempt_check_every"):
+        got = config.parse_config(argv)
+        assert getattr(got.runtime, name) == getattr(want.runtime, name) != getattr(
+            config.RuntimeConfig(), name)
+    else:
+        with pytest.raises(ValueError, match=re.escape(argv[0])):
+            config.parse_config(argv)
     assert set(config._DROPPED_RUNTIME_FLAGS) == (
         {f.name for f in dataclasses.fields(jconfig.RuntimeConfig)}
         - {f.name for f in dataclasses.fields(config.RuntimeConfig)})
+    assert not {"mesh_shape", "preempt_check_every"} & set(config._DROPPED_RUNTIME_FLAGS)
 
 
 # ----------------------------------------------------------------- (i) the CLIs
@@ -459,9 +469,15 @@ def test_eval_cli_on_a_port_checkpoint_matches_eval_split_batched(tmp_path):
     with open(json_path) as f:
         got = json.load(f)["results"]
     assert want and json.loads(json.dumps(want)) == got
-    with pytest.raises(NotImplementedError, match="A.13"):
-        cli_eval.main(["--folder_id", "EV", "--checkpoint_path", str(tmp_path),
-                       "--data_parallel", "2"])
+    # --data_parallel 2 on the CPU: two gloo ranks, each its shard of val,
+    # write the same predictions JSON (rank 1 beside it, as .proc1)
+    os.remove(json_path)
+    dp_path = cli_eval.main(["--folder_id", "EV", "--checkpoint_path", str(tmp_path),
+                             "--flag_eval_what", "tap_cg", "--topN", "15", "--batch_videos", "2",
+                             "--no_language_eval", "--device", "cpu", "--data_parallel", "2"])
+    assert dp_path == json_path and os.path.exists(json_path + ".proc1")
+    with open(dp_path) as f:
+        assert json.load(f)["results"] == got
     # --sample_max 0 is ported, with --temperature and --sample_seed: one seed
     # gives one predictions JSON, under its own name
     sampled = []

@@ -185,11 +185,15 @@ def test_abort_restores_loader_state(split, monkeypatch):
 
 def test_unported_modes_raise(split, monkeypatch):
     kw = _kw()
+    preds_greedy = split.port(kw, "tap_cg")[0]
     # sample_max=0 is ported: multinomial decode captions the split
     preds, _, _ = split.port(dict(kw, sample_max=0, sample_seed=3), "tap_cg")
     assert preds and all(p["sentence_confidence"] <= 0.0 for v in preds.values() for p in v)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        split.port(kw, "tap_cg", multihost=True)
+    # multihost=True without a torch.distributed group is the plain pass;
+    # a single-process mesh is refused, pointing to multihost
+    assert split.port(kw, "tap_cg", multihost=True)[0] == preds_greedy
+    with pytest.raises(NotImplementedError, match="multihost=True"):
+        split.port(kw, "tap_cg", mesh=object())
     # the per-video eval_split is ported: it captions the split
     preds, _, losses = E.eval_split(tap_from_jax(split.tap_np, split.cfg),
                                     captioner_from_jax(split.cg_np, split.cfg), split.loader,

@@ -165,14 +165,19 @@ def test_config_json_round_trip_both_ways():
     for prop in ("video_context_dim", "event_context_dim", "clip_context_dim",
                  "tsrm_input_dim", "uses_tsrm"):
         assert getattr(cfg, prop) == getattr(jcfg, prop), prop
-    # echr_tpu reads the port's JSON with its own defaults for the dropped knobs
-    assert jconfig.Config.from_json(cfg.to_json()) == jcfg.replace_in("runtime", mesh_shape=(1, 1))
+    # mesh_shape round-trips both ways; echr_tpu reads the port's JSON with
+    # its own defaults for the dropped knobs
+    assert cfg.runtime.mesh_shape == (2, 4)
+    assert jconfig.Config.from_json(cfg.to_json()) == jcfg
+    assert jconfig.Config.from_json(cfg.to_json()).runtime.mesh_shape == (2, 4)
     for port_cfg, jax_cfg in ((config.flagship_config(), jconfig.flagship_config()),
                               (config.Config(), jconfig.Config())):
         assert port_cfg.to_dict() == _kept(jax_cfg.to_dict(), port_cfg.to_dict())
-    # a dropped knob is rejected, not ignored
+    # a dropped knob is rejected, not ignored; the data-parallel ones are kept
     with pytest.raises(TypeError):
-        cfg.replace_in("runtime", mesh_shape=(2, 4))
+        cfg.replace_in("runtime", spmd_mode="shard_map")
+    kept = cfg.replace_in("runtime", mesh_shape=(4, 1), preempt_check_every=2).runtime
+    assert (kept.mesh_shape, kept.preempt_check_every) == ((4, 1), 2)
     # sections and fields this tree does not know are ignored when loading
     assert config.Config.from_dict({"decoder": {"CG_rnn_size": 8, "gone": 1},
                                     "other": {}}).decoder.CG_rnn_size == 8
@@ -330,22 +335,45 @@ def test_eval_score_matches(tmp_path):
     assert got["Recall"][0] > 0 and len(got["Recall"]) == 4
 
 
+class _Clock:
+    """The watchdog module's clock, driven by the test: ``monotonic`` reads
+    ``now``, which only the test advances."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def monotonic(self):
+        return self.now
+
+
 @pytest.mark.parametrize("mod", [watchdog, jwatchdog], ids=["port", "echr_tpu"])
-def test_watchdog_trips_on_a_stall(mod, caplog):
+def test_watchdog_trips_on_a_stall(mod, caplog, monkeypatch):
     """A stalled loop trips the watchdog (a warning each deadline), a beating
-    loop does not, stop() joins its thread, and deadline 0 starts none."""
+    loop does not, stop() joins its thread, and deadline 0 starts none.  The
+    watchdog's clock is the test's (its thread still polls in real time), so
+    a main thread delayed by a loaded machine cannot read as a stall: the
+    beating loop advances the clock 0.05 s a beat against the 0.2 s
+    deadline, and the stall advances it past the deadline.  The watchdog's
+    thread counts a trip before it logs it, so the test waits for both."""
+    clock = _Clock()
+    monkeypatch.setattr(mod, "time", clock)
     wd = mod.HangWatchdog("t", 0.2, dump_stacks=False).start()
     try:
         for _ in range(5):
+            clock.now += 0.05
             wd.beat()
-            time.sleep(0.05)
+            time.sleep(0.05)  # the watchdog's thread polls meanwhile
         assert wd.trips == 0
         with caplog.at_level(logging.WARNING):
+            clock.now += 0.25
+
+            def warned():  # the thread counts the trip, then logs it
+                return any("no progress" in r.getMessage() for r in caplog.records)
             deadline = time.time() + 5.0
-            while wd.trips == 0 and time.time() < deadline:
+            while not (wd.trips and warned()) and time.time() < deadline:
                 time.sleep(0.05)
         assert wd.trips >= 1
-        assert any("no progress" in r.getMessage() for r in caplog.records)
+        assert warned()
     finally:
         thread = wd._thread
         wd.stop()

@@ -313,7 +313,7 @@ def test_self_critical_step_matches_jax(monkeypatch, phase):
         return out
 
     monkeypatch.setattr(T, "rl_rollout_step_batched", keep)
-    monkeypatch.setattr(T, "default_reward_pool", lambda: rl.RewardPool(workers=1))
+    monkeypatch.setattr(T, "default_reward_pool", lambda *_: rl.RewardPool(workers=1))
     vocab = {str(i): f"w{i}" for i in range(1, cfg.decoder.CG_vocab_size + 1)}
     state, metrics, timing = T._self_critical_step(
         state, one, meta, cfg, phase, None, torch.Generator().manual_seed(7),

@@ -435,6 +435,31 @@ def test_training_scores_function_without_grad():
     assert torch.equal(s0, s1.detach())
 
 
+@pytest.mark.parametrize("earlier", [False, True], ids=["folded", "torch_dispatch"])
+def test_replay_products_are_the_rollouts_at_batch_size_1(tmp_path, monkeypatch, earlier):
+    """ROADMAP C.2: train()'s first SCST step at batch_size 1 and bf16.
+    Every product of the replay's forward equals the rollout's on equal
+    inputs, and so do the logps: ops.core.matmul folds a [..., K] left
+    operand into one 2-D product.  With torch.matmul's own dispatch (the
+    earlier form), the SST's input projection ran as a batched product in
+    the rollout (its [T, 1, D] operand cannot fold without a copy) and as
+    a 2-D one in the replay (b requires grad), and the two differ: here at
+    f32 rounding, on the H100 enough to move the logps by 3.8e-4."""
+    from echr_tpu_torch.experiments import probe_scst_replay as probe
+
+    monkeypatch.setattr(ttrain, "default_reward_pool", lambda *_: rl.RewardPool(workers=1))
+    cfg = _loop_cfg(tmp_path).replace_in("train", self_critical_after=0).replace_in(
+        "runtime", compute_dtype="bfloat16")
+    r = probe.train_pass("cpu", cfg, batch_size=1, earlier=earlier)
+    assert r["tokens_equal"] and r["calls"][0] > r["calls"][1] > 0
+    first = r["first_product"]
+    if earlier:
+        assert first["call"] == 0 and first["a"][1] == 1 and first["max_abs_d"] > 0
+        assert not first["rollout"]["b_requires_grad"] and first["replay"]["b_requires_grad"]
+    else:
+        assert first is None and r["logps_max_abs_d"] == 0.0
+
+
 # ------------------------------------------------------------------- loop
 
 
