@@ -10,9 +10,9 @@ PyTorch version.
 
     python3 chip_smoke.py
 
-kernel_turns.py times kernels 1-4 and 7-10 beside another build of their
-sources (a parent commit's) in turns; this script times this checkout's
-kernels alone.
+kernel_turns.py times kernels 1-10 beside another build of their sources
+(a parent commit's) in turns; this script times this checkout's kernels
+alone.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -70,15 +70,24 @@ Phases, in order; any failure raises and the script exits non-zero:
   10. training parity: at f32 with TF32 off and dropout off, one step's
      loss and gradients with the kernels and under force_plain() agree;
   11. kernel 5 (the fused attention step) through
-     additive_attention_step(fused=True) on the beam path's step tensors
-     (32 requests, window-sorted, k=4: N*k=512 rows, T=256, Hatt=512,
-     D=500, bf16), against its plain version within 2e-3, a ragged shape
-     and a fully-masked row; its time beside the kernel-1 route's (kernel 1
-     + masked_softmax + the bf16 AV product), in turns;
-  12. kernel 6 (windowed attention) on the same tensors with the sorted
-     windows and W=64, against its plain version within 5e-4, with
-     zero-length windows, windows that end at T and a ragged shape; its
-     time beside the kernel-1 route's;
+     additive_attention_step(fused=True) once (its one launch, the
+     kernel's launches_by_path), then against its plain version within
+     2e-3 on a ragged shape with D > 512 and a fully-masked row (exact
+     zeros), and at two inputs, each held against its plain version, rows
+     without a live frame exact zeros, and timed in turns with the
+     kernel-1 route (kernel 1 + masked_softmax + the bf16 AV product),
+     beside its plain version's time, its bound and the tanh it needs: the
+     beam path's step tensors (32 requests, window-sorted, k=4: N*k=512
+     rows, T=256, Hatt=512, D=500, bf16) and the same with short windows
+     (short_windows: 4-47 frames, density ~0.1);
+  12. kernel 6 (windowed attention, W=64) once, then against its plain
+     version within 5e-4 with zero-length windows (exact zeros) and
+     windows that end at T, and on a ragged shape; then at phase 11's two
+     inputs with their sorted windows, as phase 11.  Kernels 5 and 6 are
+     also measured so at the SOTA_TEP eval's first decode step (phase 27)
+     and at a per-video decode step (phase 29, with the host time a call
+     of each kernel and of the route); kernel 6 takes each row's window
+     from the mask (first live frame, last + 1);
   13. the beam slice: CaptionService(beam_size=4) at the flagship width on
      64 requests (two chunks of 32 videos, top-128 proposals: 16384 beam
      rows a chunk) after a warm-up chunk; kernel 1's launches must equal
@@ -212,7 +221,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      stemmer, peak memory.  Kernels 1 and 2 on copies of the warm-up
      group's first decode step (the external windows: their density and
      bucket printed) against their plain versions and timed beside their
-     bound.  At f32 with TF32 off, phase 5's weights and the window sort
+     bound, and kernels 5 and 6 on that step's tensors as in phases 11-12.
+     At f32 with TF32 off, phase 5's weights and the window sort
      off, the pass from disk against the pass over the in-memory corpus
      and against force_plain(): sentences equal but where the first
      differing token is a near-tie (top-2 gap below 1e-4) of the other
@@ -254,7 +264,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      token, phase 23's launch counts); kernel 1 at the first call of each
      per-video row count and kernel 2 at R = 64, 128, 256 and 1024 (C=1536,
      V1=6001, bf16), each against its plain version and timed beside its
-     bound and the plain head;
+     bound and the plain head; kernels 5 and 6 at the greedy decode step
+     of 128 rows, as in phases 11-12;
   30. data parallel: engine.train.train at train_cfg()'s width (B=32,
      N=64, tap_cg), f32, TF32 off, dropout off, 4 steps with the gate at 4
      over 32 val videos (the cg pass), in turns without a group and inside
@@ -916,17 +927,125 @@ def short_windows(t):
     return {**t, "soi": soi, "mask": segment_window_mask(soi, T).contiguous()}
 
 
+def step_inputs(args):
+    """The attention step's tensors of a decode step kept by
+    kept_attention_calls, (pre, q, w, b, mask, feats), as a dict with each
+    row's window soi [B, N, 2] int32 taken from its mask, as ctxs_soi takes
+    it (first live frame, last live frame + 1; a row without one gets
+    [T, 0), a zero-length window)."""
+    pre, q, w, b, mask, feats = args
+    T = mask.shape[-1]
+    idx = torch.arange(T, device=mask.device)
+    live = mask > 0
+    soi = torch.stack([torch.where(live, idx, T).amin(-1), torch.where(live, idx + 1, 0).amax(-1)],
+                      -1)
+    return {"pre": pre.float().contiguous(), "q": q.float().contiguous(), "w": w.contiguous(),
+            "b": b.contiguous(), "mask": mask.float().contiguous(),
+            "feats": feats.float().contiguous(), "soi": soi.to(torch.int32).contiguous()}
+
+
+@contextlib.contextmanager
+def kept_attention_calls(kept, keep_if):
+    """Within the block, every kernel-1 call of the decoder's attention whose
+    arguments (pre, q, w, b, mask) pass keep_if(args) appends copies of
+    (pre, q, w, b, mask, feats) to ``kept``: the feats are those of the
+    enclosing decoder.additive_attention_step."""
+    from echr_tpu_torch.models import decoder
+    from echr_tpu_torch.ops import attention as attention_ops
+
+    feats = []
+
+    def note(*a):
+        feats[:] = [a[2]]
+
+    def keep(*a):
+        if keep_if(a):
+            kept.append(tuple(x.detach().clone() for x in (*a, feats[0])))
+    with wrapped(decoder, "additive_attention_step", note), \
+            wrapped(attention_ops, "attention_scores_masked", keep):
+        yield kept
+
+
 def _random_windows(rng, B, N, T, max_len):
     s = rng.randint(0, T - 1, size=(B, N))
     e = np.minimum(s + rng.randint(1, max_len + 1, size=(B, N)), T)
     return np.stack([s, e], -1).astype(np.int32)
 
 
+def attention_step_record(card, k, tag, name, t, host=False):
+    """Kernel 5 (k=5) or 6 (k=6) on one input t (step_inputs' keys; kernel 6
+    takes the windows t["soi"], kernel 5 the mask): held against its plain
+    version (FUSED_TOL, or TOL), rows without a live frame exact zeros,
+    then timed in turns with the kernel-1 route, beside its plain
+    version's time, its bound and the tanh it needs; with ``host`` also the
+    host time a call of both.  Returns the record."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_attention_step import attention_fused, windowed_attention
+
+    B, T, H = t["pre"].shape
+    N, D = t["q"].shape[1], t["feats"].shape[2]
+    if k == 5:
+        args = (t["pre"], t["q"], t["w"], t["b"], t["mask"], t["feats"])
+        fn, gate = (lambda: attention_fused(*args)), FUSED_TOL
+        live = t["mask"] > 0
+        pairs = float(live.sum())
+        empty = ~live.any(-1)
+        # per live (n, t, h): add, tanh, multiply, add in f32; per live (n, t, d): a
+        # multiply-add of bf16 operands, which tensor cores take at the bf16 rate
+        ops = {"f32": pairs * 4.0 * H, "bf16": pairs * 2.0 * D}
+    else:
+        args = (t["pre"], t["feats"], t["q"], t["w"], t["b"], t["soi"])
+        fn, gate = (lambda: windowed_attention(*args, W=WINDOW)), TOL
+        lens = (t["soi"][..., 1].clamp(max=T) - t["soi"][..., 0].clamp(min=0)).clamp(min=0)
+        pairs = float(lens.sum())
+        empty = lens == 0
+        ops = {"f32": pairs * (4.0 * H + 2.0 * D)}
+    got = fn()
+    with force_plain():
+        want = fn()
+    err = float((got - want).abs().max())
+    if not err <= gate:
+        fail(f"kernel {k}, {name}: max|d| {err:.3e} > {gate}")
+    if bool(got[empty].ne(0).any()):
+        fail(f"kernel {k}, {name}: a row without a live frame is not zero")
+    turns = in_turns({"kernel": fn, "route": lambda: kernel1_route(t)})
+    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
+    with force_plain():
+        plain_ms = cuda_ms(fn, iters=3, warmup=1)
+    rec = {"B": B, "N": N, "T": T, "H": H, "D": D, "density": pairs / (B * N * T),
+           "empty_rows": int(empty.sum()), "max_abs_err": err, "ms": (k1 + k2) / 2,
+           "turns_ms": [k1, k2], "kernel1_route_ms": (r1 + r2) / 2, "route_turns_ms": [r1, r2],
+           "plain_ms": plain_ms, "tanh_needed": pairs * H, **bound(nbytes(*args, got), **ops)}
+    line = (f"[{tag}] kernel {k}, {name} B={B} N={N} T={T} H={H} D={D} (density "
+            f"{rec['density']:.3f}, rows without a live frame: {rec['empty_rows']}): max|d| "
+            f"{err:.3e}; "
+            f"kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, {r2:.4f} ms (in "
+            f"turns) vs plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    if host:
+        rec.update(host_us=host_us(fn), route_host_us=host_us(lambda: kernel1_route(t)))
+        line += f"; host {rec['host_us']:.1f} us a call, the route {rec['route_host_us']:.1f} us"
+    print(line + f" [{card}]")
+    return rec
+
+
+def step_records(card, tag, name, t, host=False):
+    """Kernels 5 and 6 at one decode step's input (attention_step_record),
+    keyed by kernel name; the windows' contiguity printed beside."""
+    from echr_tpu_torch.ops.masked import segment_window_mask
+
+    same = bool(segment_window_mask(t["soi"], t["pre"].shape[1]).eq(t["mask"]).all())
+    print(f"[{tag}] {name}: the mask is its rows' [s, e) windows: {same}")
+    return {"attention_fused": attention_step_record(card, 5, tag, name, t, host),
+            "windowed_attention": attention_step_record(card, 6, tag, name, t, host)}
+
+
 @torch.inference_mode()
 def phase_fused(card, t):
-    """Kernel 5 on the beam path's step tensors against its plain version
-    (atol 2e-3), a ragged shape with D > 512 and a fully-masked row, and
-    its time beside the kernel-1 route's."""
+    """Kernel 5 through additive_attention_step(fused=True) once, then on
+    the beam path's step tensors and on a ragged shape with D > 512 and a
+    fully-masked row against its plain version (atol 2e-3); timed at the
+    beam step and at short windows beside the kernel-1 route's."""
     from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.attention import additive_attention_step
     from echr_tpu_torch.ops.kernel_attention_step import attention_fused
@@ -941,20 +1060,9 @@ def phase_fused(card, t):
         fail(f"additive_attention_step(fused=True) launched kernel 5 {launches} times")
     args = (t["pre"], t["q"], t["w"], t["b"], t["mask"], t["feats"])
     got = attention_fused(*args)
-    with force_plain():
-        want = attention_fused(*args)
-    err = float((got - want).abs().max())
     route_err = float((got - kernel1_route(t)).abs().max())
-    B, T, H = t["pre"].shape
-    N, D = t["q"].shape[1], t["feats"].shape[2]
-    live = float(t["mask"].sum())
-    print(f"[11] fused step, beam path B={B} N*k={N} T={T} H={H} D={D} (mask density "
-          f"{live / t['mask'].numel():.3f}): max|d| vs plain {err:.3e} (vs the kernel-1 route, "
-          f"which rounds the normalised weights instead, {route_err:.3e}); entry point "
-          f"launches {launches}")
-    if not err <= FUSED_TOL:
-        fail(f"kernel 5: max|d| {err:.3e} > {FUSED_TOL}")
-    worst = err
+    print(f"[11] fused step: entry point launches {launches}; at the beam step max|d| vs the "
+          f"kernel-1 route, which rounds the normalised weights instead, {route_err:.3e}")
 
     rng = np.random.RandomState(8)
     dev = t["pre"].device
@@ -973,44 +1081,22 @@ def phase_fused(card, t):
           f"fully-masked row max|out| {float(rgot[1, 5].abs().max()):.1e}")
     if not rerr <= FUSED_TOL or bool(rgot[1, 5].ne(0).any()):
         fail(f"kernel 5 ragged: max|d| {rerr:.3e}, or a fully-masked row is not zero")
-    worst = max(worst, rerr)
 
-    turns = in_turns({"kernel": lambda: attention_fused(*args), "route": lambda: kernel1_route(t)})
-    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
-    with force_plain():
-        plain_ms = cuda_ms(lambda: attention_fused(*args), iters=3, warmup=1)
-    # per live (n, t, h): add, tanh, multiply, add in f32; per live (n, t, d): a
-    # multiply-add of bf16 operands, which tensor cores take at the bf16 rate
-    record = {"launches": launches, "max_abs_err": worst, "ms": (k1 + k2) / 2,
-              "plain_ms": plain_ms, "kernel1_route_ms": (r1 + r2) / 2,
-              **bound(nbytes(*args, got), f32=live * 4.0 * H, bf16=live * 2.0 * D)}
-    print(f"[11] fused step kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, "
-          f"{r2:.4f} ms (in turns) vs plain {plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms "
-          f"({record['bound_by']}) [{card}]")
-    sw = short_windows(t)
-    sargs = args[:4] + (sw["mask"], t["feats"])
-    with force_plain():
-        swant = attention_fused(*sargs)
-    serr = float((attention_fused(*sargs) - swant).abs().max())
-    if not serr <= FUSED_TOL:
-        fail(f"kernel 5, short windows: max|d| {serr:.3e} > {FUSED_TOL}")
-    record["max_abs_err"] = max(worst, serr)
-    turns = in_turns({"kernel": lambda: attention_fused(*sargs),
-                      "route": lambda: kernel1_route(sw)})
-    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
-    record.update(short_windows_ms=(k1 + k2) / 2, short_windows_route_ms=(r1 + r2) / 2)
-    print(f"[11] fused step, short windows (mask density {float(sw['mask'].mean()):.3f}): "
-          f"max|d| {serr:.3e}; kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, "
-          f"{r2:.4f} ms (in turns) [{card}]")
-    return record
+    by_input = {"beam_step": attention_step_record(card, 5, 11, "the beam step", t),
+                "beam_step_short_windows": attention_step_record(
+                    card, 5, 11, "the beam step, short windows", short_windows(t))}
+    worst = max(rerr, *(r["max_abs_err"] for r in by_input.values()))
+    return {"launches": launches,
+            "launches_by_path": {"additive_attention_step(fused=True), phase 11": launches},
+            **by_input["beam_step"], "max_abs_err": worst, "by_input": by_input}
 
 
 @torch.inference_mode()
 def phase_windowed(card, t):
-    """Kernel 6 on the beam path's step tensors with the sorted windows and
-    W=64, against its plain version (atol 5e-4); zero-length windows,
-    windows that end at T and a ragged shape; its time beside the kernel-1
-    route's."""
+    """Kernel 6 once, then on the beam path's step tensors with the sorted
+    windows and W=64 against its plain version (atol 5e-4), with
+    zero-length windows, windows that end at T and a ragged shape; timed at
+    the beam step and at short windows beside the kernel-1 route's."""
     from echr_tpu_torch.ops import force_plain
     from echr_tpu_torch.ops.kernel_attention_step import windowed_attention
 
@@ -1028,7 +1114,7 @@ def phase_windowed(card, t):
             fail(f"kernel 6 {name}: max|d| {err:.3e} > {TOL}")
         if zero_rows is not None and bool(got[zero_rows].ne(0).any()):
             fail(f"kernel 6 {name}: a zero-length window is not zero")
-        return err, got
+        return err
 
     args = (t["pre"], t["feats"], t["q"], t["w"], t["b"], t["soi"])
     windowed_attention.launches = 0
@@ -1037,7 +1123,6 @@ def phase_windowed(card, t):
     launches = windowed_attention.launches
     if launches != 1:
         fail(f"windowed_attention launched kernel 6 {launches} times")
-    worst, got = check("beam path", args)
 
     soi = t["soi"].clone()
     T = t["pre"].shape[1]
@@ -1045,7 +1130,7 @@ def phase_windowed(card, t):
     zero[:, ::7] = True
     soi[:, ::7, 1] = soi[:, ::7, 0]  # zero-length windows
     soi[:, 3::7, 1] = T  # windows that end at T
-    worst = max(worst, check("edges", args[:5] + (soi.contiguous(),), zero)[0])
+    worst = check("edges", args[:5] + (soi.contiguous(),), zero)
 
     rng = np.random.RandomState(9)
     dev = t["pre"].device
@@ -1054,33 +1139,14 @@ def phase_windowed(card, t):
     rargs = (_rand(rng, (Br, Tr, Hr), 0.5, dev), _rand(rng, (Br, Tr, Dr), 1.0, dev),
              _rand(rng, (Br, Nr, Hr), 0.5, dev), _rand(rng, (Hr,), 0.05, dev),
              torch.tensor([0.25], device=dev), rsoi)
-    worst = max(worst, check("ragged", rargs)[0])
+    worst = max(worst, check("ragged", rargs))
 
-    turns = in_turns({"kernel": lambda: windowed_attention(*args, W=WINDOW),
-                      "route": lambda: kernel1_route(t)})
-    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
-    with force_plain():
-        plain_ms = cuda_ms(lambda: windowed_attention(*args, W=WINDOW), iters=3, warmup=1)
-    B, _, H = t["pre"].shape
-    D = t["feats"].shape[2]
-    frames = float((t["soi"][..., 1] - t["soi"][..., 0]).clamp(min=0).sum())
-    record = {"launches": launches, "max_abs_err": worst, "ms": (k1 + k2) / 2,
-              "plain_ms": plain_ms, "kernel1_route_ms": (r1 + r2) / 2,
-              **bound(nbytes(*args, got), f32=frames * (4.0 * H + 2.0 * D))}
-    print(f"[12] windowed kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route {r1:.4f}, "
-          f"{r2:.4f} ms (in turns) vs plain {plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms "
-          f"({record['bound_by']}) [{card}]")
-    sw = short_windows(t)
-    sargs = args[:5] + (sw["soi"],)
-    worst = max(worst, check("short windows", sargs)[0])
-    record["max_abs_err"] = worst
-    turns = in_turns({"kernel": lambda: windowed_attention(*sargs, W=WINDOW),
-                      "route": lambda: kernel1_route(sw)})
-    (k1, k2), (r1, r2) = turns["kernel"], turns["route"]
-    record.update(short_windows_ms=(k1 + k2) / 2, short_windows_route_ms=(r1 + r2) / 2)
-    print(f"[12] windowed, short windows: kernel {k1:.4f}, {k2:.4f} ms vs the kernel-1 route "
-          f"{r1:.4f}, {r2:.4f} ms (in turns) [{card}]")
-    return record
+    by_input = {"beam_step": attention_step_record(card, 6, 12, "the beam step", t),
+                "beam_step_short_windows": attention_step_record(
+                    card, 6, 12, "the beam step, short windows", short_windows(t))}
+    worst = max(worst, *(r["max_abs_err"] for r in by_input.values()))
+    return {"launches": launches, "launches_by_path": {"windowed_attention, phase 12": launches},
+            **by_input["beam_step"], "max_abs_err": worst, "by_input": by_input}
 
 
 def phase_beam(card, svc):
@@ -3018,11 +3084,10 @@ def sota_eval(card, root, sota_path, proposals, dev="cuda"):
     "SOTA_TEP") over the 64 val videos, 32 a group, greedy with val
     losses, every metric, after a warm-up group that keeps copies of
     kernels 1 and 2's arguments at the first decode step.  Returns
-    (launches, kernel 1's arguments, kernel 2's)."""
+    (launches, kernel 1's arguments and the step's feats, kernel 2's)."""
     from echr_tpu_torch.engine import evaluate
     from echr_tpu_torch.models import decoder
     from echr_tpu_torch.models.decoder import decoder_sample_batched
-    from echr_tpu_torch.ops import attention
     from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
     from echr_tpu_torch.ops.kernel_head import greedy_head
 
@@ -3048,10 +3113,11 @@ def sota_eval(card, root, sota_path, proposals, dev="cuda"):
             if decoding and name not in kept:
                 kept[name] = tuple(a.detach().clone() for a in args)
         return hook
+    k1 = []
     try:
         with tempfile.TemporaryDirectory() as tmp:
             with patched(evaluate, "decode_step_batched", in_decode), \
-                    wrapped(attention, "attention_scores_masked", keep("k1")), \
+                    kept_attention_calls(k1, lambda a: decoding and not k1), \
                     wrapped(decoder, "greedy_head", keep("k2")):
                 run(tap, cg, loader, cfg, f"{tmp}/w.json",
                     dict(kw, num_vids_eval=EVAL_B, language_eval=False))  # warm-up
@@ -3070,7 +3136,7 @@ def sota_eval(card, root, sota_path, proposals, dev="cuda"):
         loader.load_state(loader.state())
     if torch.backends.cuda.matmul.allow_tf32:
         fail("SOTA_TEP eval: the eval left TF32 on")
-    k1, k2, steps = attention_scores_masked.launches, greedy_head.launches, \
+    n1, n2, steps = attention_scores_masked.launches, greedy_head.launches, \
         decoder_sample_batched.steps
     check_predictions(preds, usable, ds.ix_to_word, durations)
     for vid, caps in preds.items():  # every proposal of the JSON, in its order
@@ -3079,8 +3145,8 @@ def sota_eval(card, root, sota_path, proposals, dev="cuda"):
             fail(f"SOTA_TEP eval: {vid}'s predictions are not its {SOTA_PER_VIDEO} external "
                  f"proposals")
     want_k1 = steps + (SEQ_LEN - 1) * timing["groups"]
-    if not (steps > 0 and k1 == want_k1 and k2 == steps):
-        fail(f"SOTA_TEP eval: kernel 1 launched {k1} times (want {want_k1}), kernel 2 {k2} "
+    if not (steps > 0 and n1 == want_k1 and n2 == steps):
+        fail(f"SOTA_TEP eval: kernel 1 launched {n1} times (want {want_k1}), kernel 2 {n2} "
              f"(want {steps})")
     if not (np.isfinite(losses).all() and (losses[:3] > 0).all()):
         fail(f"SOTA_TEP eval: val losses {losses}")
@@ -3092,7 +3158,7 @@ def sota_eval(card, root, sota_path, proposals, dev="cuda"):
     run_s = wall - sum(score_s)
     print(f"[27] SOTA_TEP eval from disk: {len(preds)} videos (of {len(usable)} usable), "
           f"{n_caps} captions, {timing['groups']} groups of {EVAL_B}, {steps} decode steps, "
-          f"kernel 1 launches {k1}, kernel 2 {k2}; val losses "
+          f"kernel 1 launches {n1}, kernel 2 {n2}; val losses "
           f"{np.round(losses[:3], 4).tolist()}; all scored")
     print(f"[27] SOTA_TEP eval: {len(preds) / run_s:.2f} eval videos/s, {n_caps / run_s:.1f} "
           f"captions/s over {run_s:.3f} s without scoring; eval_score {sum(score_s):.3f} s "
@@ -3101,9 +3167,9 @@ def sota_eval(card, root, sota_path, proposals, dev="cuda"):
     print(f"[27] SOTA_TEP eval timing_out: "
           f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in timing.items()} }")
     print(f"[27] SOTA_TEP eval scores: { {m: np.round(score[m], 4).tolist() for m in metrics} }")
-    if "k1" not in kept or "k2" not in kept:
+    if not k1 or "k2" not in kept:
         fail("SOTA_TEP eval: kernels 1 and 2 were not called in a decode step")
-    return {"attention_scores_masked": k1, "greedy_head": k2}, kept["k1"], kept["k2"]
+    return {"attention_scores_masked": n1, "greedy_head": n2}, k1[0], kept["k2"]
 
 
 def gap_recorder():
@@ -3353,7 +3419,8 @@ def serve_cli(card, ckpt, feats_dir, dur_json, refs_json, out, beam, dev="cuda")
 def phase_real_data(card):
     """Phase 27: real data and reference weights.  Returns (kernel 1 and
     2's launches by path, kernel 1's record at the SOTA_TEP windows,
-    kernel 2's at the SOTA_TEP decode)."""
+    kernel 2's at the SOTA_TEP decode, kernels 5 and 6's at the SOTA_TEP
+    windows)."""
     import shutil
 
     from echr_tpu_torch.data.export_disk import export_synthetic_corpus
@@ -3376,8 +3443,10 @@ def phase_real_data(card):
         launches = {}
         launches["sota_eval"], k1_args, k2_args = sota_eval(card, root, sota_path, proposals)
         nb = k1_args[1].shape[1]
-        k1_rec = kernel1_timing(card, f"the SOTA_TEP eval's first decode step ({SOTA_PER_VIDEO} "
-                                      f"external windows a video, bucket {nb})", k1_args)
+        name = (f"the SOTA_TEP eval's first decode step ({SOTA_PER_VIDEO} external windows a "
+                f"video, bucket {nb})")
+        k1_rec = kernel1_timing(card, name, k1_args[:5])
+        steps_rec = step_records(card, 27, name, step_inputs(k1_args))
         out, w, b = k2_args
         R, V1 = out.shape[0], b.shape[0]
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3416,7 +3485,7 @@ def phase_real_data(card):
         shutil.rmtree(root, ignore_errors=True)
     print(f"[27] real data and reference weights: launches {launches}; phase wall "
           f"{time.time() - t_phase:.1f} s [{card}]")
-    return launches, k1_rec, k2_rec
+    return launches, k1_rec, k2_rec, steps_rec
 
 
 PIPE_STEPS, PIPE_PARITY_STEPS = 8, 6  # phase 28: steps a run; steps of the f32 parity runs
@@ -3590,12 +3659,11 @@ def pervideo_eval(card, name, args, kw, usable, durations, json_path, kept=None,
     """One eval_split pass of phase 29 after a warm-up of 4 videos: kernel 1
     launches once a decode step and 29 times a val-loss call, kernel 2 once
     a greedy decode step.  ``kept`` collects the first kernel-1 call of
-    each new row count (per-video bucket) of the pass.  Returns (launches,
-    eval videos/s)."""
+    each new row count (per-video bucket) of the pass, with its step's
+    feats (kept_attention_calls).  Returns (launches, eval videos/s)."""
     from echr_tpu_torch.engine import evaluate
     from echr_tpu_torch.models.beam import beam_search_batched
     from echr_tpu_torch.models.decoder import decoder_sample_batched
-    from echr_tpu_torch.ops import attention as attention_ops
     from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
     from echr_tpu_torch.ops.kernel_head import greedy_head
 
@@ -3607,15 +3675,12 @@ def pervideo_eval(card, name, args, kw, usable, durations, json_path, kept=None,
         fn.launches = 0
     for fn in (decoder_sample_batched, beam_search_batched):
         fn.steps = 0
-    val_calls = []
-
-    def keep(*a):
-        if kept is not None and a[1].shape[1] not in {k[1].shape[1] for k in kept}:
-            kept.append(tuple(x.detach().clone() for x in a))
+    val_calls, kept = [], [] if kept is None else kept
     timing = {}
     t0 = time.time()
     with wrapped(evaluate, "val_loss_step", lambda *a: val_calls.append(1)), \
-            wrapped(attention_ops, "attention_scores_masked", keep):
+            kept_attention_calls(kept, lambda a: a[1].shape[1] not in
+                                 {k[1].shape[1] for k in kept}):
         preds, _, losses = evaluate.eval_split(tap, cg, loader, cfg, json_path,
                                                dict(kw, timing_out=timing), device=dev)
     torch.cuda.synchronize()
@@ -3645,8 +3710,9 @@ def phase_pervideo(card, dev="cuda"):
     eval_split greedy (val losses on) and beam 4 beside
     eval_split_batched's rate, their f32 parity, the eval CLI's default in
     a child process, SCST at batch_size 1, and kernels 1 and 2 at the
-    per-video shapes.  Returns (launches by path, kernel 1's records,
-    kernel 2's records by rows)."""
+    per-video shapes, kernels 5 and 6 at the greedy decode step's.  Returns
+    (launches by path, kernel 1's records, kernel 2's records by rows,
+    kernels 5 and 6's records)."""
     from echr_tpu_torch.engine.evaluate import eval_split_batched
     from echr_tpu_torch.ops.kernel_head import split_plan
 
@@ -3678,10 +3744,15 @@ def phase_pervideo(card, dev="cuda"):
         loader.load_state(loader.state())
     pervideo_parity(dev)
     paths["scst_per_video"] = pervideo_scst(card, dev)
-    k1 = {}
+    k1, steps_rec = {}, None
     for args in kept:
         tag = f"per_video_N{args[1].shape[1]}"
-        k1[tag] = kernel1_timing(card, f"a per-video call, N={args[1].shape[1]} rows", args)
+        k1[tag] = kernel1_timing(card, f"a per-video call, N={args[1].shape[1]} rows", args[:5])
+        if args[1].shape[1] == TOP_N and steps_rec is None:  # the greedy decode step's
+            steps_rec = step_records(card, 29, f"a per-video decode step, N={TOP_N} rows",
+                                     step_inputs(args), host=True)
+    if steps_rec is None:
+        fail(f"[29] no per-video decode step of {TOP_N} rows was kept")
     del kept
     dev = torch.device(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3697,7 +3768,7 @@ def phase_pervideo(card, dev="cuda"):
           f"{ {k: (round(r['ms'], 4), round(r['plain_ms'], 4)) for k, r in heads.items()} } "
           f"ms; the kernel loses at {slower or 'no R'} [{card}]")
     print(f"[29] phase wall {time.time() - t_phase:.1f} s [{card}]")
-    return paths, k1, heads
+    return paths, k1, heads, steps_rec
 
 
 def eval_cli_child(card, tap, cg, cfg, ds, tmp, dev="cuda"):
@@ -4212,13 +4283,16 @@ def main():
     phase_scst_parity()
     sample_k1 = phase_sample_eval(card)
     family, head["by_width"] = phase_family(card)
-    real, k1_inputs["sota_eval"], head["sota_eval"] = phase_real_data(card)
+    real, k1_inputs["sota_eval"], head["sota_eval"], sota_steps = phase_real_data(card)
     pipe_launches = phase_pipeline(card)
-    pervideo, k1_pervideo, head["per_video_rows"] = phase_pervideo(card)
+    pervideo, k1_pervideo, head["per_video_rows"], pervideo_steps = phase_pervideo(card)
     k1_inputs.update(k1_pervideo)
+    for rec, name in ((fused, "attention_fused"), (windowed, "windowed_attention")):
+        rec["by_input"].update(sota_eval=sota_steps[name], per_video=pervideo_steps[name])
+        rec["max_abs_err"] = max(r["max_abs_err"] for r in rec["by_input"].values())
     dp = phase_data_parallel(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
-    for rec in (scores, dense, bwd, *overlap.values()):
+    for rec in (scores, dense, bwd, fused, windowed, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
     for name, rec in k1_inputs.items():
         print(f"[6] kernel 1, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
@@ -4228,6 +4302,14 @@ def main():
                       ("the training step's masks", dense["training_masks"])):
         print(f"[7] kernel 3, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
               f"{rec['tanh_floor_ms']:.4f} ms, live-work bound {rec['bound_ms']:.4f} ms [{card}]")
+    for k, rec in ((5, fused), (6, windowed)):
+        for name, r in rec["by_input"].items():
+            host = (f"; host {r['host_us']:.1f} us a call against the route's "
+                    f"{r['route_host_us']:.1f}" if "host_us" in r else "")
+            print(f"[11-12] kernel {k}, {name}: {r['ms']:.4f} ms against the kernel-1 route's "
+                  f"{r['kernel1_route_ms']:.4f} ({r['kernel1_route_ms'] / r['ms']:.2f}x), "
+                  f"tanh-rate floor {r['tanh_floor_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+                  f"{host} [{card}]")
     for name, rec in (("dense g", bwd), ("windowed g", bwd["windowed_g"]),
                       ("the training step's g", bwd["training_g"])):
         print(f"[8] kernel 4, {name}: {rec['ms']:.4f} ms, tanh-rate floor "

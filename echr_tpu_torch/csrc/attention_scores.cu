@@ -14,11 +14,11 @@
 // CUDA tanhf's 15 at the same accuracy gate.  Built without fast math.
 #include <cuda_runtime.h>
 
-#include "tanh.cuh"
+#include "attention_body.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
+using namespace attention_body;
 
 // ---------------------------------------------------------------------------
 // The masked body: work in proportion to the live (n, t) pairs.  A
@@ -33,56 +33,17 @@ constexpr unsigned FULL = 0xffffffffu;
 // units at a time (64 KB at H = 512, so three blocks share an SM, and the
 // launch bounds hold a thread to 80 registers to match); each warp owns two
 // pairs of adjacent rows (the k beams of a proposal are adjacent and share a
-// window).  For each pair the warp
-// ballots the mask over the tile's frames, holds both rows' q and w in
-// registers (KH a lane), and walks only the frames where either row is live:
-// one shared load of pre[t] feeds both rows' tanh.  The sum over H is a lane
-// partial in a fixed order, then a butterfly over the warp; lane t keeps the
-// score of frame t.  Masked entries are written as 0.  Any mask is exact:
-// the rows need not be sorted.  Ragged N, T and H are masked in the block
-// (padded hidden units have q = w = pre = 0 and add w * tanh(0) = 0).
+// window).  For each pair the warp ballots the mask over the tile's frames,
+// holds both rows' q and w in registers (KH a lane) and walks only the
+// frames where either row is live (attention_body.cuh's pair_scores, which
+// kernel 5 runs too).  Masked entries are written as 0.  Any mask is exact:
+// the rows need not be sorted.  Ragged N, T and H are masked in the block.
 // ---------------------------------------------------------------------------
 constexpr int MF = 32;                    // frames per block: one mask bit per lane
 constexpr int MWARPS = 8;
 constexpr int MTHREADS = MWARPS * 32;
 constexpr int PAIRS = 2;                  // row pairs per warp
 constexpr int MROWS = 2 * PAIRS * MWARPS; // rows per block
-
-// Lane `lane` holds hidden units h0 + 4 * (lane + 32 * j) + c of a chunk, for
-// j < KH / 4 and c < 4, so a warp reads a staged row of pre as float4s
-// without bank conflicts.
-template <int KH>
-__device__ __forceinline__ void load_lane_units(const float* __restrict__ src, int h0, int H,
-                                                int lane, float (&dst)[KH]) {
-#pragma unroll
-  for (int j = 0; j < KH / 4; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int h = h0 + 4 * (lane + 32 * j) + c;
-      dst[4 * j + c] = h < H ? src[h] : 0.f;
-    }
-}
-
-template <int KH>
-__device__ __forceinline__ float lane_dot_tanh(const float4* __restrict__ pr,
-                                               const float (&qv)[KH], const float (&wv)[KH]) {
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < KH / 4; ++j) {
-    const float4 p = pr[32 * j];
-    s = fmaf(wv[4 * j + 0], echr_tanh(qv[4 * j + 0] + p.x), s);
-    s = fmaf(wv[4 * j + 1], echr_tanh(qv[4 * j + 1] + p.y), s);
-    s = fmaf(wv[4 * j + 2], echr_tanh(qv[4 * j + 2] + p.z), s);
-    s = fmaf(wv[4 * j + 3], echr_tanh(qv[4 * j + 3] + p.w), s);
-  }
-  return s;
-}
-
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-  return s;
-}
 
 template <int KH>
 __global__ void __launch_bounds__(MTHREADS, 3)
@@ -134,39 +95,8 @@ masked_scores_kernel(const float* __restrict__ pre, const float* __restrict__ q,
       for (int p = 0; p < PAIRS; ++p) {
         const unsigned la = live[p][0], lb = live[p][1];
         if (!(la | lb)) continue;
-        const int na = n0 + 2 * (warp + MWARPS * p);
-        float qa[KH], qc[KH];
-        if (na < N) load_lane_units<KH>(qb + (size_t)na * H, h0, H, lane, qa);
-        if (na + 1 < N) load_lane_units<KH>(qb + (size_t)(na + 1) * H, h0, H, lane, qc);
-        for (unsigned todo = la | lb; todo; todo &= todo - 1) {
-          const int f = __ffs(todo) - 1;
-          const float4* pr = pre_s4 + f * (CH / 4) + lane;
-          const bool ra = (la >> f) & 1u, rc = (lb >> f) & 1u;
-          float sa, sc;
-          if (ra && rc) {
-            sa = lane_dot_tanh<KH>(pr, qa, wv);
-            sc = lane_dot_tanh<KH>(pr, qc, wv);
-            // both sums in one butterfly: after the first exchange lanes 0-15
-            // carry row a's partials and lanes 16-31 row c's
-            const bool hi = lane & 16;
-            float v = (hi ? sc : sa) + __shfl_xor_sync(FULL, hi ? sa : sc, 16);
-#pragma unroll
-            for (int off = 8; off; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-            const float other = __shfl_xor_sync(FULL, v, 16);
-            sa = hi ? other : v;
-            sc = hi ? v : other;
-          } else if (ra) {
-            sa = warp_sum(lane_dot_tanh<KH>(pr, qa, wv));
-            sc = 0.f;
-          } else {
-            sa = 0.f;
-            sc = warp_sum(lane_dot_tanh<KH>(pr, qc, wv));
-          }
-          if (lane == f) {
-            res[p][0] += sa;
-            res[p][1] += sc;
-          }
-        }
+        pair_scores<KH>(pre_s4, 0, qb, n0 + 2 * (warp + MWARPS * p), N, h0, H, lane, wv, la,
+                        lb, res[p][0], res[p][1]);
       }
     }
   }

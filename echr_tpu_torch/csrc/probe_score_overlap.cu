@@ -63,11 +63,13 @@
 // (A, 64 x H bf16, shares the 227 KB with the ring and the staged chunks).
 #include <cuda_bf16.h>
 
+#include "cp_async.cuh"
 #include "hopper.cuh"
 #include "tanh.cuh"
 
 namespace {
 
+using namespace cpa;
 using namespace hopper;
 
 constexpr int TN = 64;   // proposals per block: wgmma's M
@@ -111,18 +113,6 @@ __host__ __device__ constexpr int smem_bytes(bool dot, int H) {
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
-// 16 bytes from global to shared; zeros, and no read, where !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int K>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
-}
-
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);

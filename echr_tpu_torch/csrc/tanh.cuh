@@ -1,5 +1,6 @@
-// The tanh of kernels 1, 3 and 4 (csrc/attention_scores.cu
-// masked_scores_kernel, csrc/attention_scores_bwd.cu).
+// The tanh of kernels 1 and 3-6 (csrc/attention_body.cuh, which
+// attention_scores.cu and attention_fused.cu run, attention_scores_bwd.cu,
+// windowed_attention.cu) and 9-10 (probe_score_overlap.cu).
 //
 // tanh |x| = (1 - e) / (1 + e) with e = 2^(-2 |x| log2 e), and the sign of x:
 // 7 instructions, two of them on the special-function unit (ex2, rcp).  CUDA's

@@ -11,7 +11,7 @@ entry point returns ``cudaGetLastError()`` after its launches.
 No fast-math flag: the kernels' tanhf, expf, exp2f and logf are the
 accurate ones (an approximate tanh changes greedy tokens).  Kernels 1, 3
 and 4 take their tanh from csrc/tanh.cuh, held within 2.4e-7 of float64
-(2 ulp of 1.0), and so do kernels 9 and 10.  Kernel 2's bf16 path,
+(2 ulp of 1.0), and so do kernels 5, 6, 9 and 10.  Kernel 2's bf16 path,
 kernels 7-8 and kernel 10 take their TMA, mbarrier and wgmma pieces from
 csrc/hopper.cuh and find the CUDA driver library's cuTensorMapEncodeTiled
 through the runtime (cudaGetDriverEntryPoint), so the library needs no
@@ -46,10 +46,10 @@ _SIGNATURES = {
     # out, w, b, bf16, R, C, V1, tiles_per_split, splits, part_m, part_l, part_a, tok,
     # mx, lse, stream
     "echr_greedy_head": [_P, _P, _P] + [_I] * 6 + [_P] * 6 + [_P],
-    # pre, q, w, b, mask, feats, out, B, N, T, H, D, stream
-    "echr_attention_fused": [_P] * 7 + [_I] * 5 + [_P],
-    # pre, feats, q, w, b, soi, out, B, N, T, H, D, stream
-    "echr_windowed_attention": [_P] * 7 + [_I] * 5 + [_P],
+    # pre, q, w, b, mask, feats, out, B, N, T, H, D, splits, stream
+    "echr_attention_fused_splits": [_P] * 7 + [_I] * 6 + [_P],
+    # pre, feats, q, w, b, soi, out, B, N, T, H, D, rows, stream
+    "echr_windowed_attention_rows": [_P] * 7 + [_I] * 6 + [_P],
     # out, w, b, R, C, VP, tr, tv, tok, mx, lse, stream
     "echr_probe_stream_head": [_P] * 3 + [_I] * 5 + [_P] * 3 + [_P],
     # pre, q, w, wd, s, dot, B, N, T, H, KD, scores, stream

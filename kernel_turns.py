@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels 1-4 and 7-10 of this checkout beside another build of their
+"""Time kernels 1-10 of this checkout beside another build of their
 sources, in turns on one NVIDIA GPU; kernels 1 and 3 on the paths' masks
 with the proposals sorted by window start and unsorted.
 
@@ -22,6 +22,12 @@ or a copy of the package's sources changed with sed, for example kernel
         echr_tpu_torch/_build/inlined/probe_score_overlap.cu
     python3 kernel_turns.py --earlier echr_tpu_torch/_build/inlined
 
+or kernel 5 with eight warps a block in place of sixteen:
+
+    cp -r echr_tpu_torch/csrc echr_tpu_torch/_build/warps8
+    sed -i 's/WARPS = 16;/WARPS = 8;/; s/PAIRS = 1; /PAIRS = 2; /' \
+        echr_tpu_torch/_build/warps8/attention_fused.cu
+
 Kernel 1 runs at chip_smoke.py's four inputs (phase 2's synthetic
 windows, one greedy step, the beam step, the beam step with short
 windows), kernel 4 at three (a dense cotangent, one zero outside windows,
@@ -32,12 +38,21 @@ masks of that training step), kernel 2 at the serving shapes in bf16
 the head probes' shapes (R=4096, C=1536, V1=6001 padded to the vocab
 tile, bf16) at every tiling (kernel 7 is the (64, 512) one; also its host
 time a call), kernels 9 and 10 and kernel 10's product warps alone at the
-overlap probe's shapes (B=32, N=128, T=256, H=512, KD=2048).  Every build
-is held against the plain version (kernels 1 and 3 within 5e-4 where
-mask == 1; kernel 4 within phase 8's gates; kernel 2 within phase 3's;
-kernels 7-8 tokens bit-equal, max and lse within 5e-4; kernels 9-10
-within 5e-4), then all are timed in turns: each build in order, then in
-reverse (CUDA events).  Last, kernel 1 of this build on
+overlap probe's shapes (B=32, N=128, T=256, H=512, KD=2048), kernels 5
+and 6 at chip_smoke.py's four inputs of the attention step (the beam
+step, the beam step with short windows, the SOTA_TEP eval's first decode
+step and a per-video decode step of eval_split, each made as phases 11,
+27 and 29 make them; kernel 6 takes each row's window from the mask),
+beside the kernel-1 route.  Every build is held against the plain
+version (kernels 1 and 3 within 5e-4 where mask == 1; kernel 4 within
+phase 8's gates; kernel 2 within phase 3's; kernels 7-8 tokens
+bit-equal, max and lse within 5e-4; kernels 9-10 within 5e-4; kernel 5
+within 2e-3 and kernel 6 within 5e-4, rows without a live frame exact
+zeros: an earlier build of kernel 5 or 6 outside its gate is reported and
+timed all the same), then all are timed in turns: each build in order,
+then in reverse (CUDA events).  Kernels 5 and 6 of a build from before their
+frame split and row groups are called through their earlier entry points
+(EARLIER_SIGNATURES).  Last, kernel 1 of this build on
 the greedy and the beam step with runtime.sort_decode_props on (as the
 decode paths run) and off, and on the short windows sorted and with the
 proposals shuffled (shuffle_proposals), and kernel 3 of this build on
@@ -47,13 +62,24 @@ JSON record of every time; each time printed stands beside the card's
 name and power limit.
 """
 import argparse
+import ctypes
 import json
+import shutil
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernels 5 and 6's entry points before the frame split and the row groups:
+# pre, q, w, b, mask, feats, out, B, N, T, H, D, stream and
+# pre, feats, q, w, b, soi, out, B, N, T, H, D, stream
+EARLIER_SIGNATURES = {"echr_attention_fused": [_P] * 7 + [_I] * 5 + [_P],
+                      "echr_windowed_attention": [_P] * 7 + [_I] * 5 + [_P]}
+
 
 def builds(earlier):
     """{name: library}, in the order they are timed: "earlier",
@@ -65,7 +91,12 @@ def builds(earlier):
         cu = sorted(Path(csrc).glob("*.cu"))
         if not cu:
             cs.fail(f"no *.cu in {csrc}")
-        libs["earlier" + (str(i + 1) if i else "")] = native.load(native.build(cu))
+        lib = native.load(native.build(cu))
+        for name, argtypes in EARLIER_SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int
+        libs["earlier" + (str(i + 1) if i else "")] = lib
     libs["this"] = native.library()
     return libs
 
@@ -98,6 +129,115 @@ def kernel1_builds(card, name, args, libs):
           + ", ".join(f"{b} {e:.3e}" for b, e in errs.items()))
     calls = {b: (lambda lib=lib: masked_scores_on(lib, *args)) for b, lib in libs.items()}
     return {"max_abs_err": errs, "turns_ms": turns_of(card, f"kernel 1, {name}", calls)}
+
+
+def step_calls(lib, t):
+    """(kernel 5, kernel 6) of ``lib`` on the attention step's tensors t
+    (chip_smoke.step_inputs' keys) as calls without arguments: through
+    this form's entry points with the wrappers' plans, or through the
+    earlier form's (EARLIER_SIGNATURES)."""
+    from echr_tpu_torch.ops.kernel_attention_step import (fused_on, fused_splits, windowed_on,
+                                                          windowed_rows)
+
+    pre, q, w, b, mask, feats, soi = (t[k] for k in ("pre", "q", "w", "b", "mask", "feats",
+                                                      "soi"))
+    B, T, H = pre.shape
+    N, D = q.shape[1], feats.shape[2]
+    dev = pre.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if hasattr(lib, "echr_attention_fused_splits"):
+        splits, rows = fused_splits(B, N, T, D, sms), windowed_rows(B, N, sms)
+        return (lambda: fused_on(lib, pre, q, w, b, mask, feats, splits),
+                lambda: windowed_on(lib, pre, feats, q, w, b, soi, rows))
+
+    def earlier(fn, *args):
+        out = torch.empty(B, N, D, device=dev, dtype=torch.float32)
+        rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), B, N, T, H, D,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            cs.fail(f"an earlier build's kernel 5 or 6: cudaError {rc}")
+        return out
+    return (lambda: earlier(lib.echr_attention_fused, pre, q, w, b, mask, feats),
+            lambda: earlier(lib.echr_windowed_attention, pre, feats, q, w, b, soi))
+
+
+@torch.inference_mode()
+def step_builds(card, name, t, libs):
+    """Every build of kernels 5 and 6 at one input against the plain
+    versions (FUSED_TOL and TOL, rows without a live frame exact zeros),
+    then each kernel's builds timed in turns with the kernel-1 route.  An
+    earlier build outside its gate is reported (``outside_gate``) and
+    timed all the same; this build outside its gate fails the run."""
+    from echr_tpu_torch.ops.kernel_attention_step import (attention_fused_plain,
+                                                          windowed_attention_plain)
+
+    want = (attention_fused_plain(t["pre"], t["q"], t["w"], t["b"], t["mask"], t["feats"]),
+            windowed_attention_plain(t["pre"], t["feats"], t["q"], t["w"], t["b"], t["soi"],
+                                     cs.WINDOW))
+    lens = (t["soi"][..., 1] - t["soi"][..., 0]).clamp(min=0)
+    empty = (~(t["mask"] > 0).any(-1), lens == 0)
+    calls = {b: step_calls(lib, t) for b, lib in libs.items()}
+    rec = {"density": float((t["mask"] > 0).float().mean()), "kernel5": {}, "kernel6": {}}
+    for i, (k, gate) in enumerate(((5, cs.FUSED_TOL), (6, cs.TOL))):
+        errs, outside = {}, []
+        for b, fns in calls.items():
+            got = fns[i]()
+            errs[b] = float((got - want[i]).abs().max())
+            if not errs[b] <= gate or bool(got[empty[i]].ne(0).any()):
+                if b == "this":
+                    cs.fail(f"kernel {k} {name}: max|d| {errs[b]:.3e} (gate {gate}), or a row "
+                            f"without a live frame is not zero")
+                outside.append(b)
+        print(f"[k{k}] {name}: density {rec['density']:.3f}; max|d| "
+              + ", ".join(f"{b} {e:.3e}" for b, e in errs.items())
+              + (f"; OUTSIDE the gate {gate} or not zero on empty rows: {outside}"
+                 if outside else ""))
+        turns = turns_of(card, f"kernel {k}, {name}",
+                         {**{b: fns[i] for b, fns in calls.items()},
+                          "route": lambda: cs.kernel1_route(t)})
+        rec[f"kernel{k}"] = {"max_abs_err": errs, "outside_gate": outside, "turns_ms": turns}
+    return rec
+
+
+def sota_step():
+    """(pre, q, w, b, mask, feats) of the SOTA_TEP eval's first decode step
+    as phase 27 keeps them: phase 18's corpus exported to a temporary
+    directory, the proposals JSON, one group of 32 val videos decoded
+    greedy from disk."""
+    from echr_tpu_torch.data.export_disk import export_synthetic_corpus
+    from echr_tpu_torch.engine import evaluate
+
+    root = tempfile.mkdtemp(prefix="kernel_turns_sota_")
+    kept = []
+    try:
+        paths = export_synthetic_corpus(cs.eval_cfg(), root, log_every=0)
+        sota_path = f"{root}/sota_proposals.json"
+        cs.write_sota_json(paths, sota_path)
+        cfg, _, loader, tap, cg = cs.sota_loader(root, sota_path)
+        kw = {"topN": cs.TOP_N, "num_vids_eval": cs.EVAL_B, "language_eval": False,
+              "get_eval_loss": False}
+        with cs.kept_attention_calls(kept, lambda a: not kept):
+            evaluate.eval_split_batched(tap, cg, loader, cfg, f"{root}/w.json", kw,
+                                        flag_eval_what="SOTA_TEP", batch_videos=cs.EVAL_B,
+                                        device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return kept[0]
+
+
+def pervideo_step():
+    """(pre, q, w, b, mask, feats) of the first per-video decode step of
+    eval_split over phase 18's val split and weights (B=1, N=128 rows), as
+    phase 29 keeps it."""
+    from echr_tpu_torch.engine import evaluate
+
+    cfg, tap, cg, _, loader = cs.eval_setup()
+    kept = []
+    kw = {"topN": cs.TOP_N, "num_vids_eval": 1, "language_eval": False, "get_eval_loss": False}
+    with tempfile.TemporaryDirectory() as tmp, \
+            cs.kept_attention_calls(kept, lambda a: not kept and a[1].shape[1] == cs.TOP_N):
+        evaluate.eval_split(tap, cg, loader, cfg, f"{tmp}/p.json", kw, device="cuda")
+    return kept[0]
 
 
 def _bwd_ok(got, want):
@@ -354,7 +494,13 @@ def main():
     short_sorted = tuple(sw[k] for k in keys)
     k1["beam_step_short_windows"] = kernel1_builds(
         card, "the beam step, short windows", short_sorted, libs)
+    rec["kernel5_6"] = {"beam_step": step_builds(card, "the beam step", step, libs),
+                        "beam_step_short_windows": step_builds(
+                            card, "the beam step, short windows", sw, libs)}
     del sw, step
+    for key, name, make in (("sota_eval", "the SOTA_TEP eval's first decode step", sota_step),
+                            ("per_video", "a per-video decode step", pervideo_step)):
+        rec["kernel5_6"][key] = step_builds(card, name, cs.step_inputs(make()), libs)
 
     rng = np.random.RandomState(5)  # phase 8's draw for its dense case
     B, N, T, H = cs.TRAIN_SHAPES["training"]
