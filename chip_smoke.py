@@ -4,9 +4,10 @@ training path, its three probes, its batched eval loop, its checkpointed
 training, its self-critical (SCST) training, its multinomial eval, the
 decoder family's other cores, its on-disk data, external proposals,
 reference .pth import and serve CLI, its synchronous and pipelined train
-loops, its per-video eval, decode and SCST paths and its data-parallel
-training once on one NVIDIA GPU, and hold every kernel against its plain
-PyTorch version.
+loops, its per-video eval, decode and SCST paths, its data- and
+tensor-parallel training, its sequence ring, resident-graph SCST, grouped
+attention and decode switches once on one NVIDIA GPU, and hold every
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -239,7 +240,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      wall seconds;
   28. the train loops: engine.train.train on train_cfg() (B=32, N=64,
      bf16, dropout on), the synchronous and the pipelined loop in turns
-     (sync, pipelined, pipelined, sync, three times), 8 steps a run, their
+     (sync, pipelined, pipelined, sync, twice), 8 steps a run, their
      means, medians and the neighbouring pairs the pipelined run won, then
      each once
      with transfer_dtype bfloat16: ms/step and videos/s over steps 2-8
@@ -283,7 +284,44 @@ Phases, in order; any failure raises and the script exits non-zero:
      loss within 1e-5 relative and its all-reduced gradient leaves within
      atol 2e-4, rtol 1e-3 of one process's at B=8, the ranks' parameters
      bit-equal, kernels 3 and 4 launched 29 times a step in each rank.  No
-     time of this part is a scaling number.
+     time of this part is a scaling number.  Gloo must take the card's
+     tensors: a refusal fails the phase;
+  31. tensor and sequence parallelism, two gloo ranks on the one card in
+     child processes, after one process's run: (a) train() under
+     runtime.mesh_shape (1, 2) at train_cfg()'s width with vocab 6001
+     (V+1 = 6002 cut 3001 + 3001, TSRM's 16 heads 8 + 8), B=8, f32, TF32
+     off, dropout off, 2 XE steps with the gate at 2 over 16 val videos:
+     step 1's loss within 1e-5 relative of one process's, its gradient
+     leaves (the cut ones gathered) within atol 2e-4, rtol 1e-3, the
+     ranks' replicated parameters bit-equal, kernels 3 and 4 launched 29
+     times an XE step in each rank, and rank 0's checkpoint loaded here
+     bit-equal to the gathered parameters; (b) the rollouts of one SCST
+     step at (1, 2) against the gathered model's in the same rank: equal
+     sampled and greedy tokens, kernel 2 once a baseline decode step in
+     each rank, and the baseline's first kernel-2 call on the rank's
+     3001-column block held against its plain version, the ranks' blocks
+     combined (parallel.tensor.combine_heads) against kernel 2 on all
+     6002 columns (tokens equal, lse within 5e-4), and timed beside it in
+     f32 and bf16; (c) the SST ring (parallel/sequence.py) at the
+     flagship width over T = 256 and 4096 frames against one process's
+     sst_forward_batched within atol 1e-5, with the wall times and each
+     rank's peak memory.  No time of this phase is a scaling number;
+  32. one process: (a) resident-graph SCST (steps.rl_rollout_graph_step_
+     batched and rl_graph_update_step_batched) against the replay path at
+     f32, TF32 off, dropout on, B=32 at train_cfg()'s width with phase 5's
+     weights and a fixed reward: the same sampled tokens, step 1's loss
+     within 1e-5 relative and its gradient leaves within atol 2e-4, rtol
+     1e-3, kernels 3 and 4 once a sampled step (and 30 times the replay's
+     steps), and 2 steps of each in turns with ms a step and peak memory;
+     (b) grouped windowed attention (ops/attention.py) at phases 29's and
+     27's decode steps against additive_attention_step through kernel 1
+     at f32 within atol 1e-5, timed in turns with that route and kernel
+     6; (c) the per-video eval_split over 8 val videos greedy and beam 4
+     with runtime.decode_early_exit True and False (the same captions, no
+     early-exit sync in the fixed loops), and at f32 on phase 5's weights
+     with the window sort off, greedy with runtime.use_pallas_head False
+     (kernel 2 never launched, kernel 1 as often as with it, the same
+     sentences, their confidences within HEAD_SWITCH_TOL a token).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -307,6 +345,12 @@ FUSED_TOL = 2e-3  # kernel 5: bf16 weights from the running max (echr_tpu's gate
 T_BUCKET, VIDEO_DIM, VOCAB, SEQ_LEN, TOP_N = 256, 500, 6000, 30, 128
 TRAIN_B, TRAIN_N, TRAIN_STEPS = 32, 64, 6  # videos, sampled proposals, steps (1 warm-up)
 EVAL_B = 32  # videos a group of the batched eval
+SWITCH_VIDEOS = 8  # phase 32(c): val videos a per-video pass
+# phase 32(c): the f32 heads' confidences a token, kernel 2 on and off
+# (about 3x the 2.953e-06 read on an H100 80GB HBM3 at 700 W)
+HEAD_SWITCH_TOL = 1e-5
+# phases 27 and 29 keep their decode step's attention inputs here for phase 32(b)
+STEP_INPUTS = {}
 BEAM, WINDOW = 4, 64  # beam width; kernel 6's W
 # published H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -3446,7 +3490,8 @@ def phase_real_data(card):
         name = (f"the SOTA_TEP eval's first decode step ({SOTA_PER_VIDEO} external windows a "
                 f"video, bucket {nb})")
         k1_rec = kernel1_timing(card, name, k1_args[:5])
-        steps_rec = step_records(card, 27, name, step_inputs(k1_args))
+        STEP_INPUTS["sota_eval"] = step_inputs(k1_args)
+        steps_rec = step_records(card, 27, name, STEP_INPUTS["sota_eval"])
         out, w, b = k2_args
         R, V1 = out.shape[0], b.shape[0]
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3489,7 +3534,7 @@ def phase_real_data(card):
 
 
 PIPE_STEPS, PIPE_PARITY_STEPS = 8, 6  # phase 28: steps a run; steps of the f32 parity runs
-PIPE_ROUNDS = 3  # phase 28: rounds of (sync, pipelined, pipelined, sync)
+PIPE_ROUNDS = 2  # phase 28: rounds of (sync, pipelined, pipelined, sync)
 TRACE_FROM, TRACE_STEPS = 3, 3  # phase 28: the traced run's first traced step, traced steps
 HEAD_ROWS = (64, 128, 256, 1024)  # phase 29: kernel 2 at per-video decode rows
 PV_SCST_STEPS = 3  # phase 29: SCST steps at batch_size 1
@@ -3749,8 +3794,9 @@ def phase_pervideo(card, dev="cuda"):
         tag = f"per_video_N{args[1].shape[1]}"
         k1[tag] = kernel1_timing(card, f"a per-video call, N={args[1].shape[1]} rows", args[:5])
         if args[1].shape[1] == TOP_N and steps_rec is None:  # the greedy decode step's
+            STEP_INPUTS["per_video"] = step_inputs(args)
             steps_rec = step_records(card, 29, f"a per-video decode step, N={TOP_N} rows",
-                                     step_inputs(args), host=True)
+                                     STEP_INPUTS["per_video"], host=True)
     if steps_rec is None:
         fail(f"[29] no per-video decode step of {TOP_N} rows was kept")
     del kept
@@ -3983,10 +4029,10 @@ def dp_run(grouped, tag, dev="cuda"):
                attention_scores_bwd)
     reduce_fn, reduces = mesh.all_reduce_grads, []
 
-    def timed_reduce(tensors):
+    def timed_reduce(tensors, **kw):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        out = reduce_fn(tensors)
+        out = reduce_fn(tensors, **kw)
         b.record()
         reduces.append((a, b, nbytes(*tensors)))
         return out
@@ -4107,7 +4153,8 @@ def dp_two_ranks(card, dev="cuda"):
     """Phase 30's two gloo ranks on the one card against one process: the
     one-process run first (its step-1 gradients saved for the ranks), then
     the ranks in two child processes.  Returns kernels 3-4's launches in
-    the ranks' run (by rank), or None where gloo refuses CUDA tensors."""
+    the ranks' run, summed over the ranks; fails where gloo refuses CUDA
+    tensors."""
     from echr_tpu_torch.engine import train as train_mod
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4139,9 +4186,8 @@ def dp_two_ranks(card, dev="cuda"):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 recs.append(json.load(f))
     if not all(r["gloo_cuda"] for r in recs):
-        print(f"[30] two gloo ranks on the one card: gloo's all_reduce refused CUDA tensors "
-              f"({recs[0].get('refused')}); left out [{card}]")
-        return None
+        fail(f"[30] two gloo ranks on the one card: gloo's all_reduce refused CUDA tensors "
+             f"({recs[0].get('refused')})")
     a, b = recs
     want = {k: (SEQ_LEN - 1) * DP_TWO_STEPS for k in a["launches"]}
     ok = (a["iteration"] == b["iteration"] == DP_TWO_STEPS and a["digest"] == b["digest"]
@@ -4221,12 +4267,636 @@ def phase_data_parallel(card, dev="cuda"):
     print(f"[30] parameters bit-equal, best score {first[1]['best_val_score']:.4f} and the "
           f"predictions JSON ({', '.join(first[2]['preds'])}) equal over the {len(runs)} runs; "
           f"kernels 1-4 in the grouped runs: {launches}")
-    paths = {"data_parallel": launches}
-    two = dp_two_ranks(card, dev)
-    if two is not None:
-        paths["data_parallel_two_ranks"] = two
+    paths = {"data_parallel": launches, "data_parallel_two_ranks": dp_two_ranks(card, dev)}
     print(f"[30] phase wall {time.time() - t_phase:.1f} s [{card}]")
     return paths
+
+
+TP_B, TP_STEPS, TP_EVAL = 8, 2, 16  # phase 31: videos, XE steps (the gate at the last), val videos
+TP_VOCAB = 6001  # phase 31: V+1 = 6002 splits 3001 + 3001 over tp = 2
+RING_T = (256, 4096)  # phase 31: the ring's frames, the bucket and a long video
+TP_CHILD = """
+import sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+chip_smoke.tp_gloo_rank({rank}, {port}, {tmp!r}, {dev!r})
+"""
+
+
+def tp_cfg(folder, run_id, mesh_shape=(1, 1)):
+    """Phase 31's run: train_cfg()'s width at f32 with synthetic_vocab_size
+    TP_VOCAB and B=TP_B, the gate at step TP_STEPS over TP_EVAL val videos
+    (the cg pass), under ``mesh_shape``."""
+    cfg = train_cfg(compute_dtype="float32", mesh_shape=mesh_shape).replace(run_id=run_id)
+    cfg = cfg.replace_in("data", synthetic_vocab_size=TP_VOCAB).replace_in("train",
+                                                                           batch_size=TP_B)
+    cfg = cfg.replace_in("save", checkpoint_path=folder, save_checkpoint_every=TP_STEPS,
+                         min_epoch_when_save=0)
+    return cfg.replace_in("eval", num_vids_eval=TP_EVAL, batch_videos=TP_EVAL // 2,
+                          fast_eval_cg=True)
+
+
+def _tp_capture(caught):
+    """A train_step without dropout that keeps each step's gradients (the
+    cut leaves gathered over the tp group), its metrics and kernels 3-4's
+    launches so far in ``caught``."""
+    from echr_tpu_torch.engine import steps as steps_mod
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd, attention_scores_dense
+    from echr_tpu_torch.parallel import mesh
+
+    def step(state, batch, gen, cfg, phase, ss_prob=0.0):
+        (tap_g, cg_g), m = steps_mod.grad_step(state, batch, None, cfg, phase, ss_prob)
+        whole = tap_g + mesh.gather_grads(state.cg, cg_g)
+        caught.append(([g.detach().clone() for g in whole], steps_mod.fetch_metrics(m)[0],
+                       {fn.__name__: fn.launches for fn in (attention_scores_dense,
+                                                            attention_scores_bwd)}))
+        return steps_mod.apply_grads(state, tap_g, cg_g, cfg, phase), m
+    return step
+
+
+def _params_digest(tensors):
+    import hashlib
+
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes() for t in tensors)
+                          ).hexdigest()
+
+
+def tp_train_rank(rank, tmp, dev="cuda"):
+    """Phase 31(a) in a rank: TP_STEPS XE steps of train() under (1, 2) with
+    the gate at the last, step 1's loss and gathered gradients held to the
+    one-process run the parent saved in ``tmp``; the digest of the rank's
+    replicated parameters; rank 0 saves the gathered parameters.  Returns
+    (record, train's output, the gathered state)."""
+    from echr_tpu_torch.engine import train as train_mod
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd, attention_scores_dense
+    from echr_tpu_torch.parallel import mesh
+
+    caught = []
+    for fn in (attention_scores_dense, attention_scores_bwd):
+        fn.launches = 0
+    t0 = time.time()
+    with patched(train_mod, "train_step", _tp_capture(caught)):
+        out = train_mod.train(tp_cfg(os.path.join(tmp, "tp"), "tp", (1, 2)),
+                              max_iterations=TP_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    want = torch.load(os.path.join(tmp, "one.pt"))
+    grads, m, in_steps = caught[0][0], caught[0][1], caught[-1][2]
+    bad = [i for i, (g, w) in enumerate(zip(grads, want["grads"]))
+           if not torch.allclose(g.cpu(), w, atol=2e-4, rtol=1e-3)]
+    state = out["state"]
+    cut = {n: list(p.shape) for n, p, _ in mesh.sharded_leaves(state.cg)}
+    replicated = [p for n, p in state.cg.named_parameters() if n not in cut]
+    whole = mesh.gather_modules(state)
+    params = [p.detach() for mod in (whole.tap, whole.cg) for p in mod.parameters()]
+    if rank == 0:
+        torch.save([p.cpu() for p in params], os.path.join(tmp, "tp_whole.pt"))
+    rec = {"iteration": out["iteration"], "loss": m["loss"], "want_loss": want["loss"],
+           "grad_leaves": len(grads), "grads_outside_gate": bad,
+           "grad_max_abs_err": max(float((g.cpu() - w).abs().max())
+                                   for g, w in zip(grads, want["grads"])),
+           "cut": cut, "replicated_digest": _params_digest([*state.tap.parameters(),
+                                                            *replicated]),
+           "whole_digest": _params_digest(params), "best_val_score": out["best_val_score"],
+           "launches_in_steps": in_steps,
+           "launches": {fn.__name__: fn.launches for fn in (attention_scores_dense,
+                                                            attention_scores_bwd)},
+           "wall_s": wall}
+    return rec, out, whole
+
+
+def tp_baseline_rank(rank, out, whole, dev="cuda"):
+    """Phase 31(b) in a rank: the rollouts of one SCST step at (1, 2) on
+    TP_B videos against the gathered model's in this process (the same
+    generators, dropout off): equal sampled and greedy tokens; kernel 2's
+    launches in the baseline; the baseline's first kernel-2 call on the
+    rank's vocab block held against its plain version, combined with the
+    other rank's (parallel.tensor.combine_heads) against kernel 2 on the
+    whole vocab, and timed beside it in f32 and bf16."""
+    from echr_tpu_torch.data.batcher import make_batch
+    from echr_tpu_torch.data.dataset import SyntheticDataset
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.engine.train import _collate, _executed_steps
+    from echr_tpu_torch.models import decoder
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_head import greedy_head, pad_head_width, prepare_head
+    from echr_tpu_torch.parallel.tensor import combine_heads, shard_of
+
+    cfg = out["config"]
+    ds = SyntheticDataset(cfg, num_videos=2 * TP_B, seed=31)
+    batch = steps.batch_to_device(_collate([
+        make_batch(ds.get_example(i), cfg, np.random.RandomState(i), w1=ds.w1)[0]
+        for i in range(TP_B)]), dev)
+    kept = []
+
+    def keep(*a):
+        if not kept:
+            kept.append(tuple(x.detach().clone() for x in a))
+    greedy_head.launches = 0
+    decoder_sample_batched.steps = 0
+    with wrapped(decoder, "greedy_head", keep):
+        _, gen_seq, greedy_seq = steps.rl_rollout_step_batched(
+            out["state"], batch, cfg, "tap_cg", None, torch.Generator(dev).manual_seed(5))
+    torch.cuda.synchronize()
+    k2 = greedy_head.launches
+    greedy_steps = _executed_steps(greedy_seq.cpu().numpy())
+    _, one_gen, one_greedy = steps.rl_rollout_step_batched(
+        whole, batch, cfg, "tap_cg", None, torch.Generator(dev).manual_seed(5))
+    torch.cuda.synchronize()
+    out_rows, w, b = kept[0]
+    tp = shard_of(out["state"].cg.decoder)
+    err, (tok, mx, lse) = head_check("31", f"rank {rank}'s vocab block (R={out_rows.shape[0]}, "
+                                     f"V1={w.shape[0]}, f32)", (out_rows, w, b))
+    ctok, cmx, clse = combine_heads(tok, mx, lse, tp, w.shape[0])
+    fw, fb = prepare_head(whole.cg.decoder.logit, torch.float32)
+    ftok, fmx, flse = greedy_head(out_rows, fw, fb)
+    rec = {"rows": out_rows.shape[0], "cols": out_rows.shape[1], "block_V1": w.shape[0],
+           "whole_V1": fw.shape[0],
+           "kernel2_launches": k2, "greedy_steps": greedy_steps,
+           "rollout_tokens_equal": bool(torch.equal(gen_seq, one_gen)),
+           "baseline_tokens_equal": bool(torch.equal(greedy_seq, one_greedy)),
+           "block_max_abs_err": err,
+           "combined_token_mismatches": int((ctok != ftok).sum()),
+           "combined_max_err": float((cmx - fmx).abs().max()),
+           "combined_lse_err": float((clse - flse).abs().max())}
+    wb16 = pad_head_width(w.to(torch.bfloat16)).contiguous()
+    fwb16, _ = prepare_head(whole.cg.decoder.logit, torch.bfloat16)
+    a16 = out_rows.to(torch.bfloat16)
+    err16, outs16 = head_check("31", f"rank {rank}'s vocab block, bf16", (a16, wb16, b))
+    R, C = out_rows.shape
+    for key, fn, args in (("block_f32", greedy_head, (out_rows, w, b)),
+                          ("whole_f32", greedy_head, (out_rows, fw, fb)),
+                          ("block_bf16", greedy_head, (a16, wb16, b)),
+                          ("whole_bf16", greedy_head, (a16, fwb16, fb))):
+        rec[f"{key}_ms"] = cuda_ms(lambda: fn(*args))
+    with force_plain():
+        rec["block_bf16_plain_ms"] = cuda_ms(lambda: greedy_head(a16, wb16, b), iters=10)
+    rec["block_bf16_max_abs_err"] = err16
+    rec.update({f"block_bf16_{k}": v for k, v in bound(
+        nbytes(a16, wb16, b, *outs16), bf16=2.0 * R * C * wb16.shape[0]).items()})
+    return rec
+
+
+def ring_rank(rank, dev="cuda"):
+    """Phase 31(c) in a rank: the SST at train_cfg()'s width (seeded init)
+    over RING_T frames: one process's sst_forward_batched on the whole video
+    (each rank in turn, the other waiting), then the ring over the pair on
+    the rank's half; the chunk against the one-process result, the wall
+    times and the peak memory of each."""
+    from echr_tpu_torch.models.registry import init_tap
+    from echr_tpu_torch.models.sst import sst_forward_batched
+    from echr_tpu_torch.parallel import distributed as pdist
+    from echr_tpu_torch.parallel.sequence import local_frames, sequence_sharded_sst
+
+    cfg = train_cfg(compute_dtype="float32")
+    sst = init_tap(torch.Generator().manual_seed(31), cfg, dev)
+    recs = {}
+    for T in RING_T:
+        feats = torch.from_numpy(np.random.RandomState(T).randn(T, cfg.tap.video_dim).astype(
+            np.float32)).to(dev)
+        for turn in (0, 1):
+            pdist.allgather_object(("one process", T, turn))
+            if turn == rank:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                with torch.inference_mode():
+                    h, s = sst_forward_batched(sst, feats[None])
+                torch.cuda.synchronize()
+                one_s, one_peak = time.time() - t0, torch.cuda.max_memory_allocated()
+        pdist.allgather_object(("ring", T))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with torch.inference_mode():
+            rh, rs = sequence_sharded_sst(sst, local_frames(feats))
+        torch.cuda.synchronize()
+        pdist.allgather_object(("ring done", T))
+        ring_s, ring_peak = time.time() - t0, torch.cuda.max_memory_allocated()
+        lo = rank * (T // 2)
+        err = max(float((rh - h[0, lo:lo + T // 2]).abs().max()),
+                  float((rs - s[0, lo:lo + T // 2]).abs().max()))
+        recs[f"T{T}"] = {"max_abs_err": err, "one_process_s": one_s, "ring_s": ring_s,
+                         "one_process_peak_bytes": one_peak, "ring_peak_bytes": ring_peak}
+        del h, s, rh, rs, feats
+    return recs
+
+
+def tp_gloo_rank(rank, port, tmp, dev="cuda"):
+    """A child of phase 31: rank ``rank`` of two gloo ranks on the one card
+    (NCCL refuses two ranks on one device): tensor-parallel training
+    (tp_train_rank), the SCST rollouts and kernel 2 on the rank's vocab
+    block (tp_baseline_rank) and the SST ring (ring_rank).  Writes
+    <tmp>/tp_rank<r>.json."""
+    from echr_tpu_torch.ops import native
+    from echr_tpu_torch.parallel import distributed as pdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev != "cpu":
+        native.library()
+    os.environ["LOCAL_RANK"] = "0"
+    rec = {"rank": rank}
+    pdist.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=dev,
+                     timeout_s=DP_TIMEOUT_S)
+    try:
+        rec["train"], out, whole = tp_train_rank(rank, tmp, dev)
+        rec["baseline"] = tp_baseline_rank(rank, out, whole, dev)
+        del out, whole
+        rec["ring"] = ring_rank(rank, dev)
+    finally:
+        pdist.destroy()
+        with open(os.path.join(tmp, f"tp_rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def phase_tensor_parallel(card, dev="cuda"):
+    """Phase 31: tensor and sequence parallelism on two gloo ranks on the one
+    card.  The one-process run of tp_cfg() first (its step-1 gradients
+    saved for the ranks), then the ranks in two child processes
+    (tp_gloo_rank); rank 0's checkpoint loaded here against the gathered
+    parameters.  Returns (kernels 2-4's launches by rank summed, kernel 2's
+    vocab-block record)."""
+    from echr_tpu_torch.engine import checkpoint as ckpt
+    from echr_tpu_torch.engine import train as train_mod
+
+    t_phase = time.time()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase 31 needs TF32 off")
+    with tempfile.TemporaryDirectory() as tmp:
+        caught = []
+        t0 = time.time()
+        with patched(train_mod, "train_step", _xe_capture(caught)):
+            one = train_mod.train(tp_cfg(os.path.join(tmp, "one"), "one"),
+                                  max_iterations=TP_STEPS, device=dev)
+        torch.cuda.synchronize()
+        one_wall = time.time() - t0
+        torch.save({"grads": [g.cpu() for g in caught[0][0]], "loss": caught[0][1]["loss"]},
+                   os.path.join(tmp, "one.pt"))
+        del one, caught
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TP_CHILD.format(repo=os.path.dirname(os.path.abspath(
+                __file__)), rank=r, port=port, tmp=tmp, dev=dev)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=2 * DP_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        for r, log_ in enumerate(logs):
+            for line in log_.splitlines():
+                if line.startswith("[31]"):
+                    print(line.replace("[31]", f"[31] rank {r}:", 1))
+        if any(p.returncode for p in procs):
+            fail(f"[31] two gloo ranks: exit codes {[p.returncode for p in procs]}; rank 0 "
+                 f"said {logs[0][-3000:]}\nrank 1 said {logs[-1][-3000:]}")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"tp_rank{r}.json")) as f:
+                recs.append(json.load(f))
+        got = torch.load(os.path.join(tmp, "tp_whole.pt"))
+        state = ckpt.load_checkpoint(os.path.join(tmp, "tp", "tp", "model-last.ckpt"),
+                                     dev)["state"]
+        loaded = [p.detach().cpu() for mod in (state.tap, state.cg) for p in mod.parameters()]
+        ckpt_equal = len(loaded) == len(got) and all(torch.equal(a, b)
+                                                     for a, b in zip(loaded, got))
+        del state, loaded, got
+    a, b = (r["train"] for r in recs)
+    tf = SEQ_LEN - 1
+    want = {k: tf * TP_STEPS for k in a["launches_in_steps"]}
+    d, f = tp_cfg(".", "tp").decoder, tp_cfg(".", "tp").fusion
+    half = (TP_VOCAB + 1) // 2
+    cut_want = {"decoder.embed": [half, d.CG_input_encoding_size],
+                "decoder.logit.weight": [half, 3 * d.CG_rnn_size],
+                "decoder.logit.bias": [half], "fusion.out.weight": [f.d_o // 2, f.d_feats]}
+    ok = (a["iteration"] == b["iteration"] == TP_STEPS
+          and a["replicated_digest"] == b["replicated_digest"]
+          and a["whole_digest"] == b["whole_digest"] and ckpt_equal
+          and a["launches_in_steps"] == b["launches_in_steps"] == want
+          and not a["grads_outside_gate"] and not b["grads_outside_gate"]
+          and a["cut"] == b["cut"] == cut_want
+          and abs(a["loss"] - a["want_loss"]) <= 1e-5 * abs(a["want_loss"])
+          and a["best_val_score"] == b["best_val_score"] > -1.0)
+    print(f"[31] (a) train() under mesh (1, 2) at B={TP_B}, N={TRAIN_N}, T={T_BUCKET}, f32, "
+          f"TF32 off, dropout off, vocab {TP_VOCAB} (V+1 cut {(TP_VOCAB + 1) // 2} + "
+          f"{(TP_VOCAB + 1) // 2}), TSRM's 16 heads 8 + 8, {TP_STEPS} XE steps and the gate at "
+          f"{TP_STEPS} over {TP_EVAL} val videos: step 1's loss {a['loss']:.7f} against one "
+          f"process's {a['want_loss']:.7f}; gradient leaves outside atol 2e-4, rtol 1e-3: "
+          f"{len(a['grads_outside_gate'])}, {len(b['grads_outside_gate'])} of "
+          f"{a['grad_leaves']} (max|d| {a['grad_max_abs_err']:.3e}, "
+          f"{b['grad_max_abs_err']:.3e}); replicated parameters bit-equal between the ranks: "
+          f"{a['replicated_digest'] == b['replicated_digest']}; cut leaves {a['cut']}; "
+          f"kernels 3-4 in the XE steps by rank {a['launches_in_steps']}, "
+          f"{b['launches_in_steps']} (the run's with the histogram step {a['launches']}); the "
+          f"gate's score {a['best_val_score']:.4f} on both: "
+          f"{a['best_val_score'] == b['best_val_score']}; rank 0's checkpoint loaded in one "
+          f"process bit-equal to the gathered parameters: {ckpt_equal}; train() wall "
+          f"{a['wall_s']:.1f}, {b['wall_s']:.1f} s against one process's {one_wall:.1f} s (two "
+          f"processes time-slicing one card: no scaling number) [{card}]")
+    if not ok:
+        fail(f"[31] (a) tensor-parallel training against one process: {recs}")
+    bl = [r["baseline"] for r in recs]
+    for r, x in enumerate(bl):
+        print(f"[31] (b) rank {r}: the SCST rollouts at (1, 2) against the gathered model's: "
+              f"sampled tokens equal {x['rollout_tokens_equal']}, greedy baseline tokens equal "
+              f"{x['baseline_tokens_equal']}; kernel 2 launched {x['kernel2_launches']} times in "
+              f"{x['greedy_steps']} baseline steps; on the first step's R={x['rows']} rows: "
+              f"kernel 2 on the {x['block_V1']}-column block against plain max|d| "
+              f"{x['block_max_abs_err']:.3e}, the combined blocks against kernel 2 on all "
+              f"{x['whole_V1']} columns: {x['combined_token_mismatches']} token mismatches, "
+              f"max |d| {x['combined_max_err']:.3e}, lse |d| {x['combined_lse_err']:.3e}; "
+              f"kernel 2 f32 block {x['block_f32_ms']:.4f} ms, whole {x['whole_f32_ms']:.4f} "
+              f"ms; bf16 block {x['block_bf16_ms']:.4f} ms (plain "
+              f"{x['block_bf16_plain_ms']:.4f}, bound {x['block_bf16_bound_ms']:.4f} ms, "
+              f"{x['block_bf16_bound_by']}), whole {x['whole_bf16_ms']:.4f} ms (both ranks on "
+              f"one card) [{card}]")
+        if not (x["rollout_tokens_equal"] and x["baseline_tokens_equal"]
+                and x["kernel2_launches"] == x["greedy_steps"] > 0
+                and x["combined_token_mismatches"] == 0 and x["combined_lse_err"] <= TOL):
+            fail(f"[31] (b) rank {r}: {x}")
+    for T in RING_T:
+        ra, rb = (r["ring"][f"T{T}"] for r in recs)
+        print(f"[31] (c) the SST ring at T={T} (C3D {VIDEO_DIM}, hidden 512, 2 layers, f32) "
+              f"over two ranks: max|d| against one process's sst_forward_batched "
+              f"{ra['max_abs_err']:.3e}, {rb['max_abs_err']:.3e}; the ring's wall "
+              f"{ra['ring_s']:.3f} s against one process's {ra['one_process_s']:.3f} s; peak "
+              f"memory by rank {ra['ring_peak_bytes'] / 2**20:.1f}, "
+              f"{rb['ring_peak_bytes'] / 2**20:.1f} MiB against one process's "
+              f"{ra['one_process_peak_bytes'] / 2**20:.1f} MiB [{card}]")
+        if not max(ra["max_abs_err"], rb["max_abs_err"]) <= 1e-5:
+            fail(f"[31] (c) the ring at T={T}: {ra}, {rb}")
+    launches = {"attention_scores_dense": a["launches"]["attention_scores_dense"]
+                + b["launches"]["attention_scores_dense"],
+                "attention_scores_bwd": a["launches"]["attention_scores_bwd"]
+                + b["launches"]["attention_scores_bwd"],
+                "greedy_head": sum(x["kernel2_launches"] for x in bl)}
+    x = bl[0]
+    block = {"R": x["rows"], "C": x["cols"], "V1": x["block_V1"], "ms": x["block_bf16_ms"],
+             "plain_ms": x["block_bf16_plain_ms"], "whole_vocab_ms": x["whole_bf16_ms"],
+             "max_abs_err": max(y["block_bf16_max_abs_err"] for y in bl),
+             **{k[len("block_bf16_"):]: v for k, v in x.items()
+                if k.startswith("block_bf16_") and k not in ("block_bf16_max_abs_err",
+                                                             "block_bf16_plain_ms")}}
+    print(f"[31] phase wall {time.time() - t_phase:.1f} s [{card}]")
+    return launches, block
+
+
+def phase_resident_scst(card, dev="cuda"):
+    """Phase 32(a): resident-graph SCST against the replay path at f32 with
+    TF32 off on phase 23's batch (B=32 at train_cfg()'s width, phase 5's
+    sharpened weights, dropout on from one generator state, a fixed random
+    reward): step 1's loss within 1e-5 relative and gradient leaves within
+    atol 2e-4, rtol 1e-3; 2 steps of each path in turns (resident, replay,
+    replay, resident), each a rollout and an update; ms a step and the peak
+    memory; kernels 3-4's launches by path.  Returns the launches."""
+    from echr_tpu_torch.data.batcher import make_batch
+    from echr_tpu_torch.data.dataset import SyntheticDataset
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.engine.train import _collate, _executed_steps
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_bwd, attention_scores_dense
+
+    cfg = scst_cfg(compute_dtype="float32").replace_in("decoder", CG_vocab_size=VOCAB,
+                                                         CG_seq_length=SEQ_LEN)
+    ds = SyntheticDataset(cfg, num_videos=TRAIN_B, seed=11)
+    batch = steps.batch_to_device(_collate([
+        make_batch(ds.get_example(i), cfg, np.random.RandomState(i), w1=ds.w1)[0]
+        for i in range(TRAIN_B)]), dev)
+    B, N = batch.prop_mask.shape
+    reward = torch.from_numpy(np.broadcast_to(np.random.RandomState(32).randn(B, N, 1),
+                                              (B, N, SEQ_LEN)).astype(np.float32)).to(dev)
+    states = {}
+    for path in ("resident", "replay"):
+        gen = torch.Generator().manual_seed(0)
+        states[path] = steps.init_train_state(cfg, init_tap(gen, cfg, dev),
+                                              init_captioner(gen, cfg, dev))
+        with torch.no_grad():
+            states[path].cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
+    gen, sample_gen = torch.Generator(dev).manual_seed(3), torch.Generator(dev).manual_seed(4)
+    g0, s0 = gen.get_state(), sample_gen.get_state()
+    caught, seqs, recs = {}, {}, {"resident": [], "replay": []}
+    apply = steps.apply_grads
+
+    def run(path):
+        state = states[path]
+        gen.set_state(g0)
+        sample_gen.set_state(s0)
+        for fn in (attention_scores_dense, attention_scores_bwd):
+            fn.launches = 0
+
+        def catch(state_, tap_g, cg_g, *a):
+            caught.setdefault(path, [g.detach().clone() for g in tap_g + cg_g])
+            return apply(state_, tap_g, cg_g, *a)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with patched(steps, "apply_grads", catch):
+            if path == "resident":
+                kept, gen_seq, _ = steps.rl_rollout_graph_step_batched(state, batch, cfg,
+                                                                       "tap_cg", gen, sample_gen)
+                _, m = steps.rl_graph_update_step_batched(state, batch, cfg, "tap_cg", kept,
+                                                          reward)
+                del kept
+            else:
+                _, gen_seq, _ = steps.rl_rollout_step_batched(state, batch, cfg, "tap_cg", gen,
+                                                              sample_gen)
+                gen.set_state(g0)
+                _, m = steps.rl_update_step_batched(state, batch, cfg, "tap_cg", gen, gen_seq,
+                                                    reward)
+        (m,) = steps.fetch_metrics(m)
+        torch.cuda.synchronize()
+        seqs.setdefault(path, gen_seq)
+        recs[path].append({"ms": (time.time() - t0) * 1e3, "loss": m["loss"],
+                           "peak_bytes": torch.cuda.max_memory_allocated(),
+                           "sample_steps": _executed_steps(gen_seq.cpu().numpy()),
+                           "launches": {fn.__name__: fn.launches
+                                        for fn in (attention_scores_dense,
+                                                   attention_scores_bwd)}})
+
+    for path in ("resident", "replay", "replay", "resident"):
+        run(path)
+    r1, p1 = recs["resident"][0], recs["replay"][0]
+    bad = [i for i, (a, b) in enumerate(zip(caught["resident"], caught["replay"]))
+           if not torch.allclose(a, b, atol=2e-4, rtol=1e-3)]
+    worst = max(float((a - b).abs().max()) for a, b in zip(caught["resident"], caught["replay"]))
+    steps_ = r1["sample_steps"]
+    same_tokens = bool(torch.equal(seqs["resident"], seqs["replay"]))
+    ok = (same_tokens and not bad and abs(r1["loss"] - p1["loss"]) <= 1e-5 * abs(p1["loss"])
+          and r1["launches"]["attention_scores_dense"] == steps_
+          and r1["launches"]["attention_scores_bwd"] == steps_
+          and p1["launches"]["attention_scores_dense"] == steps_ + SEQ_LEN
+          and p1["launches"]["attention_scores_bwd"] == SEQ_LEN)
+    ms = {k: [round(r["ms"], 1) for r in v] for k, v in recs.items()}
+    print(f"[32] (a) resident-graph SCST against the replay at B={B}, N={N}, f32, TF32 off, "
+          f"dropout on: the same sampled tokens {same_tokens}; step 1's loss {r1['loss']:.7f} "
+          f"against {p1['loss']:.7f}; gradient "
+          f"leaves outside atol 2e-4, rtol 1e-3: {len(bad)} of {len(caught['resident'])} "
+          f"(max|d| {worst:.3e}); ms a step (rollouts and update, a fixed reward) in turns "
+          f"(resident, replay, replay, resident): resident {ms['resident']}, replay "
+          f"{ms['replay']}; peak memory resident "
+          f"{max(r['peak_bytes'] for r in recs['resident']) / 2**30:.2f} GiB (the graph kept "
+          f"across the reward), replay {max(r['peak_bytes'] for r in recs['replay']) / 2**30:.2f}"
+          f" GiB; kernels 3-4 a step: resident {r1['launches']}, replay {p1['launches']} "
+          f"({steps_} sampled steps) [{card}]")
+    if not ok:
+        fail(f"[32] (a) resident-graph SCST: {recs}, gradient leaves outside the gate {bad}")
+    return {k: r1["launches"][k] + p1["launches"][k] for k in r1["launches"]}
+
+
+def grouped_record(card, name, t):
+    """Phase 32(b) at one decode step's input t (step_inputs' keys, f32):
+    grouped_attention_step over groups of 8 rows (tg the groups' longest
+    span rounded up to 8) against additive_attention_step through kernel 1
+    at f32 within 1e-5, and timed in turns with that route and kernel 6.
+    The attention's h2att is the identity, so its query is t["q"]."""
+    from echr_tpu_torch.ops import attention as att
+    from echr_tpu_torch.ops.kernel_attention_step import windowed_attention
+
+    B, T, H = t["pre"].shape
+    N = t["q"].shape[1]
+    ng = max(g for g in (8, 4, 2, 1) if N % g == 0)
+    mod = att.AdditiveAttention(t["feats"].shape[2], H, H).to(t["pre"].device)
+    with torch.no_grad():
+        mod.h2att.weight.copy_(torch.eye(H))
+        mod.h2att.bias.zero_()
+        mod.alpha_net.weight.copy_(t["w"].reshape(1, H))
+        mod.alpha_net.bias.copy_(t["b"].reshape(1))
+    need = att.grouped_tg_required(t["soi"].cpu().numpy(), ng)
+    tg = min(T, -(-need // 8) * 8)
+    with torch.inference_mode():
+        grp = att.grouped_attention_precompute(t["mask"], tg, ng)
+        got = att.grouped_attention_step(mod, t["q"], t["feats"], t["pre"], grp)
+        want, _ = att.additive_attention_step(mod, t["q"], t["feats"], t["pre"], t["mask"],
+                                              use_kernel=True)
+        err = float((got - want).abs().max())
+        turns = in_turns({
+            "grouped": lambda: att.grouped_attention_step(mod, t["q"], t["feats"], t["pre"],
+                                                          grp),
+            "kernel1_route": lambda: att.additive_attention_step(
+                mod, t["q"], t["feats"], t["pre"], t["mask"], use_kernel=True),
+            "kernel6": lambda: windowed_attention(t["pre"], t["feats"], t["q"], t["w"], t["b"],
+                                                  t["soi"], W=WINDOW)})
+    rec = {"B": B, "N": N, "T": T, "ng": ng, "tg": tg, "max_abs_err": err,
+           **{f"{k}_ms": sum(v) / 2 for k, v in turns.items()}}
+    print(f"[32] (b) grouped attention, {name} B={B} N={N} T={T} (groups of {ng}, tg {tg}): "
+          f"max|d| against additive_attention_step through kernel 1 at f32 {err:.3e}; in turns "
+          + ", ".join(f"{k} {x:.4f} / {y:.4f}" for k, (x, y) in turns.items()) + f" ms [{card}]")
+    if not err <= 1e-5:
+        fail(f"[32] (b) grouped attention, {name}: max|d| {err:.3e} > 1e-5")
+    return rec
+
+
+def switch_pass(cfg_kw, tap, cg, loader, cfg, kw, json_path, dev="cuda"):
+    """One per-video eval_split pass of phase 32(c) under cfg_kw's runtime
+    fields: (predictions, kernel 1 and 2 launches, early-exit syncs)."""
+    from echr_tpu_torch.engine import evaluate
+    from echr_tpu_torch.models.beam import beam_search_batched
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    for fn in (attention_scores_masked, greedy_head):
+        fn.launches = 0
+    syncs = decoder_sample_batched.host_syncs + beam_search_batched.host_syncs
+    preds, _, _ = evaluate.eval_split(tap, cg, loader, cfg.replace_in("runtime", **cfg_kw),
+                                      json_path, kw, device=dev)
+    torch.cuda.synchronize()
+    return (preds, attention_scores_masked.launches, greedy_head.launches,
+            decoder_sample_batched.host_syncs + beam_search_batched.host_syncs - syncs)
+
+
+def compare_captions(got, want):
+    """(captions, sentences that differ, the largest confidence difference
+    a token of the equal sentences) of two per-video passes over the same
+    videos and proposals."""
+    if list(got) != list(want):
+        fail("[32] (c) the passes captioned other videos")
+    n, differ, worst = 0, 0, 0.0
+    for vid in want:
+        if len(got[vid]) != len(want[vid]):
+            fail(f"[32] (c) {vid}: {len(got[vid])} captions against {len(want[vid])}")
+        for j, (g, w) in enumerate(zip(got[vid], want[vid])):
+            n += 1
+            if g["timestamp"] != w["timestamp"]:
+                fail(f"[32] (c) {vid} proposal {j}: another timestamp")
+            if g["sentence"] == w["sentence"]:
+                worst = max(worst, abs(g["sentence_confidence"] - w["sentence_confidence"])
+                            / (len(w["sentence"].split()) + 1))
+            else:
+                differ += 1
+    return n, differ, worst
+
+
+def phase_switches(card, dev="cuda"):
+    """Phase 32(c): the per-video eval_split on SWITCH_VIDEOS val videos of
+    phase 18's split and weights: greedy and beam 4 with decode_early_exit
+    True and False (the same captions, confidences within 1e-6 a token, no
+    early-exit sync in the fixed loops); then at f32 with phase 5's
+    weights and the window sort off, greedy with use_pallas_head False
+    against True: kernel 2 never launched, kernel 1's launches unchanged,
+    the same sentences, and their confidences within HEAD_SWITCH_TOL a
+    token (the two heads sum the lse in other orders).  Returns the
+    launches."""
+    launches = {"attention_scores_masked": 0, "greedy_head": 0}
+    base = {"topN": TOP_N, "num_vids_eval": SWITCH_VIDEOS, "language_eval": False,
+            "get_eval_loss": False}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("bfloat16", "float32"):
+            cfg, tap, cg, ds, loader = eval_setup(compute_dtype=dtype)
+            if dtype == "float32":
+                with torch.no_grad():
+                    cg.decoder.logit.weight.mul_(8.0)  # phase 5's weights
+                cases = [(f"f32 greedy use_pallas_head={h}",
+                          {"use_pallas_head": h, "sort_decode_props": False}, base)
+                         for h in (True, False)]
+            else:
+                cases = [(f"{name} decode_early_exit={e}", {"decode_early_exit": e},
+                          dict(base, beam_size=k))
+                         for name, k in (("greedy", 1), (f"beam {BEAM}", BEAM))
+                         for e in (True, False)]
+            out = {}
+            try:
+                for name, cfg_kw, kw in cases:
+                    out[name] = switch_pass(cfg_kw, tap, cg, loader, cfg, kw,
+                                            f"{tmp}/{len(out)}.json", dev)
+                    launches["attention_scores_masked"] += out[name][1]
+                    launches["greedy_head"] += out[name][2]
+            finally:
+                loader.load_state(loader.state())
+            names = list(out)
+            for a, b in zip(names[::2], names[1::2]):
+                (pa, k1a, k2a, sa), (pb, k1b, k2b, sb) = out[a], out[b]
+                head = "use_pallas_head" in a
+                n, differ, worst = compare_captions(pb, pa)
+                print(f"[32] (c) per-video eval_split over {len(pa)} val videos ({n} captions), "
+                      f"{b} against {a}: {differ} sentences differ, max|d| confidence "
+                      f"{worst:.3e} a token; kernel 1 launches {k1a}, {k1b}; kernel 2 {k2a}, "
+                      f"{k2b}; early-exit syncs {sa}, {sb} [{card}]")
+                if head:
+                    ok = (differ == 0 and worst <= HEAD_SWITCH_TOL and k2b == 0 < k2a
+                          and k1a == k1b > 0)
+                else:
+                    ok = differ == 0 and worst <= 1e-6 and sb == 0 < sa and k1a == k1b
+                if not ok:
+                    fail(f"[32] (c) {b} against {a}")
+    return launches
+
+
+def phase_single_process(card, dev="cuda"):
+    """Phase 32: resident-graph SCST (a), grouped attention at phases 29's
+    and 27's decode steps (b), and the two decode switches (c).  Returns
+    (the launches by path, the grouped records)."""
+    t_phase = time.time()
+    resident = phase_resident_scst(card, dev)
+    grouped = {name: grouped_record(card, label, STEP_INPUTS[name])
+               for name, label in (("per_video", "phase 29's per-video decode step"),
+                                   ("sota_eval", "phase 27's SOTA_TEP decode step"))}
+    switches = phase_switches(card, dev)
+    print(f"[32] phase wall {time.time() - t_phase:.1f} s [{card}]")
+    return {"scst_resident": resident, "decode_switches": switches}, grouped
 
 
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
@@ -4291,6 +4961,8 @@ def main():
         rec["by_input"].update(sota_eval=sota_steps[name], per_video=pervideo_steps[name])
         rec["max_abs_err"] = max(r["max_abs_err"] for r in rec["by_input"].values())
     dp = phase_data_parallel(card)
+    tp_launches, head["vocab_block"] = phase_tensor_parallel(card)
+    single, windowed["grouped_attention_by_input"] = phase_single_process(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, fused, windowed, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -4323,19 +4995,24 @@ def main():
                 "decoder_family": family["attention_scores_masked"],
                 **{name: n["attention_scores_masked"] for name, n in real.items()},
                 **{name: n["attention_scores_masked"] for name, n in pervideo.items()},
-                "data_parallel": dp["data_parallel"]["attention_scores_masked"]}
+                "data_parallel": dp["data_parallel"]["attention_scores_masked"],
+                "decode_switches": single["decode_switches"]["attention_scores_masked"]}
     k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
                 "checkpointed_train": ckpt_launches["greedy_head"],
                 "scst_train": scst_launches["greedy_head"],
                 "decoder_family": family["greedy_head"],
                 **{name: n["greedy_head"] for name, n in real.items()},
                 **{name: n["greedy_head"] for name, n in pervideo.items()},
-                "data_parallel": dp["data_parallel"]["greedy_head"]}
+                "data_parallel": dp["data_parallel"]["greedy_head"],
+                "tensor_parallel_baseline": tp_launches["greedy_head"],
+                "decode_switches": single["decode_switches"]["greedy_head"]}
     k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k],
                            "scst_train": scst_launches[k], "decoder_family": family[k],
                            "train_sync_and_pipelined": pipe_launches[k],
                            "scst_per_video": pervideo["scst_per_video"][k],
-                           **{name: n[k] for name, n in dp.items()}}
+                           **{name: n[k] for name, n in dp.items()},
+                           "tensor_parallel": tp_launches[k],
+                           "scst_resident_and_replay": single["scst_resident"][k]}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",

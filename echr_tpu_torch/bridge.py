@@ -12,6 +12,12 @@ Layout rules (as tests/oracle_torch.py and echr_tpu/compat/torch_import.py):
 
 The same rules carry any per-parameter tensor of the port's layout, such
 as Adam's moments (``export_tree`` / ``import_tree``).
+
+Tensor parallelism: ``captioner_from_jax(..., shard=(m, tp[, group]))``
+gives rank m's sharded captioner (``parallel.mesh.shard_captioner``) of a
+whole JAX tree, and ``captioner_to_jax`` of a sharded captioner gathers
+it over its tp group (a collective: every rank of the group calls it) and
+gives the whole tree.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from echr_tpu_torch.models.sst import SST
 from echr_tpu_torch.ops.attention import AdditiveAttention
 from echr_tpu_torch.ops.core import Dense
 from echr_tpu_torch.ops.recurrent import LSTMCell
+from echr_tpu_torch.parallel.mesh import gather_captioner, shard_captioner
 
 # leaf transforms: JAX array -> port tensor layout, and back
 _TO_PORT = {
@@ -166,10 +173,14 @@ def tap_from_jax(tree, cfg: Config, device="cpu") -> SST:
     return sst.to(device)
 
 
-def captioner_from_jax(tree, cfg: Config, device="cpu") -> Captioner:
-    """An init_captioner-shaped tree (numpy leaves) -> Captioner."""
+def captioner_from_jax(tree, cfg: Config, device="cpu", shard=None) -> Captioner:
+    """An init_captioner-shaped tree (numpy leaves) -> Captioner; with
+    ``shard`` (m, tp) or (m, tp, tp group) rank m's block of it on the
+    model axis."""
     cg = Captioner(cfg)
     import_tree(captioner_spec(cg), tree, _copy_into, "captioner")
+    if shard is not None:
+        shard_captioner(cg, *shard)
     return cg.to(device)
 
 
@@ -178,4 +189,5 @@ def tap_to_jax(sst: SST):
 
 
 def captioner_to_jax(cg: Captioner, cfg: Config):
-    return export_tree(captioner_spec(cg), cfg.fusion.n_head)
+    """The whole init_captioner tree of a whole or a sharded captioner."""
+    return export_tree(captioner_spec(gather_captioner(cg)[0]), cfg.fusion.n_head)

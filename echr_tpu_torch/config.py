@@ -8,14 +8,17 @@ properties, as in echr_tpu.
 
 RuntimeConfig holds only the runtime fields the port reads:
 ``compute_dtype``, ``transfer_dtype``, ``use_pallas`` (the decode kernels),
-``use_pallas_train`` (the training kernels), ``sort_decode_props``,
-``decode_early_exit_batched``, ``fused_loss_head``, ``hang_warn_s`` (the
-eval loop's watchdog), ``train_pipeline`` and ``train_inflight`` (the
-pipelined train loop), ``mesh_shape`` (the data-parallel layout, checked
-against the group's size) and ``preempt_check_every`` (the ranks'
-preemption agreement).  echr_tpu's other runtime fields are TPU knobs
-(mesh axis names, SPMD mode, buffer donation, the Pallas T ceilings, the
-streaming-head gate) or options of paths not ported; they are dropped.
+``use_pallas_train`` (the training kernels), ``use_pallas_head`` (kernel 2
+alone), ``sort_decode_props``, ``decode_early_exit`` (the per-video decode
+and beam loop) and ``decode_early_exit_batched`` (the batched ones),
+``fused_loss_head``, ``scst_resident_vjp`` (SCST's update from the
+rollout's own graph), ``hang_warn_s`` (the eval loop's watchdog),
+``train_pipeline`` and ``train_inflight`` (the pipelined train loop),
+``mesh_shape`` (the (dp, tp) layout, checked against the group's size) and
+``preempt_check_every`` (the ranks' preemption agreement).  echr_tpu's
+other runtime fields are TPU and XLA knobs (mesh axis names, SPMD mode,
+buffer donation, the Pallas T ceilings) or a field echr_tpu never reads
+(``param_dtype``); they are dropped.
 ``from_json`` ignores them in echr_tpu's JSON, and ``replace_in`` and the
 CLI parser (``build_argparser`` / ``parse_config``, echr_tpu's flag
 surface) reject them, so setting one fails instead of doing nothing.
@@ -210,9 +213,19 @@ class RuntimeConfig:
     transfer_dtype: str = "float32"
     use_pallas: bool = True  # the port: the no-grad decode kernels
     use_pallas_train: bool = True  # the port: kernels 3 and 4
+    # False: greedy decode takes the plain logits head instead of kernel 2,
+    # while kernel 1 stays on (echr_tpu's switch of its streaming head)
+    use_pallas_head: bool = True
     sort_decode_props: bool = True  # decode sorts proposals by window start
+    # the per-video decode and beam loops: the video's early exit (one host
+    # sync a step), or the fixed-L loop; equal outputs either way
+    decode_early_exit: bool = True
     decode_early_exit_batched: bool = True  # batched decode: one batch-wide exit
     fused_loss_head: bool = True
+    # one process: SCST's sampled rollout keeps its autograd graph across the
+    # host reward, and the update backpropagates the reward loss through it
+    # instead of replaying the rollout; under a group the two-program steps
+    scst_resident_vjp: bool = False
     hang_warn_s: float = 600.0  # watchdog deadline of the eval loop; <= 0 disables it
     # the pipelined train loop (engine/train.py, _TrainPrep): a host thread
     # pulls, compresses and collates, a second uploads, and the metrics of
@@ -228,7 +241,8 @@ class RuntimeConfig:
     # older half of their metrics, which waits for those steps to finish
     train_inflight: int = 2
     # (dp, tp) over the torch.distributed group (parallel/mesh.check_layout):
-    # dp 1 or the world size, tp 1 (tensor parallelism is not ported)
+    # dp x tp the world size, (1, 1) every rank on the data axis; tp > 1
+    # cuts the vocab and TSRM-head leaves over the ranks of a row
     mesh_shape: Tuple[int, int] = (1, 1)
     # under more than one rank, the train loop's iterations between the
     # ranks' agreement on a SIGTERM (an all-reduce MAX of the flag)
@@ -377,14 +391,15 @@ _OVERWRITTEN_FLAGS = (
     "video_context_dim", "event_context_dim", "clip_context_dim",
 )
 
-# echr_tpu's runtime fields that the port dropped (TPU knobs and options of
-# paths not ported; mesh_axis_names and spmd_mode name GSPMD's choices, and
-# each rank's program is explicit already): a flag setting one is refused,
-# naming it
+# echr_tpu's runtime fields that the port dropped, each a TPU or XLA knob
+# or unread: donate_step_args donates jit buffers (an eager step has none
+# to donate); mesh_axis_names and spmd_mode name GSPMD's choices (each
+# rank's program is explicit); pallas_decode_t_max(_sorted) are the TPU
+# kernel's T ceilings (the port's kernels take any T); param_dtype is read
+# nowhere in echr_tpu.  A flag setting one is refused, naming it
 _DROPPED_RUNTIME_FLAGS = (
-    "decode_early_exit", "donate_step_args", "mesh_axis_names", "pallas_decode_t_max",
-    "pallas_decode_t_max_sorted", "param_dtype", "scst_resident_vjp", "spmd_mode",
-    "use_pallas_head",
+    "donate_step_args", "mesh_axis_names", "pallas_decode_t_max",
+    "pallas_decode_t_max_sorted", "param_dtype", "spmd_mode",
 )
 
 
@@ -442,8 +457,8 @@ def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
     for dropped in _DROPPED_RUNTIME_FLAGS:
         if getattr(ns, dropped) is not None:
             raise ValueError(f"--{dropped} sets echr_tpu's runtime.{dropped}, which "
-                             "echr_tpu_torch does not have (a TPU knob or an option of a "
-                             "path not ported)")
+                             "echr_tpu_torch does not have (a TPU or XLA knob, or a field "
+                             "echr_tpu does not read)")
     for dead in _DEAD_FLAGS:
         if getattr(ns, dead, None) is not None:
             plog.info("--%s is declared but never read in the reference; ignored", dead)

@@ -39,6 +39,7 @@ import torch
 from echr_tpu_torch import bridge
 from echr_tpu_torch.config import Config
 from echr_tpu_torch.engine.steps import TrainState, init_train_state
+from echr_tpu_torch.parallel.mesh import sharded_leaves
 
 FORMAT_VERSION = 2
 _ADAM = "2"  # scale_by_adam's index in echr_tpu's optimizer chain
@@ -101,6 +102,9 @@ def _opt_from_dict(opt: torch.optim.Adam, spec, sd: Dict[str, Any]) -> None:
 
 
 def _state_to_dict(state: TrainState, cfg: Config) -> Dict[str, Any]:
+    if sharded_leaves(state.cg):
+        raise ValueError("a tensor-parallel train state holds blocks of its vocab and head "
+                         "leaves: save parallel.mesh.gather_modules(state), the whole model")
     specs = _specs(state, cfg)
     out = {f"{name}_params": bridge.export_tree(spec, groups)
            for name, spec, groups, _ in specs}

@@ -27,10 +27,24 @@ The per-video steps (``encode_step``, ``val_loss_step``, ``decode_step``,
 ``beam_decode_step``, ``rl_rollout_step``, ``rl_update_step``) take one
 video's tensors and run the batched step on a batch of one.
 
+Resident-graph SCST (``runtime.scst_resident_vjp``, one process):
+``rl_rollout_graph_step_batched`` runs the sampled rollout under autograd
+and keeps its graph (the training score kernels 3 and 4 through
+attention_scores_diff) across the host reward, and
+``rl_graph_update_step_batched`` takes the reward loss of the kept logps
+and backpropagates it, skipping the replay, then makes the same dual-Adam
+step.  The gradient is the replay's: the sampled tokens are integers, and
+the replay recomputes the rollout's logps with its dropout masks.
+
 Under a torch.distributed group every gradient passes ``_phase_grads``,
-which averages the ranks' gradients and metrics in one all-reduce a dtype
-(``parallel.mesh.all_reduce_grads``) before ``apply_grads`` clips: the XE
-step, the SCST update and the checkpoint's histogram step alike.
+which averages the gradients and metrics of the ranks of the rank's dp
+column (``state.mesh``; every rank without a mesh) in one all-reduce a
+dtype (``parallel.mesh.all_reduce_grads``) before ``apply_grads`` clips:
+the XE step, the SCST update and the checkpoint's histogram step alike.
+Under tensor parallelism (tp > 1) the ranks of a tp row hold the same
+gradient of every replicated leaf and each its block of a sharded one
+(parallel/tensor.py), so the element-wise clip, the decay and Adam act on
+the blocks unchanged.
 
 Every training step returns its metrics as 0-d tensors on the device, so
 that no metric makes the host wait; ``fetch_metrics`` copies them to the
@@ -79,6 +93,8 @@ class TrainState:
     tap_opt: torch.optim.Adam
     cg_opt: torch.optim.Adam
     step: int = 0
+    # the (dp, tp) layout under a group (parallel.mesh.shard_modules)
+    mesh: Optional[object] = None
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
@@ -238,9 +254,17 @@ def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args
     for every parameter of both models; and the metrics as detached 0-d
     tensors on the device, so that no metric makes the host wait."""
     models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})  # one cast for both
-    params = list(models.parameters())
     metrics = call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
                                     losses_fn, cfg, *args)
+    return _grads_of(state, metrics, phase)
+
+
+def _grads_of(state: TrainState, metrics: Dict[str, torch.Tensor], phase: str
+              ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, torch.Tensor]]:
+    """The gradients of the phase loss of ``metrics`` (batch-mean losses in
+    a graph over the state's parameters) and the detached metrics, both
+    averaged over the ranks' dp column under a group."""
+    params = [*state.tap.parameters(), *state.cg.parameters()]
     loss = _phase_loss(metrics, phase)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     # an unused parameter has a zero gradient (Adam still steps it, as optax does)
@@ -249,10 +273,13 @@ def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args
     out = {k: v.detach() for k, v in metrics.items()}
     out["loss"] = loss.detach()
     if dist.is_initialized():
-        # data parallel: the mean over the ranks of each rank's batch-mean
-        # gradients and metrics (echr_tpu's gradient psum), before any clip
+        # data parallel: the mean over the ranks of a dp column of each
+        # rank's batch-mean gradients and metrics (echr_tpu's gradient psum
+        # over the data axis), before any clip
         names = list(out)
-        reduced = mesh.all_reduce_grads(grads + [out[k] for k in names])
+        lay = state.mesh
+        kw = {} if lay is None else {"group": lay.dp_group, "size": lay.dp}
+        reduced = mesh.all_reduce_grads(grads + [out[k] for k in names], **kw)
         grads, out = reduced[:len(params)], dict(zip(names, reduced[len(params):]))
     return (grads[:n_tap], grads[n_tap:]), out
 
@@ -327,16 +354,20 @@ def _rl_forward(tap: SST, cg: Captioner, cfg: Config, batch: VideoBatch, phase: 
 
 def _rl_rollouts(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: str,
                  gen: Optional[torch.Generator], sample_gen: torch.Generator):
+    """The sampled rollout, under autograd where the caller is, and the
+    greedy baseline under no grad: (tap_loss [B], gen_seq, logps
+    [B, N, L], greedy_seq)."""
     tap, cg = models["tap"], models["cg"]
-    tap_l, gen_seq, _ = _rl_forward(tap, cg, cfg, batch, phase, gen, sample_gen)
+    tap_l, gen_seq, logps = _rl_forward(tap, cg, cfg, batch, phase, gen, sample_gen)
     # the greedy baseline: eval mode, no dropout, the decode path's
     # kernels and window sort
-    dt = compute_dtype(cfg.runtime.compute_dtype)
-    tap_feats_eval, _ = sst_forward_batched(tap, batch.feats, dt)
-    props = _select_props(batch, phase)[0]
-    greedy_seq, _, _ = captioner_sample(cg, cfg, tap_feats_eval, batch.feats, batch.lda, props,
-                                        batch.frame_mask, dt)
-    return tap_l, gen_seq, greedy_seq
+    with torch.no_grad():
+        dt = compute_dtype(cfg.runtime.compute_dtype)
+        tap_feats_eval, _ = sst_forward_batched(tap, batch.feats, dt)
+        props = _select_props(batch, phase)[0]
+        greedy_seq, _, _ = captioner_sample(cg, cfg, tap_feats_eval, batch.feats, batch.lda,
+                                            props, batch.frame_mask, dt)
+    return tap_l, gen_seq, logps, greedy_seq
 
 
 @torch.no_grad()
@@ -350,8 +381,10 @@ def rl_rollout_step_batched(state: TrainState, batch: VideoBatch, cfg: Config, p
     [B, N, L], greedy_seq [B, N, L]).  Save ``gen``'s state before this
     call and restore it for rl_update_step_batched."""
     models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})
-    return call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
-                                 _rl_rollouts, cfg, batch, phase, gen, sample_gen)
+    tap_l, gen_seq, _, greedy_seq = call_in_compute_dtype(
+        models, compute_dtype(cfg.runtime.compute_dtype), _rl_rollouts, cfg, batch, phase, gen,
+        sample_gen)
+    return tap_l, gen_seq, greedy_seq
 
 
 def _rl_losses(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: str,
@@ -359,6 +392,14 @@ def _rl_losses(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: str
                ) -> Dict[str, torch.Tensor]:
     tap_l, _, logps = _rl_forward(models["tap"], models["cg"], cfg, batch, phase, gen,
                                   forced=gen_seq)
+    return _rl_metrics(cfg, batch, phase, tap_l, logps, gen_seq, reward)
+
+
+def _rl_metrics(cfg: Config, batch: VideoBatch, phase: str, tap_l: torch.Tensor,
+                logps: torch.Tensor, gen_seq: torch.Tensor, reward: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """Each video's reward loss of the rollout's ``logps`` with its own
+    denominators, its tap loss and mean reward, and the mean over videos."""
     pm = _select_props(batch, phase)[0].prop_mask
     rl_l = losses.reward_loss(logps, gen_seq, reward, prop_mask=pm)
     n_real = torch.clamp(pm.sum(dim=1), min=1.0)
@@ -381,6 +422,45 @@ def rl_update_step_batched(state: TrainState, batch: VideoBatch, cfg: Config, ph
     total_loss, avg_reward and loss."""
     grads, metrics = _phase_grads(state, cfg, phase, _rl_losses, batch, phase, gen, gen_seq,
                                   reward)
+    return apply_grads(state, grads[0], grads[1], cfg, phase), metrics
+
+
+@dataclass
+class RolloutGraph:
+    """What rl_rollout_graph_step_batched keeps for the update: the
+    rollout's tap loss and logps in their autograd graph, and its tokens."""
+
+    tap_loss: torch.Tensor  # [B]
+    logps: torch.Tensor  # [B, N, L]
+    gen_seq: torch.Tensor  # [B, N, L]
+
+
+def rl_rollout_graph_step_batched(state: TrainState, batch: VideoBatch, cfg: Config,
+                                  phase: str, gen: Optional[torch.Generator],
+                                  sample_gen: torch.Generator
+                                  ) -> Tuple[RolloutGraph, torch.Tensor, torch.Tensor]:
+    """rl_rollout_step_batched with the sampled rollout under autograd
+    (echr_tpu's rl_rollout_vjp_step_batched, runtime.scst_resident_vjp):
+    the same tokens from the same generators, and its graph, weights cast to
+    the compute dtype inside it, kept for rl_graph_update_step_batched.
+    Returns (the kept rollout, gen_seq [B, N, L], greedy_seq [B, N, L])."""
+    models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})
+    tap_l, gen_seq, logps, greedy_seq = call_in_compute_dtype(
+        models, compute_dtype(cfg.runtime.compute_dtype), _rl_rollouts, cfg, batch, phase, gen,
+        sample_gen)
+    return RolloutGraph(tap_l, logps, gen_seq), gen_seq, greedy_seq
+
+
+def rl_graph_update_step_batched(state: TrainState, batch: VideoBatch, cfg: Config,
+                                 phase: str, kept: RolloutGraph, reward: torch.Tensor
+                                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The policy-gradient update from a kept rollout (echr_tpu's
+    rl_pullback_update_step_batched): the reward loss of its logps, the
+    mean over videos, backpropagated through the rollout's graph, and the
+    dual-Adam step of rl_update_step_batched.  The graph is freed.  Metrics
+    as rl_update_step_batched's."""
+    grads, metrics = _grads_of(state, _rl_metrics(cfg, batch, phase, kept.tap_loss, kept.logps,
+                                                  kept.gen_seq, reward), phase)
     return apply_grads(state, grads[0], grads[1], cfg, phase), metrics
 
 
@@ -468,15 +548,18 @@ def decode_step_batched(cg: Captioner, cfg: Config, tap_feats: torch.Tensor,
 @torch.inference_mode()
 def beam_decode_step_batched(cg: Captioner, cfg: Config, tap_feats: torch.Tensor,
                              feats: torch.Tensor, lda: torch.Tensor, frame_mask: torch.Tensor,
-                             props: ProposalBatch, beam_size: int, length_alpha: float = 0.0
+                             props: ProposalBatch, beam_size: int, length_alpha: float = 0.0,
+                             early_exit: Optional[bool] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode of B videos' proposals: (seq [B, N, L] of the best beam,
-    its logprob [B, N]).  runtime.decode_early_exit_batched selects the
-    batch-wide early exit, else the fixed-L loop; both return identical
-    tensors."""
+    its logprob [B, N]).  ``early_exit`` (default
+    runtime.decode_early_exit_batched) selects the batch-wide early exit,
+    else the fixed-L loop; both return identical tensors."""
+    if early_exit is None:
+        early_exit = bool(cfg.runtime.decode_early_exit_batched)
     ctxs = make_contexts(cg, cfg, tap_feats, feats, lda, props, frame_mask=frame_mask)
     res = beam_search_batched(cg.decoder, cfg, ctxs, beam_size, length_alpha,
-                              early_exit=bool(cfg.runtime.decode_early_exit_batched),
+                              early_exit=early_exit,
                               dtype=compute_dtype(cfg.runtime.compute_dtype))
     return res.seq, res.logprob
 
@@ -532,10 +615,12 @@ def beam_decode_step(cg: Captioner, cfg: Config, tap_feats: torch.Tensor,
                      props: ProposalBatch, beam_size: int, length_alpha: float = 0.0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam decode of one video's proposals: (seq [N, L] of the best beam,
-    its logprob [N]); bucket-padding rows come back as zeros."""
+    its logprob [N]); bucket-padding rows come back as zeros.  The loop is
+    the video's early exit or, with runtime.decode_early_exit False, the
+    fixed-L loop."""
     seq, logprob = beam_decode_step_batched(cg, cfg, tap_feats[None], feats[None], lda[None],
                                             frame_mask[None], _one_props(props), beam_size,
-                                            length_alpha)
+                                            length_alpha, bool(cfg.runtime.decode_early_exit))
     return seq[0], logprob[0]
 
 

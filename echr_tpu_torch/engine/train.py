@@ -63,6 +63,26 @@ and optimizer state are rank 0's on every rank after the init or resume
 (``parallel.mesh.broadcast_state``); a checkpoint resumes under any number
 of ranks.
 
+Tensor parallel (``runtime.mesh_shape`` (dp, tp) with tp > 1, echr_tpu's
+train() on a (data, model) mesh): rank r is (d = r // tp, m = r % tp).
+The rows of a group are sharded by d, so the tp ranks of a row see the
+same videos, draw from the generators of d (seeds ``train.seed + 1 + 2d``
+and ``+ 2 + 2d``) and run the same replicated computation; the
+captioner's vocab and TSRM-head leaves and their Adam moments are cut to
+each rank's block after the broadcast (``parallel.mesh.shard_modules``),
+and the gradients are averaged over the dp column.  The checkpoint, the
+histograms (of gathered gradients), the gating eval and the final state
+take the whole model from ``parallel.mesh.gather_modules``, a collective
+of every rank, so a checkpoint is a one-process checkpoint, byte for
+byte in layout, and resumes under any layout.  SCST takes the two-program
+steps, and each row's rewards are its m = 0 rank's.
+
+With ``runtime.scst_resident_vjp`` in one process an SCST step keeps the
+sampled rollout's graph across the host reward and the update
+backpropagates through it (``steps.rl_graph_update_step_batched``); under
+a group the flag falls back to the two-program steps, as echr_tpu's
+train() does under a mesh.
+
 ``get_training_list``, ``current_lr``, ``current_ss_prob``, ``_collate``,
 ``_BucketCollator``, ``overlay_resumed_config`` and the preemption handler
 are host-only copies: echr_tpu/engine/train.py imports jax at the top.
@@ -101,6 +121,8 @@ from echr_tpu_torch.engine.steps import (
     host_tensor,
     init_train_state,
     lift_batch,
+    rl_graph_update_step_batched,
+    rl_rollout_graph_step_batched,
     rl_rollout_step_batched,
     rl_update_step_batched,
     set_lr,
@@ -108,7 +130,16 @@ from echr_tpu_torch.engine.steps import (
 )
 from echr_tpu_torch.models.registry import init_captioner, init_tap
 from echr_tpu_torch.parallel import distributed as pdist
-from echr_tpu_torch.parallel.mesh import broadcast_state, check_layout, shard_rows
+from echr_tpu_torch.parallel.mesh import (
+    Mesh,
+    broadcast_state,
+    build_mesh,
+    check_layout,
+    gather_grads,
+    gather_modules,
+    shard_modules,
+    shard_rows,
+)
 from echr_tpu_torch.utils.tb import TBWriter
 from echr_tpu_torch.utils.watchdog import HangWatchdog
 
@@ -502,15 +533,15 @@ def check_data_parallel(cfg: Config, world: int) -> None:
     """The refusals of a run of ``world`` ranks (echr_tpu/engine/train.py
     :388-403): ``runtime.mesh_shape`` against the group
     (``parallel.mesh.check_layout``), and under several ranks a batch_size
-    that the ranks do not divide (SCST at batch_size 1 among them: the
-    ranks share the batched step's rows) and m_batch accumulation."""
-    check_layout(cfg, world)
+    that the dp rows do not divide (SCST at batch_size 1 among them: the
+    rows share the batched step's videos) and m_batch accumulation."""
+    dp, _ = check_layout(cfg, world)
     if world == 1:
         return
-    if cfg.train.batch_size % world:
+    if cfg.train.batch_size % dp:
         raise ValueError(
             f"data-parallel training splits each group of train.batch_size videos over the "
-            f"{world} ranks: set batch_size to a multiple of {world}, got "
+            f"{dp} data-parallel rows: set batch_size to a multiple of {dp}, got "
             f"{cfg.train.batch_size}")
     if cfg.train.m_batch > 1:
         raise NotImplementedError(
@@ -533,7 +564,10 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
     resumed = bool(cfg.save.start_from and os.path.exists(resume_path))
     if resumed:
         payload = ckpt.load_checkpoint(resume_path, device)
-        cfg = overlay_resumed_config(cfg, payload["config"])
+        # the layout is the launch's (echr_tpu builds its mesh before the
+        # resume), so a checkpoint resumes under any layout
+        cfg = overlay_resumed_config(cfg, payload["config"]).replace_in(
+            "runtime", mesh_shape=cfg.runtime.mesh_shape)
         state = payload["state"]
         iteration, epoch = payload["iteration"], payload["epoch"]
         best_val_score = payload["best_val_score"]
@@ -558,10 +592,19 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
                 f"the ranks disagree on the resume from {resume_path}: (resumed, iteration, "
                 f"epoch) by rank {seen}; the ranks need one shared save.checkpoint_path")
         broadcast_state(state)
+        lay = build_mesh(cfg)
+        state = shard_modules(state, lay) if lay.tp > 1 else state
+        state.mesh = lay
+    else:
+        lay = Mesh(1, 1, 0)
+    if cfg.runtime.scst_resident_vjp and world > 1 and cfg.train.self_critical_after != -1:
+        log.info("runtime.scst_resident_vjp is single-process: %d ranks take the "
+                 "two-program SCST steps", world)
     # dropout masks and scheduled-sampling draws, and SCST's token draws,
-    # on the device; rank r's seeds are seed + 1 + 2r and seed + 2 + 2r
-    gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1 + 2 * rank)
-    sample_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 2 + 2 * rank)
+    # on the device; row d's seeds are seed + 1 + 2d and seed + 2 + 2d (d
+    # is the rank without tensor parallelism)
+    gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1 + 2 * lay.d)
+    sample_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 2 + 2 * lay.d)
 
     curriculum = get_training_list(cfg)
     log.info("curriculum: %s (%d epochs)", cfg.train.training_mode, len(curriculum))
@@ -616,7 +659,10 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
         # the gate runs minutes on a full split and has its own watchdog
         wd.suspend()
         try:
-            current_score, eval_scores = _run_eval(state, eval_loader, cfg, save_folder,
+            # the whole model (a collective under tp, every rank) for the
+            # eval, the histograms and the checkpoints
+            whole = gather_modules(state)
+            current_score, eval_scores = _run_eval(whole, eval_loader, cfg, save_folder,
                                                    iteration, phase, device, world)
             tb.scalar("val_score", current_score, iteration)
             for k, v in eval_scores.items():
@@ -628,7 +674,8 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
             (tap_g, cg_g), _ = grad_step(
                 state, batch_to_device(_stack_batch(hist_batch_raw), device), hist_gen, cfg,
                 phase, ss_prob)
-            for prefix, module, grads in (("tap", state.tap, tap_g), ("cg", state.cg, cg_g)):
+            cg_g = gather_grads(state.cg, cg_g)
+            for prefix, module, grads in (("tap", whole.tap, tap_g), ("cg", whole.cg, cg_g)):
                 for (name, p), g in zip(module.named_parameters(), grads):
                     tb.histogram(f"{prefix}/{name}", p, iteration)
                     tb.histogram(f"{prefix}_grad/{name}", g, iteration)
@@ -636,14 +683,15 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
                 k: (np.asarray(v).tolist() if hasattr(v, "tolist") else v)
                 for k, v in eval_scores.items()}
             if rank == 0:
-                _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader,
+                _save(whole, cfg, save_folder, iteration, epoch, best_val_score, loader,
                       histories, dataset, loader_state=loader_state)
             if current_score > best_val_score:
                 best_val_score = current_score
                 if rank == 0:
-                    _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader,
+                    _save(whole, cfg, save_folder, iteration, epoch, best_val_score, loader,
                           histories, dataset, best=True, loader_state=loader_state)
                 log.info("new best %.4f at iter %d", best_val_score, iteration)
+            del whole
         finally:
             wd.resume()
 
@@ -767,8 +815,8 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
         """This rank's rows of a collated group, and their metas."""
         if world == 1:
             return stacked, metas
-        b = len(metas) // world
-        return shard_rows(stacked, rank, world), metas[rank * b:(rank + 1) * b]
+        b = len(metas) // lay.dp
+        return shard_rows(stacked, lay.d, lay.dp), metas[lay.d * b:(lay.d + 1) * b]
 
     def _loop_sync() -> None:
         """The reference's synchronous loop (train.py:252-349, echr_tpu's
@@ -897,9 +945,11 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
     finally:
         wd.stop()
         _restore_preemption_handler(preempt)
+    whole = gather_modules(state)  # a collective under tp
     if rank == 0:
-        _save(state, cfg, save_folder, iteration, epoch, best_val_score, loader, histories,
+        _save(whole, cfg, save_folder, iteration, epoch, best_val_score, loader, histories,
               dataset)
+    del whole
     tb.close()
     if timing_out is not None:
         timing_out.update(tm)
@@ -939,12 +989,22 @@ def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg
     take every GT sentence under gts_mask, the other phases the sentence
     each sampled proposal was matched to (cg_select) under prop_mask.
     Under several ranks ``batch`` and ``metas`` are the rank's rows, and
-    the update's gradients are all-reduced (steps._phase_grads).
-    Returns (state, metrics, timing)."""
+    the update's gradients are all-reduced (steps._phase_grads); under
+    tensor parallelism the ranks of a tp row take the rewards of its m = 0
+    rank.  With runtime.scst_resident_vjp in one process the rollout keeps
+    its graph and the update backpropagates through it instead of
+    replaying it.  Returns (state, metrics, timing)."""
     tic = time.perf_counter
     t0 = tic()
+    lay = state.mesh
+    resident = bool(cfg.runtime.scst_resident_vjp) and pdist.world_size() == 1
     drop_state = gen.get_state() if gen is not None else None
-    _, gen_seq, greedy_seq = rl_rollout_step_batched(state, batch, cfg, phase, gen, sample_gen)
+    if resident:
+        kept, gen_seq, greedy_seq = rl_rollout_graph_step_batched(state, batch, cfg, phase, gen,
+                                                                  sample_gen)
+    else:
+        _, gen_seq, greedy_seq = rl_rollout_step_batched(state, batch, cfg, phase, gen,
+                                                         sample_gen)
     gen_np, greedy_np = fetch_host(gen_seq, greedy_seq)
     t1 = tic()
     if phase in ("cg", "gt_tap_cg"):
@@ -959,10 +1019,16 @@ def _self_critical_step_batched(state: TrainState, batch: VideoBatch, metas, cfg
         gts, dataset.ix_to_word, {i: masks[i] for i in range(len(metas))}, len(metas),
         meteor_weight=cfg.train.meteor_reward_weight, pool=pool)
     t2 = tic()
-    if gen is not None:
-        gen.set_state(drop_state)
-    state, metrics = rl_update_step_batched(state, batch, cfg, phase, gen, gen_seq,
-                                            torch.from_numpy(rewards).to(gen_seq.device))
+    reward = torch.from_numpy(rewards).to(gen_seq.device)
+    if lay is not None and lay.tp > 1:
+        torch.distributed.broadcast(reward, src=lay.row_root(), group=lay.tp_group)
+    if resident:
+        state, metrics = rl_graph_update_step_batched(state, batch, cfg, phase, kept, reward)
+        del kept
+    else:
+        if gen is not None:
+            gen.set_state(drop_state)
+        state, metrics = rl_update_step_batched(state, batch, cfg, phase, gen, gen_seq, reward)
     (metrics,) = fetch_metrics(metrics)
     t3 = tic()
     timing = {"rollout": t1 - t0, "reward": t2 - t1, "update": t3 - t2,

@@ -24,7 +24,7 @@ finished beam's only candidate is END at +0), so the fixed-L loop
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -178,13 +178,16 @@ beam_search_batched.host_syncs = 0
 
 
 def beam_search(dec: Decoder, cfg: Config, ctxs: Contexts, beam_size: int,
-                length_alpha: float = 0.0, early_exit: bool = True,
+                length_alpha: float = 0.0, early_exit: Optional[bool] = None,
                 dtype: torch.dtype = torch.float32) -> BeamResult:
     """Beam search of one video's proposals (echr_tpu's beam_search):
     beam_search_batched on a batch of one, with the window sort and its
-    un-permute and the video's own early exit.  Bucket-padding rows come
-    back as zeros.  Returns a BeamResult without the batch axis (seq
+    un-permute and the video's own early exit (``early_exit`` None:
+    runtime.decode_early_exit, whose False is the fixed-L loop).
+    Bucket-padding rows come back as zeros.  Returns a BeamResult without the batch axis (seq
     [N, L], logprob [N], all_seqs [N, k, L], all_logprobs [N, k])."""
+    if early_exit is None:
+        early_exit = bool(cfg.runtime.decode_early_exit)
     res = beam_search_batched(dec, cfg, one_video_ctxs(ctxs), beam_size, length_alpha,
                               early_exit, dtype)
     return BeamResult(*(x[0] for x in res))

@@ -112,15 +112,16 @@ def captioner_sample(
     sample_gen: Optional[torch.Generator] = None,
     train: bool = False,
     gen: Optional[torch.Generator] = None,
+    early_exit: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy or multinomial decode of B videos' proposals (mode 'eval';
     reference: CaptionGenerator.py:39-44): (seq [B, N, L], per-step logps
     [B, N, L], active [B, L]).  Draws come from ``sample_gen``, dropout
-    (with ``train``) from ``gen``."""
+    (with ``train``) from ``gen``; ``early_exit`` as decoder_sample_batched."""
     ctxs = make_contexts(cg, cfg, tap_feats, c3d_feats, lda_feats, props, frame_mask,
                          train=train, gen=gen)
     return decoder_sample_batched(cg.decoder, cfg, ctxs, dtype, greedy, temperature, sample_gen,
-                                  train, gen)
+                                  train, gen, early_exit=early_exit)
 
 
 def captioner_train_rl(
@@ -164,11 +165,12 @@ def captioner_sample_one(
     gen: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One video's decode (echr_tpu's per-video captioner_sample):
-    captioner_sample on a batch of one.  Returns (seq [N, L], logps [N, L],
-    active [L])."""
+    captioner_sample on a batch of one, its loop chosen by
+    runtime.decode_early_exit.  Returns (seq [N, L], logps [N, L], active
+    [L])."""
     seq, logps, active = captioner_sample(
         cg, cfg, tap_feats[None], c3d_feats[None], lda_feats[None],
         ProposalBatch(*(x[None] for x in props)),
         None if frame_mask is None else frame_mask[None], dtype, greedy, temperature,
-        sample_gen, train, gen)
+        sample_gen, train, gen, early_exit=bool(cfg.runtime.decode_early_exit))
     return seq[0], logps[0], active[0]

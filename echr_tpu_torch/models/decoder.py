@@ -42,6 +42,17 @@ runs eagerly, so it computes the attention (and its ctx2att projection)
 only where the result is used (``attention_live``).  The outputs are the
 same.
 
+Tensor parallelism (echr_tpu/parallel/mesh.py:99-142): a decoder that
+``parallel.mesh.shard_modules`` cut over the vocab holds the rows
+[m V1/tp, (m+1) V1/tp) of embed and logit and a ``TPShard`` (``dec.tp``).
+Its embedding lookups are vocab-parallel (``parallel.tensor.embed_lookup``),
+the fused teacher-forced NLL and a replay's logps take the max, the sum of
+exponentials and the target's logit over the tp group without gathering
+the logits, a sampled decode draws from the logits gathered over the group
+(so every rank draws what one process draws), and the greedy head runs
+kernel 2 on the rank's vocab block and combines the blocks' (token, max,
+lse) (``parallel.tensor.combine_heads``).
+
 Multinomial decode (``decoder_sample_batched(greedy=False)``: SCST's
 rollout and eval's sample_max=0) draws its tokens from a second generator,
 so that the dropout generator gives the same masks however many draws a
@@ -68,6 +79,15 @@ from echr_tpu_torch.ops.core import Dense, dense, dropout, matmul, parameter, ro
 from echr_tpu_torch.ops.kernel_head import greedy_head, prepare_head
 from echr_tpu_torch.ops.masked import window_mean_padded
 from echr_tpu_torch.ops.recurrent import LSTMCell, lstm_cell, lstm_cell_pre, lstm_input_proj
+from echr_tpu_torch.parallel.tensor import (
+    combine_heads,
+    copy_to_tp,
+    embed_lookup,
+    gather_from_tp,
+    shard_of,
+    vocab_logp,
+    vocab_nll,
+)
 
 
 class DecoderState(NamedTuple):
@@ -618,11 +638,28 @@ def step_core_out(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
                   ) -> Tuple[torch.Tensor, DecoderState]:
     """One decode step without the logit head: token ids [B, N] -> core
     output [B, N, C] (with the output dropout at train time)."""
-    xt = dec.embed[it.long()]
+    tp = shard_of(dec)
+    xt = dec.embed[it.long()] if tp is None else embed_lookup(dec.embed, it, tp)
     step = CORE_REGISTRY[cfg.decoder.caption_model][1]
     out, state = step(dec.core, cfg, xt, ctxs, pre, state, dtype, _use_kernel(cfg, train), train,
                       gen)
     return dropout(out, cfg.decoder.CG_drop_prob, gen, train), state
+
+
+def local_logits(dec: Decoder, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The logits of the decoder's own vocab columns: all V+1 of them, or on
+    a vocab-sharded decoder the rank's block, whose input ``out`` (the same
+    on every rank) takes its gradient summed over the tp group."""
+    tp = shard_of(dec)
+    return dense(dec.logit, out if tp is None else copy_to_tp(out, tp), dtype)
+
+
+def whole_logits(dec: Decoder, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The logits [..., V+1] of the core output: on a vocab-sharded decoder
+    the ranks' blocks gathered over the tp group."""
+    logits = local_logits(dec, out, dtype)
+    tp = shard_of(dec)
+    return logits if tp is None else gather_from_tp(logits, tp, -1)
 
 
 def step_logits(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
@@ -631,7 +668,7 @@ def step_logits(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, DecoderState]:
     """One decode step: token ids -> logits [B, N, V+1]."""
     out, state = step_core_out(dec, cfg, it, ctxs, pre, state, dtype, train, gen)
-    return dense(dec.logit, out, dtype), state
+    return whole_logits(dec, out, dtype), state
 
 
 def step_logprobs(dec: Decoder, cfg: Config, it: torch.Tensor, ctxs: Contexts,
@@ -701,13 +738,27 @@ def teacher_forced_nll(dec: Decoder, cfg: Config, ctxs: Contexts, seq: torch.Ten
     language_model_loss(decoder_forward(...), seq[..., 1:], masks[..., 1:])
     without storing the [B, N, L, V+1] logits.  The logit head runs once
     after the loop under torch.utils.checkpoint, so the backward recomputes
-    it and the saved residual is the [B, N, L, C] core outputs."""
+    it and the saved residual is the [B, N, L, C] core outputs.  On a
+    vocab-sharded decoder each rank computes the logits of its columns and
+    the loss takes the max, the sum of exponentials and the targets'
+    logits over the tp group (parallel.tensor.vocab_nll); the backward
+    recomputes the rank's block only."""
     outs = decoder_forward_core_outputs(dec, cfg, ctxs, seq, dtype, train, gen)
     steps = outs.shape[2]
     targets = seq[:, :, 1:steps + 1].long()
     m = masks[:, :, 1:steps + 1].float()
+    tp = shard_of(dec)
+    if tp is not None:
+        return checkpoint(_nll_head_tp, dec.logit.weight, dec.logit.bias, copy_to_tp(outs, tp),
+                          targets, m, dtype, tp, use_reentrant=False)
     return checkpoint(_nll_head, dec.logit.weight, dec.logit.bias, outs, targets, m, dtype,
                       use_reentrant=False)
+
+
+def _nll_head_tp(w: torch.Tensor, b: torch.Tensor, outs: torch.Tensor, targets: torch.Tensor,
+                 m: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
+    logits = matmul(round_to(outs, dtype), w.t(), dtype) + b  # [B, N, L, V1/tp]
+    return vocab_nll(logits, targets, m, tp)
 
 
 def sort_gate(cfg: Config, ctxs: Contexts) -> bool:
@@ -753,15 +804,21 @@ def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
                            temperature: float = 1.0,
                            sample_gen: Optional[torch.Generator] = None,
                            train: bool = False, gen: Optional[torch.Generator] = None,
-                           forced: Optional[torch.Tensor] = None
+                           forced: Optional[torch.Tensor] = None,
+                           early_exit: Optional[bool] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy or multinomial decode of a [B]-video Contexts batch with one
     batch-wide early exit: the loop stops once no real proposal of any
     video is unfinished, which costs one host sync per step
-    (``decoder_sample_batched.host_syncs``).
+    (``decoder_sample_batched.host_syncs``).  ``early_exit`` (default
+    runtime.decode_early_exit_batched; the per-video callers pass
+    runtime.decode_early_exit) False runs the fixed-L loop without the
+    syncs; the outputs are the same, since the steps past the exit write
+    zeros either way.
 
     Greedy eval-mode decode selects tokens with the streaming greedy head
-    (kernel 2) and window-sorts the proposals when ``sort_gate`` holds.
+    (kernel 2, unless runtime.use_pallas_head is False) and window-sorts
+    the proposals when ``sort_gate`` holds.
     Otherwise the head is the plain logits path: the argmax, or with
     ``greedy=False`` a draw from softmax(logits / temperature) taken from
     ``sample_gen``; the recorded logp is the untempered logit[tok] -
@@ -791,15 +848,20 @@ def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
     B, N = ctxs.prop_mask.shape
     L = cfg.decoder.CG_seq_length
     dev = ctxs.prop_mask.device
+    if early_exit is None:
+        early_exit = bool(cfg.runtime.decode_early_exit_batched)
+    tp = shard_of(dec)
 
-    stream_head = greedy and not train and forced is None
+    greedy_eval = greedy and not train and forced is None
+    stream_head = greedy_eval and bool(cfg.runtime.use_pallas_head)
     inv = None
-    if stream_head and sort_gate(cfg, ctxs):
+    if greedy_eval and sort_gate(cfg, ctxs):
         ctxs, inv = sort_ctxs_by_window(ctxs)
     pre_att = precompute_attention(dec, cfg, ctxs, dtype)
     state = init_state(dec, cfg, ctxs, N, dtype)
     if stream_head:
-        head_w, head_b = prepare_head(dec.logit, dtype)  # once, outside the loop
+        # once, outside the loop; on a vocab-sharded decoder the rank's block
+        head_w, head_b = prepare_head(dec.logit, dtype)
 
     it = torch.zeros(B, N, dtype=torch.int32, device=dev)  # <bos> == 0
     out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype, train, gen)
@@ -811,9 +873,15 @@ def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
     for t in range(L):
         if stream_head:
             tok, mx, lse = greedy_head(out.reshape(B * N, -1), head_w, head_b)
+            if tp is not None:
+                tok, mx, lse = combine_heads(tok, mx, lse, tp, head_w.shape[0])
             logp = mx - lse
+        elif forced is not None and tp is not None:
+            # the replay's logps without gathering the logits
+            tok = forced[:, :, t].reshape(B * N).long()
+            logp = vocab_logp(local_logits(dec, out, dtype).reshape(B * N, -1), tok, tp)
         else:
-            logits = dense(dec.logit, out, dtype).reshape(B * N, -1)
+            logits = whole_logits(dec, out, dtype).reshape(B * N, -1)
             lse = torch.logsumexp(logits, dim=-1)
             if forced is not None:
                 tok = forced[:, :, t].reshape(B * N).long()
@@ -832,7 +900,7 @@ def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
         decoder_sample_batched.steps += 1
         if t == L - 1:
             break
-        if forced is None:
+        if forced is None and early_exit:
             decoder_sample_batched.host_syncs += 1
             if not bool(active.any()):
                 break
@@ -863,8 +931,9 @@ def decoder_sample(dec: Decoder, cfg: Config, ctxs: Contexts,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy or multinomial decode of one video's proposals (echr_tpu's
     decoder_sample): decoder_sample_batched on a batch of one, so the
-    batch-wide early exit is the video's own, and greedy eval-mode decode
-    sorts by window and takes kernel 2 at R = N rows.  ``forced_tokens``
+    batch-wide early exit is the video's own (runtime.decode_early_exit
+    False: the fixed-L loop), and greedy eval-mode decode sorts by window
+    and takes kernel 2 at R = N rows.  ``forced_tokens``
     [N, L] replays a rollout over all L steps.  Bucket-padding rows decode
     from their [0, 1) windows and are not zeroed, as in echr_tpu; the
     callers cut them.
@@ -872,5 +941,6 @@ def decoder_sample(dec: Decoder, cfg: Config, ctxs: Contexts,
     Returns (seq [N, L], logps [N, L], active [L])."""
     forced = None if forced_tokens is None else forced_tokens[None]
     seq, logps, active = decoder_sample_batched(dec, cfg, one_video_ctxs(ctxs), dtype, greedy,
-                                                temperature, sample_gen, train, gen, forced)
+                                                temperature, sample_gen, train, gen, forced,
+                                                bool(cfg.runtime.decode_early_exit))
     return seq[0], logps[0], active[0]

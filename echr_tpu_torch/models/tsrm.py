@@ -5,6 +5,13 @@ affinity of pairwise relative-position sinusoid embeddings (the fST modes
 combine the two), with no V projection and a grouped 1x1 output
 projection.  Every function takes any leading batch dims before the
 event axis N; padded events (prop_mask == 0) are masked out as keys.
+
+Head parallelism (echr_tpu/parallel/mesh.py:99-142): a TSRM whose output
+projection ``parallel.mesh.shard_modules`` cut over its heads holds the
+rows of heads [m g/tp, (m+1) g/tp) and a ``TPShard`` (``p.tp``); each rank
+projects its heads' rows, and the outputs are gathered over the tp group
+along the feature axis.  The other weights, and the relation weights of
+every head, stay replicated.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from torch import nn
 from echr_tpu_torch.config import Config
 from echr_tpu_torch.ops.core import Dense, dense, dropout, parameter, round_to, uniform_
 from echr_tpu_torch.ops.masked import masked_softmax
+from echr_tpu_torch.parallel.tensor import copy_to_tp, gather_from_tp, shard_of
 
 
 class GroupedProjection(nn.Module):
@@ -121,9 +129,19 @@ def tsrm_forward(p: TSRM, feats: torch.Tensor, soi: torch.Tensor, prop_mask: tor
     att = masked_softmax(weighted, key_mask, dim=-1)
     att = dropout(att, 0.3, gen, train)
 
+    tp = shard_of(p)
+    if tp is not None:
+        # the rank's heads: their relation weights and values take their
+        # gradient summed over the tp group
+        g = g // tp.tp
+        att = copy_to_tp(att, tp)[..., tp.m * g:(tp.m + 1) * g, :]
+        soi_feats = copy_to_tp(soi_feats, tp)
     # heads attend over the raw embedded values (no V projection)
     head_out = torch.einsum("...qgk,...kd->...qgd", round_to(att, dtype),
                             round_to(soi_feats, dtype))  # [..., N, g, d]
-    w = p.out.weight.reshape(g, f.d_o // g, f.d_feats)
+    w = p.out.weight.reshape(g, f.d_o // f.n_head, f.d_feats)
     out = torch.einsum("...qgd,god->...qgo", round_to(head_out, dtype), w)
-    return out.reshape(*lead, N, f.d_o) + p.out.bias
+    out = out.reshape(*lead, N, g * (f.d_o // f.n_head))
+    if tp is not None:
+        out = gather_from_tp(out, tp, -1)
+    return out + p.out.bias

@@ -20,13 +20,19 @@ decode.  The routes for the scores, as in the reference:
     caller takes the unfused route, whose AV follows the compute dtype.
 
 The port's kernels take any N, T and Hatt, so the route does not depend
-on the reference's N % 8, T % 128 and Hatt % 128 gates.  The grouped
-route is not ported.
+on the reference's N % 8, T % 128 and Hatt % 128 gates.
+
+The grouped route (echr_tpu/ops/attention.py:74-154, ``grouping=``): each
+group of ng proposals, sorted by window start, scores one shared [tg, Hatt]
+slice of the projected frames instead of all T.  It is plain PyTorch, as
+echr_tpu's is plain jnp, and, as there, infrastructure that no decoder
+calls.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -63,6 +69,76 @@ def _additive_scores(w: torch.Tensor, b: torch.Tensor, pre_att: torch.Tensor,
     return (matmul(round_to(y, dtype), w.t(), dtype) + b)[..., 0]
 
 
+def grouped_tg_required(soi, n_group: int) -> int:
+    """The slice length a grouped step needs for these windows, [N, 2] or
+    [B, N, 2] (the largest over the videos), in groups of n_group
+    proposals sorted by start: the longest span of a group.  A grouped
+    step is exact only with tg at least this.  Raises where n_group does
+    not divide N, as grouped_attention_precompute needs."""
+    soi = np.asarray(soi)
+    if soi.ndim == 3:
+        return max(int(grouped_tg_required(x, n_group)) for x in soi)
+    if len(soi) % n_group != 0:
+        raise ValueError(f"n_group={n_group} must divide the proposal count {len(soi)}")
+    order = np.argsort(soi[:, 0], kind="stable")
+    gs = soi[order, 0].reshape(-1, n_group)
+    ge = soi[order, 1].reshape(-1, n_group)
+    return int((ge.max(1) - gs.min(1)).max(initial=1))
+
+
+def grouped_attention_precompute(clip_mask: torch.Tensor, tg: int, ng: int
+                                 ) -> Dict[str, torch.Tensor]:
+    """The grouping of each video's windows, once per decode: clip_mask
+    [B, N, T] (contiguous windows) -> the start-sorted proposal order
+    [B, N] and its inverse, each group's slice start [B, N/ng] (clamped
+    into [0, T - tg]) and the windows relative to the slices, rel
+    [B, N/ng, ng, tg].  ng must divide N; the caller checks tg against
+    grouped_tg_required."""
+    B, N, T = clip_mask.shape
+    idx = torch.arange(T, device=clip_mask.device)
+    start = torch.where(clip_mask > 0, idx, T).amin(dim=-1)  # [B, N]
+    end = torch.where(clip_mask > 0, idx + 1, 0).amax(dim=-1)
+    order = torch.argsort(start, dim=-1, stable=True)
+    inv_order = torch.argsort(order, dim=-1, stable=True)
+    g = N // ng
+    gs = torch.gather(start, 1, order).reshape(B, g, ng)
+    ge = torch.gather(end, 1, order).reshape(B, g, ng)
+    slice_start = torch.clamp(gs.amin(dim=-1), 0, T - tg)  # [B, g]
+    pos = torch.arange(tg, device=clip_mask.device)
+    rel_lo = (gs - slice_start[..., None])[..., None]
+    rel_hi = (ge - slice_start[..., None])[..., None]
+    rel = ((pos >= rel_lo) & (pos < rel_hi)).float()  # [B, g, ng, tg]
+    return {"order": order, "inv_order": inv_order, "slice_start": slice_start, "rel": rel}
+
+
+def grouped_attention_step(p: AdditiveAttention, h: torch.Tensor, feats: torch.Tensor,
+                           pre_att: torch.Tensor, grp: Dict[str, torch.Tensor],
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The windowed attention step through group-shared slices: each group
+    of ng start-sorted proposals scores the tanh over one [tg, Hatt] slice
+    of pre_att, takes the masked softmax over its windows and the weighted
+    sum of the same slice of feats.  h [B, N, Hq], feats [B, T, D],
+    pre_att [B, T, Hatt] -> att_res [B, N, D]; equal to the full-T masked
+    step where every window fits its group's slice."""
+    B, N = h.shape[:2]
+    _, g, ng, tg = grp["rel"].shape
+    att_h = dense(p.h2att, h, dtype)  # [B, N, Hatt]
+    ah = torch.gather(att_h, 1, grp["order"][..., None].expand(att_h.shape))
+    ah = ah.reshape(B, g, ng, -1)
+    frames = grp["slice_start"][..., None] + torch.arange(tg, device=h.device)  # [B, g, tg]
+
+    def rows(x):  # [B, T, C] -> the groups' slices [B, g, tg, C]
+        flat = frames.reshape(B, g * tg, 1).expand(B, g * tg, x.shape[-1])
+        return torch.gather(x, 1, flat).reshape(B, g, tg, x.shape[-1])
+
+    pslice, fslice = rows(pre_att), rows(feats)
+    y = torch.tanh(pslice[:, :, None] + ah[:, :, :, None])  # [B, g, ng, tg, Hatt]
+    scores = dense(p.alpha_net, y, dtype)[..., 0]
+    w = masked_softmax(scores, grp["rel"], dim=-1)
+    att = matmul(round_to(w, dtype), round_to(fslice, dtype), dtype).reshape(B, N, -1)
+    return torch.gather(att, 1, grp["inv_order"][..., None].expand(att.shape))
+
+
 def additive_attention_step(
     p: AdditiveAttention,
     h: torch.Tensor,  # [B, N, Hq]
@@ -73,10 +149,15 @@ def additive_attention_step(
     use_kernel: bool = False,
     remat: bool = False,
     fused: bool = False,
+    grouping: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One attention step for all proposals: (att_res [B, N, D],
-    weights [B, N, T], or None from the fused route).  ``remat`` selects
-    the training routes, ``fused`` kernel 5 (see the module docstring)."""
+    weights [B, N, T], or None from the fused and the grouped routes).
+    ``remat`` selects the training routes, ``fused`` kernel 5, ``grouping``
+    (from grouped_attention_precompute) the grouped route (see the module
+    docstring)."""
+    if grouping is not None:
+        return grouped_attention_step(p, h, feats, pre_att, grouping, dtype), None
     att_h = dense(p.h2att, h, dtype)  # [B, N, Hatt]
     alpha = p.alpha_net
     if use_kernel and fused and not remat and dtype == torch.bfloat16:

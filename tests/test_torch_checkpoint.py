@@ -417,15 +417,21 @@ def test_parse_config_matches_jax_on_experiment_scripts(script):
     assert config.parse_config(argv) == config.Config.from_json(want.to_json())
 
 
+KEPT_RUNTIME_KNOBS = ("mesh_shape", "preempt_check_every", "use_pallas_head",
+                      "decode_early_exit", "scst_resident_vjp")
+
+
 @pytest.mark.parametrize("argv", [["--mesh_shape", "2", "4"], ["--preempt_check_every", "4"],
-                                  ["--use_pallas_head"]])
+                                  ["--use_pallas_head", "0"], ["--spmd_mode", "shard_map"],
+                                  ["--decode_early_exit", "0"], ["--scst_resident_vjp", "1"]])
 def test_parse_config_refuses_dropped_runtime_knobs(argv):
-    """A flag for a runtime knob the port dropped raises, naming it; the
-    data-parallel knobs (mesh_shape, preempt_check_every) parse as
-    echr_tpu's do."""
+    """A flag for a runtime knob the port dropped (a TPU or XLA knob, or a
+    field echr_tpu does not read) raises, naming it; the knobs the port
+    keeps (the layout, the preemption check, kernel 2's switch, the
+    per-video decode loop, resident-graph SCST) parse as echr_tpu's do."""
     want = jconfig.parse_config(argv)  # echr_tpu takes it
     name = argv[0][2:]
-    if name in ("mesh_shape", "preempt_check_every"):
+    if name in KEPT_RUNTIME_KNOBS:
         got = config.parse_config(argv)
         assert getattr(got.runtime, name) == getattr(want.runtime, name) != getattr(
             config.RuntimeConfig(), name)
@@ -435,7 +441,10 @@ def test_parse_config_refuses_dropped_runtime_knobs(argv):
     assert set(config._DROPPED_RUNTIME_FLAGS) == (
         {f.name for f in dataclasses.fields(jconfig.RuntimeConfig)}
         - {f.name for f in dataclasses.fields(config.RuntimeConfig)})
-    assert not {"mesh_shape", "preempt_check_every"} & set(config._DROPPED_RUNTIME_FLAGS)
+    assert not set(KEPT_RUNTIME_KNOBS) & set(config._DROPPED_RUNTIME_FLAGS)
+    assert set(config._DROPPED_RUNTIME_FLAGS) == {
+        "donate_step_args", "mesh_axis_names", "pallas_decode_t_max",
+        "pallas_decode_t_max_sorted", "param_dtype", "spmd_mode"}
 
 
 # ----------------------------------------------------------------- (i) the CLIs

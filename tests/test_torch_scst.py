@@ -147,12 +147,10 @@ def _jax_rl(cfg, tap, cg, batch, phase, gen_seq, reward):
     (loss, (m, outs)), (tg, cgg) = jax.jit(
         jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))(tap, cg)
     opt = jsteps.make_optimizer(cfg)
-    new_tap = tap
-    if phase in ("tap_cg", "gt_tap_cg"):
-        upd, _ = opt.update(tg, opt.init(tap), tap)
-        new_tap = optax.apply_updates(tap, upd)
-    upd, _ = opt.update(cgg, opt.init(cg), cg)
-    new_cg = optax.apply_updates(cg, upd)
+    # one jitted Adam step a tree: op by op, each leaf's shape compiles anew
+    adam = jax.jit(lambda g, p: optax.apply_updates(p, opt.update(g, opt.init(p), p)[0]))
+    new_tap = adam(tg, tap) if phase in ("tap_cg", "gt_tap_cg") else tap
+    new_cg = adam(cgg, cg)
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     return (float(loss), {k: float(v) for k, v in m.items()}, to_np(outs), to_np(tg),
             to_np(cgg), to_np(new_tap), to_np(new_cg))

@@ -93,16 +93,20 @@ def _jax_run(cfg, tap, cg, batch, phase, n_steps):
     if n_steps == 0:
         return jax.jit(loss_fn)(tap, cg)[0], None, None
     vg = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))
+
+    @jax.jit  # one program a tree: op by op, each leaf's shape compiles anew
+    def adam(g, s, p):
+        upd, s = opt.update(g, s, p)
+        return optax.apply_updates(p, upd), s
+
     out = []
     for _ in range(n_steps):
         (loss, m), (tg, cgg) = vg(tap, cg)
         out.append((float(loss), {k: float(v) for k, v in m.items()}, to_np(tg), to_np(cgg)))
         if phase in jsteps.UPDATES_TAP:
-            upd, tap_opt = opt.update(tg, tap_opt, tap)
-            tap = optax.apply_updates(tap, upd)
+            tap, tap_opt = adam(tg, tap_opt, tap)
         if phase in jsteps.UPDATES_CG:
-            upd, cg_opt = opt.update(cgg, cg_opt, cg)
-            cg = optax.apply_updates(cg, upd)
+            cg, cg_opt = adam(cgg, cg_opt, cg)
     return out, to_np(tap), to_np(cg)
 
 
