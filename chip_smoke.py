@@ -6,8 +6,8 @@ decoder family's other cores, its on-disk data, external proposals,
 reference .pth import and serve CLI, its synchronous and pipelined train
 loops, its per-video eval, decode and SCST paths, its data- and
 tensor-parallel training, its sequence ring, resident-graph SCST, grouped
-attention and decode switches once on one NVIDIA GPU, and hold every
-kernel against its plain PyTorch version.
+attention, decode switches and host library once on one NVIDIA GPU, and
+hold every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -240,10 +240,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      wall seconds;
   28. the train loops: engine.train.train on train_cfg() (B=32, N=64,
      bf16, dropout on), the synchronous and the pipelined loop in turns
-     (sync, pipelined, pipelined, sync, twice), 8 steps a run, their
-     means, medians and the neighbouring pairs the pipelined run won, then
-     each once
-     with transfer_dtype bfloat16: ms/step and videos/s over steps 2-8
+     (sync, pipelined, pipelined, sync), 6 steps a run, their means,
+     medians and the neighbouring pairs the pipelined run won, then each
+     once
+     with transfer_dtype bfloat16: ms/step and videos/s over steps 2-6
      from CUDA events recorded after each step (the device's completion
      times), timing_out's loader, compress, collate, put, step and fetch
      seconds, the bytes sent to the device a group, peak memory, and
@@ -321,9 +321,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      early-exit sync in the fixed loops), and at f32 on phase 5's weights
      with the window sort off, greedy with runtime.use_pallas_head False
      (kernel 2 never launched, kernel 1 as often as with it, the same
-     sentences, their confidences within HEAD_SWITCH_TOL a token).
+     sentences, their confidences within HEAD_SWITCH_TOL a token);
+  33. the host library (echr_tpu_torch/native, C++ built by g++ at first
+     use): available() must hold.  (a) the first 64 training videos of
+     train_cfg()'s split through make_batch with the C++ grid and under
+     native.force_numpy(): every field bit-equal; iou_grid alone on their
+     grids (T <= 256, K = 256), C++ against numpy in turns; (b) phase 6's
+     slice captioned (on, off, off, on) x 2: the same captions, captions/s,
+     render_captions' calls; a chunk's 4096 captions rendered alone in
+     turns; (c) phase 18's greedy eval with val losses, unscored, (on,
+     off, off, on) x 2: the same predictions JSON and val losses, eval
+     videos/s, the host calls; one pass with NMS 0.8 keeping its score grids, and
+     nms_temporal on them in turns (the same picks); (d) phase 27's corpus
+     and external proposals, the SOTA_TEP eval from disk with NMS 0.8,
+     every external_proposals_nms call in turns (the same picks); (e)
+     phase 28's two loops, 6 steps a run, each on, off, off, on: ms/step,
+     the loader and collate seconds, and the C++ grid's calls (above zero
+     on).  Host times carry the card's name and power limit and the host
+     CPU's model.
 
-The line before the last is the kernels' JSON record; the last line is
+The lines before the last are the host library's JSON record and then the
+kernels'; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
@@ -3533,8 +3551,8 @@ def phase_real_data(card):
     return launches, k1_rec, k2_rec, steps_rec
 
 
-PIPE_STEPS, PIPE_PARITY_STEPS = 8, 6  # phase 28: steps a run; steps of the f32 parity runs
-PIPE_ROUNDS = 2  # phase 28: rounds of (sync, pipelined, pipelined, sync)
+PIPE_STEPS, PIPE_PARITY_STEPS = 6, 6  # phase 28: steps a run; steps of the f32 parity runs
+PIPE_ROUNDS = 1  # phase 28: rounds of (sync, pipelined, pipelined, sync)
 TRACE_FROM, TRACE_STEPS = 3, 3  # phase 28: the traced run's first traced step, traced steps
 HEAD_ROWS = (64, 128, 256, 1024)  # phase 29: kernel 2 at per-video decode rows
 PV_SCST_STEPS = 3  # phase 29: SCST steps at batch_size 1
@@ -3556,7 +3574,7 @@ def _step_clock(train_mod):
     return events, clocked
 
 
-def pipeline_run(card, cfg, pipelined, steps, tag, trace_dir=None, dev="cuda"):
+def pipeline_run(card, cfg, pipelined, steps, tag, trace_dir=None, dev="cuda", phase=28):
     """One train() run of phase 28 on ``cfg`` with runtime.train_pipeline
     ``pipelined``: ms/step and videos/s over steps 2-``steps`` from the
     device's step events, timing_out's sections, the bytes a group sent to
@@ -3603,7 +3621,7 @@ def pipeline_run(card, cfg, pipelined, steps, tag, trace_dir=None, dev="cuda"):
            "bytes_per_group": timing["put_bytes"] / timing["put_groups"],
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
            **{k: timing[k] for k in ("loader", "compress", "collate", "put", "step", "fetch")}}
-    print(f"[28] {tag}: {dt:.1f} ms/step, {rec['videos_per_s']:.2f} videos/s over steps 2-"
+    print(f"[{phase}] {tag}: {dt:.1f} ms/step, {rec['videos_per_s']:.2f} videos/s over steps 2-"
           f"{steps} (device step events); sections (s) "
           f"{ {k: round(rec[k], 3) for k in ('loader', 'compress', 'collate', 'put', 'step', 'fetch')} }; "
           f"{rec['bytes_per_group'] / 2**20:.2f} MiB to the device a group; peak device memory "
@@ -4899,6 +4917,338 @@ def phase_single_process(card, dev="cuda"):
     return {"scst_resident": resident, "decode_switches": switches}, grouped
 
 
+HOST_STEPS = PIPE_STEPS  # phase 33: steps a train run, each loop with the host library on and off
+HOST_NMS = 0.8  # phase 33: the NMS overlap of its eval passes (gettop1000_nms's default)
+HOST_ROUNDS = 2  # phase 33: rounds of (on, off, off, on) of its serving and eval passes
+
+
+def host_mode(mode):
+    """The host library "on" (its default) or "off" (force_numpy())."""
+    from echr_tpu_torch import native
+
+    return native.force_numpy() if mode == "off" else contextlib.nullcontext()
+
+
+def host_cpu():
+    """The host CPU's model name, as /proc/cpuinfo gives it, and its cores."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next(ln.split(":", 1)[1].strip() for ln in f if ln.startswith("model name"))
+    except (OSError, StopIteration):
+        model = "unknown"
+    return f"model {model}, {os.cpu_count()} cores"
+
+
+def host_turns(fns, inputs, same):
+    """Mean host ms a call of fns["on"](x) and fns["off"](x) over every x of
+    ``inputs``, timed in turns (on, off, off, on) with perf_counter.  Fails
+    unless same(on's output, off's output) holds for every x.  Returns
+    {"on": [ms, ms], "off": [ms, ms], "calls": len(inputs)}."""
+    times, outs = {"on": [], "off": []}, {}
+    for mode in ("on", "off", "off", "on"):
+        fn = fns[mode]
+        t0 = time.perf_counter()
+        got = [fn(x) for x in inputs]
+        times[mode].append((time.perf_counter() - t0) * 1e3 / len(inputs))
+        outs.setdefault(mode, got)
+    bad = sum(not same(a, b) for a, b in zip(outs["on"], outs["off"]))
+    if bad:
+        fail(f"[33] {bad} of {len(inputs)} host calls differ between C++ and numpy")
+    return {**times, "calls": len(inputs)}
+
+
+def host_train_batches(card):
+    """33(a): the first 2 x TRAIN_B training videos of train_cfg()'s split
+    through make_batch with the C++ grid and under force_numpy(): every
+    field bit-equal; then iou_grid alone on their grids (K = 256)."""
+    from echr_tpu_torch import native
+    from echr_tpu_torch.data import batcher, labels
+    from echr_tpu_torch.data.dataset import build_dataset
+
+    cfg = train_cfg()
+    ds = build_dataset(cfg)
+    grids = []
+    differ = []
+    with wrapped(labels, "iou_grid", lambda *a: native.active() and grids.append(a)):
+        for ix in ds.split_ix["train"][:2 * TRAIN_B]:
+            ex = ds.get_example(ix)
+            on, on_m = batcher.make_batch(ex, cfg, np.random.RandomState(ix), w1=ds.w1)
+            with native.force_numpy():
+                off, off_m = batcher.make_batch(ex, cfg, np.random.RandomState(ix), w1=ds.w1)
+            for name, x, y in zip(on._fields, on, off):
+                if not np.array_equal(x, y) or np.asarray(x).dtype != np.asarray(y).dtype:
+                    differ.append(f"{ex.vid}.{name}")
+            for name in ("iou_scores", "gts_index", "cg_select", "proposal_num"):
+                if not np.array_equal(getattr(on_m, name), getattr(off_m, name)):
+                    differ.append(f"{ex.vid}.{name}")
+    if differ or len(grids) != 2 * TRAIN_B:
+        fail(f"[33] training batches with the C++ grid and under force_numpy(): {differ[:8]} "
+             f"differ; {len(grids)} grids")
+    print(f"[33] (a) {len(grids)} training videos of train_cfg()'s split through make_batch, "
+          f"the C++ grid against force_numpy(): every VideoBatch field (tap_labels, tap_masks, "
+          f"the gts_* fields among them) and BatchMeta's iou_scores, gts_index, cg_select and "
+          f"proposal_num bit-equal")
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+    times = host_turns({"on": lambda a: native.iou_grid(*a),
+                        "off": lambda a: labels.iou_grid_numpy(*a)}, grids, same)
+    Ts = [g[1] for g in grids]
+    print(f"[33] iou_grid a video (T={min(Ts)}-{max(Ts)}, mean {np.mean(Ts):.1f}, "
+          f"K={grids[0][2]}, {np.mean([len(g[0]) for g in grids]):.1f} events on average), in "
+          f"turns over {len(grids)} videos: C++ {times['on'][0]:.3f}, {times['on'][1]:.3f} ms; "
+          f"numpy {times['off'][0]:.3f}, {times['off'][1]:.3f} ms; bit-equal [{card}; host "
+          f"{host_cpu()}]")
+    return times
+
+
+def host_serve(card, dev="cuda"):
+    """33(b): phase 6's slice (flagship_cfg(), seed 0, 64 requests of seed 2,
+    32 a chunk) captioned in turns with the host library on and off: the
+    same captions, captions/s, render_captions' calls; then each chunk's
+    rendering alone (32 calls of 128 rows: 4096 captions)."""
+    from echr_tpu_torch import native
+    from echr_tpu_torch import serve as serve_mod
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+    from echr_tpu_torch.utils import text
+
+    cfg = flagship_cfg()
+    gen = torch.Generator().manual_seed(0)
+    tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
+    vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
+    svc = serve_mod.CaptionService(cfg, tap, cg, vocab, device=dev, batch_videos=32,
+                                   topN=TOP_N)
+    reqs = requests(64, seed=2)
+    seqs = []
+    with wrapped(serve_mod, "decode_sequence", lambda v, seq: seqs.append(np.array(seq))):
+        svc.caption(reqs)  # warm-up, keeping the rows each video renders
+    rates, render_s, calls, caps = {"on": [], "off": []}, {"on": [], "off": []}, {}, []
+    order = ("on", "off", "off", "on") * HOST_ROUNDS
+    render = serve_mod.decode_sequence
+    spent = []
+
+    def timed_render(*args):
+        t0 = time.perf_counter()
+        try:
+            return render(*args)
+        finally:
+            spent.append(time.perf_counter() - t0)
+    for mode in order:
+        native.reset_counts()
+        spent.clear()
+        with host_mode(mode), patched(serve_mod, "decode_sequence", timed_render):
+            t0 = time.time()
+            res = svc.caption(reqs)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        calls.setdefault(mode, native.counts()["render_captions"])
+        n = sum(len(c) for c in res.values())
+        rates[mode].append(n / dt)
+        render_s[mode].append(sum(spent))
+        caps.append({vid: [(c.sentence, tuple(c.timestamp), c.proposal_score,
+                            c.sentence_confidence) for c in cs] for vid, cs in res.items()})
+    differ = [sum(a[v] != b[v] for v in a) for a, b in zip(caps, caps[1:])]
+    if any(differ) or not calls["on"] > 0:
+        fail(f"[33] serving: videos whose captions differ between neighbouring runs {differ}; "
+             f"render_captions calls {calls}")
+    seen = {"on": iter(rates["on"]), "off": iter(rates["off"])}
+    print(f"[33] (b) phase 6's slice, host library {', '.join(order)}: "
+          f"{[round(next(seen[m]), 1) for m in order]} captions/s ({n} captions, the same "
+          f"in every run); seconds in decode_sequence a pass on "
+          f"{[round(x, 4) for x in render_s['on']]}, off {[round(x, 4) for x in render_s['off']]}; "
+          f"render_captions calls {calls} [{card}]")
+    chunks = [seqs[:32], seqs[32:64]]
+    render = host_turns({"on": lambda ch: [text.decode_sequence(vocab, s) for s in ch],
+                         "off": lambda ch: [text.decode_sequence_numpy(vocab, s) for s in ch]},
+                        chunks, lambda a, b: a == b)
+    rows = sum(len(s) for s in chunks[0])
+    print(f"[33] render_captions a chunk of {rows} captions ({len(chunks[0])} calls, "
+          f"L={seqs[0].shape[1]}), in turns over {len(chunks)} chunks: C++ "
+          f"{render['on'][0]:.3f}, {render['on'][1]:.3f} ms; numpy {render['off'][0]:.3f}, "
+          f"{render['off'][1]:.3f} ms; equal strings [{card}; host {host_cpu()}]")
+    return {"captions_per_s": rates, "render_s_a_pass": render_s, "render_captions_calls": calls,
+            "render_ms_a_chunk": render}
+
+
+def host_eval(card, dev="cuda"):
+    """33(c): phase 18's greedy eval with val losses, unscored, in turns with
+    the host library on and off: the same predictions JSON and val losses,
+    eval videos/s; then one pass with NMS (HOST_NMS) keeping its score
+    grids, and nms_temporal alone on them, on and off."""
+    from echr_tpu_torch import native
+    from echr_tpu_torch.data.labels import anchor_mask
+    from echr_tpu_torch.engine import evaluate
+    from echr_tpu_torch.engine import proposals as P
+
+    cfg, tap, cg, ds, loader = eval_setup()
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False, "get_eval_loss": True}
+    run = functools.partial(evaluate.eval_split_batched, tap, cg, loader, cfg,
+                            flag_eval_what="tap_cg", batch_videos=EVAL_B, device=dev)
+    rates, calls, outs = {"on": [], "off": []}, {}, []
+    order = ("on", "off", "off", "on") * HOST_ROUNDS
+    grids = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            run(f"{tmp}/w.json", dict(kw, num_vids_eval=EVAL_B))  # warm-up
+            for i, mode in enumerate(order):
+                native.reset_counts()
+                with host_mode(mode):
+                    t0 = time.time()
+                    preds, _, losses = run(f"{tmp}/{i}.json", kw)
+                    dt = time.time() - t0
+                calls.setdefault(mode, native.counts())
+                rates[mode].append(len(preds) / dt)
+                with open(f"{tmp}/{i}.json") as f:
+                    outs.append((f.read(), losses))
+            native.reset_counts()
+            with wrapped(P, "top_proposals_nms", lambda pp, *a: grids.append(pp.copy())):
+                nms_preds, _, _ = run(f"{tmp}/nms.json", dict(kw, nms_threshold=HOST_NMS,
+                                                              get_eval_loss=False))
+            calls["nms_pass"] = native.counts()
+    finally:
+        loader.load_state(loader.state())  # stops and joins the prefetch threads
+    differ = [a[0] != b[0] or not np.array_equal(a[1], b[1]) for a, b in zip(outs, outs[1:])]
+    if any(differ) or not (calls["on"]["iou_grid"] > 0 and calls["on"]["render_captions"] > 0
+                           and calls["nms_pass"]["nms_temporal"] == len(grids) > 0):
+        fail(f"[33] eval: neighbouring passes' predictions JSON or val losses differ {differ}; "
+             f"host calls {calls}, {len(grids)} NMS grids")
+    seen = {"on": iter(rates["on"]), "off": iter(rates["off"])}
+    print(f"[33] (c) phase 18's greedy eval with val losses, unscored, host library "
+          f"{', '.join(order)}: {[round(next(seen[m]), 2) for m in order]} eval videos/s; "
+          f"predictions JSON ({len(preds)} videos) and val losses "
+          f"{np.round(outs[0][1][:3], 4).tolist()} the same in every pass; host calls {calls}; "
+          f"the NMS pass ({HOST_NMS}): {len(nms_preds)} videos, "
+          f"{sum(len(c) for c in nms_preds.values())} captions [{card}]")
+
+    props = []  # the anchors and scores as top_proposals_nms lays them out
+    for pp in grids:
+        n_idx, k_idx = np.nonzero(anchor_mask(*pp.shape) > 0)
+        props.append((np.stack([n_idx - k_idx, n_idx + 1], 1).astype(np.int64),
+                      pp[n_idx, k_idx].astype(np.float64)))
+    alone = host_turns(
+        {"on": lambda a: native.nms_temporal(*a, HOST_NMS, TOP_N).tolist(),
+         "off": lambda a: P.nms_temporal_numpy(*a, HOST_NMS, TOP_N)},
+        props, lambda a, b: a == b)
+    T, K = grids[0].shape
+    print(f"[33] nms_temporal a video (phase 18's score grids, T={T}, K={K}, "
+          f"{len(props[0][1])} anchors, overlap {HOST_NMS}, topN {TOP_N}), in turns over "
+          f"{len(grids)} videos: C++ {alone['on'][0]:.3f}, {alone['on'][1]:.3f} ms; numpy "
+          f"{alone['off'][0]:.3f}, {alone['off'][1]:.3f} ms; the same picks [{card}; host "
+          f"{host_cpu()}]")
+    return {"eval_videos_per_s": rates, "host_calls": calls, "nms_temporal_ms": alone}
+
+
+def host_sota(card, dev="cuda"):
+    """33(d): phase 27's corpus on disk and external proposals (the same
+    export and seed), the SOTA_TEP eval with NMS (HOST_NMS), unscored and
+    without val losses, keeping every external_proposals_nms call; then
+    those calls on and off."""
+    import shutil
+
+    from echr_tpu_torch import native
+    from echr_tpu_torch.data.export_disk import export_synthetic_corpus
+    from echr_tpu_torch.engine import evaluate
+    from echr_tpu_torch.engine import proposals as P
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    kept = []
+    try:
+        paths = export_synthetic_corpus(eval_cfg(), root, log_every=0)
+        sota_path = f"{root}/sota_proposals.json"
+        write_sota_json(paths, sota_path)
+        cfg, ds, loader, tap, cg = sota_loader(root, sota_path)
+        try:
+            native.reset_counts()
+            with wrapped(P, "external_proposals_nms", lambda *a: kept.append(a)):
+                preds, _, _ = evaluate.eval_split_batched(
+                    tap, cg, loader, cfg, f"{root}/p.json",
+                    {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False,
+                     "get_eval_loss": False, "nms_threshold": HOST_NMS},
+                    flag_eval_what="SOTA_TEP", batch_videos=EVAL_B, device=dev)
+            calls = native.counts()
+        finally:
+            loader.load_state(loader.state())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not (calls["nms_external"] == len(kept) > 0 and preds):
+        fail(f"[33] SOTA_TEP eval with NMS: host calls {calls}, {len(kept)} NMS calls kept, "
+             f"{len(preds)} videos")
+
+    def nms(a):
+        return P.external_proposals_nms(*a, nms_overlap=HOST_NMS, topN=1000)
+
+    def nms_off(a):
+        with native.force_numpy():
+            return nms(a)
+    times = host_turns({"on": nms, "off": nms_off}, kept, lambda a, b: a == b)
+    picked = np.mean([len(nms(a)[2]) for a in kept])
+    print(f"[33] (d) the SOTA_TEP eval from disk with NMS {HOST_NMS}: {len(preds)} videos, host "
+          f"calls {calls}; external_proposals_nms a video ({len(kept[0][0])} proposals, "
+          f"{picked:.1f} picked on average), in turns over {len(kept)} videos: C++ "
+          f"{times['on'][0]:.4f}, {times['on'][1]:.4f} ms; numpy {times['off'][0]:.4f}, "
+          f"{times['off'][1]:.4f} ms; the same picks [{card}; host {host_cpu()}]")
+    return {"host_calls": calls, "external_proposals_nms_ms": times}
+
+
+def host_train_loops(card, dev="cuda"):
+    """33(e): phase 28's synchronous and pipelined loops (train_cfg(), B=32,
+    bf16, dropout on), HOST_STEPS steps a run, each loop with the host
+    library on, off, off, on: ms/step, the loader and collate seconds, and
+    the C++ grid's calls (above zero on).  Returns the runs and kernels 3
+    and 4's launches."""
+    from echr_tpu_torch import native
+
+    cfg = train_cfg()
+    runs = {f"{loop}_{mode}": [] for loop in ("sync", "pipelined") for mode in ("on", "off")}
+    launches = {"attention_scores_dense": 0, "attention_scores_bwd": 0}
+    for loop in ("sync", "pipelined"):
+        for mode in ("on", "off", "off", "on"):
+            native.reset_counts()
+            with host_mode(mode):
+                _, rec = pipeline_run(card, cfg, loop == "pipelined", HOST_STEPS,
+                                      f"{loop}, host library {mode}", dev=dev, phase=33)
+            rec["iou_grid_calls"] = native.counts()["iou_grid"]
+            runs[f"{loop}_{mode}"].append(rec)
+            for k, v in rec["launches"].items():
+                launches[k] += v
+    if not all(r["iou_grid_calls"] > 0 for k, v in runs.items() if k.endswith("_on") for r in v):
+        fail(f"[33] a training run with the host library on made no C++ grid")
+    keys = ("ms_per_step", "loader", "collate")
+    summary = {name: {k: [round(r[k], 3) for r in v] for k in keys + ("iou_grid_calls",)}
+               for name, v in runs.items()}
+    for loop in ("sync", "pipelined"):
+        on, off = summary[f"{loop}_on"], summary[f"{loop}_off"]
+        print(f"[33] (e) the {loop} loop, {HOST_STEPS} steps a run, host library on / off "
+              f"(on, off, off, on): ms/step {on['ms_per_step']} / {off['ms_per_step']}, "
+              f"loader s {on['loader']} / {off['loader']}, collate s {on['collate']} / "
+              f"{off['collate']}; C++ grids {on['iou_grid_calls']} / {off['iou_grid_calls']} "
+              f"[{card}]")
+    return summary, launches
+
+
+def phase_host_native(card, dev="cuda"):
+    """Phase 33: the host library (echr_tpu_torch/native) built, used on the
+    train, eval, serve and SOTA_TEP paths, equal on and off, and timed.
+    Returns (its record, kernels 3 and 4's launches in its train runs)."""
+    from echr_tpu_torch import native
+
+    t_phase = time.time()
+    if not native.available():
+        fail("[33] the host library is not available")
+    so = native.library_path()
+    print(f"[33] host library {so.relative_to(native.BUILD_DIR.parent.parent)} built and "
+          f"loaded; host CPU {host_cpu()}")
+    rec = {"card": card, "host_cpu": host_cpu(), "available": True,
+           "iou_grid_ms": host_train_batches(card)}
+    rec["serve"] = host_serve(card, dev)
+    rec["eval"] = host_eval(card, dev)
+    rec["sota_eval"] = host_sota(card, dev)
+    rec["train_loops"], launches = host_train_loops(card, dev)
+    rec["phase_wall_s"] = time.time() - t_phase
+    print(f"[33] phase wall {rec['phase_wall_s']:.1f} s [{card}]")
+    return rec, launches
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -4963,6 +5313,7 @@ def main():
     dp = phase_data_parallel(card)
     tp_launches, head["vocab_block"] = phase_tensor_parallel(card)
     single, windowed["grouped_attention_by_input"] = phase_single_process(card)
+    host_native, host_launches = phase_host_native(card)
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, fused, windowed, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -5012,7 +5363,8 @@ def main():
                            "scst_per_video": pervideo["scst_per_video"][k],
                            **{name: n[k] for name, n in dp.items()},
                            "tensor_parallel": tp_launches[k],
-                           "scst_resident_and_replay": single["scst_resident"][k]}
+                           "scst_resident_and_replay": single["scst_resident"][k],
+                           "host_native_train_loops": host_launches[k]}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",
@@ -5056,6 +5408,7 @@ def main():
                      or m.startswith(("jax.", "echr_tpu.", "experiments.")))
     if foreign:
         fail(f"imported {foreign[:5]}")
+    print(json.dumps({"host_native": host_native}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,10 @@ port is held against (tests/test_torch_*.py).  Module names mirror
   config.py, data/, utils/ — the port's own copies of echr_tpu's host code:
                 the Config tree, the datasets, batcher and loader, and
                 caption rendering
+  native/     — the host library, echr_tpu/native's counterpart: the IoU
+                label grid, the two NMS and caption rendering in C++ (g++ at
+                first use, ctypes), with force_numpy() for their numpy
+                versions
   losses.py   — the training criteria
   bridge.py   — JAX param trees (numpy) <-> port modules
   serve.py    — CaptionService, batched greedy and beam serving

@@ -1,10 +1,10 @@
 """Host-side label synthesis for temporal action proposals
-(echr_tpu/data/labels.py), the port's numpy copy.
+(echr_tpu/data/labels.py), the port's copy.
 
 The reference builds a dense [T, K] IoU matrix between every anchor
 ``(t-k-1, t]`` and every ground-truth event with a Python triple loop
-(reference: dataloader.py:320-365); here the grid is one numpy broadcast,
-with the reference's semantics:
+(reference: dataloader.py:320-365); here the grid is a C++ loop or one
+numpy broadcast, with the reference's semantics:
 
   * the +-0.01 nudge applied to GT boundaries (dataloader.py:271-272),
   * the ``>=`` running-max tie-break: the *last* GT achieving the max IoU
@@ -12,8 +12,10 @@ with the reference's semantics:
   * Python-2 ``round()`` (half away from zero) in timestamp conversion
     (dataloader.py:292-296).
 
-echr_tpu's optional C++ grid is not copied: the numpy grid is its
-reference and gives the same values.
+``iou_grid`` runs the C++ grid of echr_tpu_torch/native wherever it is
+available, as echr_tpu runs its own (echr_tpu/data/labels.py:121-124);
+``iou_grid_numpy`` is its numpy version, bit-equal
+(tests/test_torch_native.py).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import math
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from echr_tpu_torch import native
 
 
 def _py2_round(x: float) -> int:
@@ -65,7 +69,15 @@ def anchor_mask(nfeats: int, K: int) -> np.ndarray:
 
 def iou_grid(featstamps: Sequence[Sequence[int]], nfeats: int, K: int):
     """Dense anchor/GT IoU grid (reference: dataloader.py:350-357):
-    (iou_scores [T, K] f32, gts_index [T, K] f32, tap_masks [T, K] f32)."""
+    (iou_scores [T, K] f32, gts_index [T, K] f32, tap_masks [T, K] f32),
+    from the C++ grid where native.active(), else from iou_grid_numpy."""
+    if native.active():
+        return native.iou_grid(featstamps, nfeats, K)
+    return iou_grid_numpy(featstamps, nfeats, K)
+
+
+def iou_grid_numpy(featstamps: Sequence[Sequence[int]], nfeats: int, K: int):
+    """iou_grid as one numpy broadcast over [T, K, G]."""
     T = int(nfeats)
     mask = anchor_mask(T, K)
     G = len(featstamps)

@@ -1,15 +1,20 @@
 """Host-side proposal selection (echr_tpu/engine/proposals.py), the port's
-numpy copy: score-threshold top-N selection over the [T, K] anchor grid,
-greedy temporal NMS (reference: eval_utils.py:259-331), the external
-proposals' NMS (:230-256) and the top-10 reranking (:334-345), with the
-reference's order and tie-breaks.  echr_tpu's optional C++ NMS is not
-copied: the numpy loops are its reference and select the same proposals.
+copy: score-threshold top-N selection over the [T, K] anchor grid, greedy
+temporal NMS (reference: eval_utils.py:259-331), the external proposals'
+NMS (:230-256) and the top-10 reranking (:334-345), with the reference's
+order and tie-breaks.  The two NMS run the C++ loops of
+echr_tpu_torch/native wherever they are available, as echr_tpu runs its
+own (echr_tpu/engine/proposals.py:78-81, :127-130); ``nms_temporal_numpy``
+and ``nms_external_numpy`` are their numpy versions and pick the same
+proposals (tests/test_torch_native.py).
 """
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+from echr_tpu_torch import native
 
 
 def top_proposals(pred_proposals: np.ndarray, tap_masks: np.ndarray,
@@ -52,19 +57,10 @@ def top_proposals_nms(pred_proposals: np.ndarray, tap_masks: np.ndarray,
     prop_gts = (cg_gts[n_idx, k_idx].astype(np.int64)
                 if cg_gts is not None and len(cg_gts) else None)
 
-    t1, t2 = props[:, 0].astype(np.float64), props[:, 1].astype(np.float64)
-    area = t2 - t1 + 1.0
-    ind = np.argsort(scores, kind="stable")
-    pick = []
-    while len(ind) > 0 and len(pick) < topN:
-        i = ind[-1]
-        pick.append(i)
-        ind = ind[:-1]
-        tt1 = np.maximum(t1[i], t1[ind])
-        tt2 = np.minimum(t2[i], t2[ind])
-        wh = np.maximum(0.0, tt2 - tt1 + 1.0)
-        o = wh / (area[i] + area[ind] - wh)
-        ind = ind[o <= overlap]
+    if native.active():
+        pick = native.nms_temporal(props, scores, overlap, topN).tolist()
+    else:
+        pick = nms_temporal_numpy(props, scores, overlap, topN)
 
     nms_props = props[pick]
     timestamps = [featstamp_to_time(int(s), int(e), nfeats, duration) for s, e in nms_props]
@@ -83,6 +79,37 @@ def external_proposals_nms(props: Sequence[Sequence[float]], prop_scores: Sequen
     props = np.asarray(props, dtype=np.float64)
     prop_scores = np.asarray(prop_scores, dtype=np.float64)
     sent_score = np.asarray(sent_score, dtype=np.float64)
+    if native.active():
+        pick = native.nms_external(props, prop_scores, sent_score, nms_overlap, topN).tolist()
+    else:
+        pick = nms_external_numpy(props, prop_scores, sent_score, nms_overlap, topN)
+    return props[pick].tolist(), prop_scores[pick].tolist(), pick
+
+
+def nms_temporal_numpy(props: np.ndarray, scores: np.ndarray, overlap: float,
+                       topN: int) -> List[int]:
+    """top_proposals_nms's picks by numpy: props [n, 2] int [start, end),
+    scores [n] f64, the areas padded by 1."""
+    t1, t2 = props[:, 0].astype(np.float64), props[:, 1].astype(np.float64)
+    area = t2 - t1 + 1.0
+    ind = np.argsort(scores, kind="stable")
+    pick: List[int] = []
+    while len(ind) > 0 and len(pick) < topN:
+        i = ind[-1]
+        pick.append(int(i))
+        ind = ind[:-1]
+        tt1 = np.maximum(t1[i], t1[ind])
+        tt2 = np.minimum(t2[i], t2[ind])
+        wh = np.maximum(0.0, tt2 - tt1 + 1.0)
+        o = wh / (area[i] + area[ind] - wh)
+        ind = ind[o <= overlap]
+    return pick
+
+
+def nms_external_numpy(props: np.ndarray, prop_scores: np.ndarray, sent_score: np.ndarray,
+                       nms_overlap: float, topN: int) -> List[int]:
+    """external_proposals_nms's picks by numpy: props [n, 2] f64 seconds,
+    the areas padded by 1e-3."""
     t1, t2 = props[:, 0], props[:, 1]
     ind = np.argsort(prop_scores, kind="stable")
     area = t2 - t1 + 1e-3
@@ -96,7 +123,7 @@ def external_proposals_nms(props: Sequence[Sequence[float]], prop_scores: Sequen
         same = ind[o >= nms_overlap]
         pick.append(int(same[np.argmax(sent_score[same])]))
         ind = ind[o <= nms_overlap]
-    return props[pick].tolist(), prop_scores[pick].tolist(), pick
+    return pick
 
 
 def rerank_top10(vid_info: List[dict]) -> List[dict]:

@@ -4,10 +4,10 @@ the loader and its per-split eval state, proposal selection and
 reranking, caption rendering, the Config JSON, the metrics (tokenizer,
 scorers, eval_score) and the hang watchdog.
 
-echr_tpu's optional C++ paths (IoU grid, NMS, caption joiner) are its own
-numpy paths' equals, so the comparisons are exact; the label grids are
-compared with echr_tpu's numpy grid (the C++ one differs by <= 2e-7,
-tests/test_native.py).
+The port takes its own C++ paths (IoU grid, NMS, caption joiner;
+echr_tpu_torch/native) wherever they build, and they equal its numpy paths
+(tests/test_torch_native.py), so the comparisons are exact; the label
+grids are compared with echr_tpu's numpy grid.
 """
 import dataclasses
 import json

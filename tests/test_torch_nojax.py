@@ -5,8 +5,10 @@ The subprocess imports every module of the port (its probes included),
 builds its configuration and data from the port alone, serves a tiny CPU
 slice (greedy and beam) from the port's own init and from a JAX format-v2
 checkpoint, takes one tiny training step, writes and reads it back as a
-checkpoint, evaluates a split with its metrics, and checks that neither jax nor any echr_tpu or experiments
-module entered sys.modules.
+checkpoint, evaluates a split with its metrics, renders a caption and builds
+an IoU grid through its host library (echr_tpu_torch/native), and checks
+that neither jax nor any echr_tpu or experiments module entered
+sys.modules.
 """
 import os
 import pkgutil
@@ -145,6 +147,18 @@ _CHILD = textwrap.dedent("""
         st.tap, st.cg, Loader(ds, cfg, process_index=0, process_count=1), cfg, "eval.json",
         {{"topN": 6, "val_all_metrics": True}}, batch_videos=2, device="cpu")
     assert preds and np.isfinite(loss).all() and len(score["METEOR"]) == 4, (preds, score)
+    import shutil
+    from echr_tpu_torch import native
+    from echr_tpu_torch.data.labels import iou_grid
+    from echr_tpu_torch.utils.text import decode_sequence
+    native.reset_counts()
+    assert decode_sequence(vocab, np.array([[3, 1, 0, 2]])) == ["w3 w1"]
+    iou, gts, mask = iou_grid([(2, 9), (4, 20)], 32, 8)
+    assert iou.shape == (32, 8) and 0.9 < iou.max() <= 1.0 and gts.max() == 1
+    on = int(native.available())
+    assert on == (shutil.which("g++") is not None), on
+    assert native.counts() == dict(iou_grid=on, nms_temporal=0, nms_external=0,
+                                   render_captions=on), native.counts()
     foreign = sorted(m for m in sys.modules if m in ("jax", "echr_tpu", "experiments")
                      or m.startswith(("jax.", "echr_tpu.", "experiments.")))
     assert not foreign, foreign
@@ -169,4 +183,4 @@ def test_port_runs_without_jax(tmp_path):
     assert "echr_tpu_torch.experiments.probe_streaming_head2" in _all_modules()
     assert {"echr_tpu_torch.engine.checkpoint", "echr_tpu_torch.utils.tb",
             "echr_tpu_torch.cli.train", "echr_tpu_torch.cli.eval",
-            "echr_tpu_torch.cli.score"} <= set(_all_modules())
+            "echr_tpu_torch.cli.score", "echr_tpu_torch.native"} <= set(_all_modules())
