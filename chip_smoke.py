@@ -6,8 +6,10 @@ decoder family's other cores, its on-disk data, external proposals,
 reference .pth import and serve CLI, its synchronous and pipelined train
 loops, its per-video eval, decode and SCST paths, its data- and
 tensor-parallel training, its sequence ring, resident-graph SCST, grouped
-attention, decode switches and host library once on one NVIDIA GPU, and
-hold every kernel against its plain PyTorch version.
+attention, decode switches and host library, and the published recipe's
+trained path (its four stages chained, then greedy, beam-4 and early-exit
+eval on trained weights) once on one NVIDIA GPU, and hold every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -201,7 +203,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      after a warm-up chunk (kernel 2 once a decode step, kernel 1 too where
      the attention is live and never where it is not; captions/s), the f32
      decode of 4 videos with the kernels and under force_plain() (phase 5's
-     gates), and 1 warm-up and 2 timed XE steps of engine.train.train at
+     gates), and 1 warm-up and 1 timed XE step of engine.train.train at
      B=8 (finite losses, moved parameters, kernels 3 and 4 once a
      teacher-forced step, none for all_img; ms/step); for show_attend_tell
      also beam 4 over a timed chunk (kernel 1 once a beam step) and one
@@ -236,28 +238,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      .npy files, greedy and beam 4, each in a child process whose exit
      code is checked and whose kernel launches equal its decode steps
      (kernel 2 none for beam); its captions/s as the CLI logs it, and
-     cli/score of its JSON against the val annotations.  The phase's
+     cli/score of the greedy JSON against the val annotations.  The phase's
      wall seconds;
   28. the train loops: engine.train.train on train_cfg() (B=32, N=64,
      bf16, dropout on), the synchronous and the pipelined loop in turns
-     (sync, pipelined, pipelined, sync), 6 steps a run, their means,
+     (sync, pipelined, pipelined, sync), 4 steps a run, their means,
      medians and the neighbouring pairs the pipelined run won, then each
      once
-     with transfer_dtype bfloat16: ms/step and videos/s over steps 2-6
+     with transfer_dtype bfloat16: ms/step and videos/s over steps 2-4
      from CUDA events recorded after each step (the device's completion
      times), timing_out's loader, compress, collate, put, step and fetch
      seconds, the bytes sent to the device a group, peak memory, and
      kernels 3 and 4 launched 29 times a step; a pipelined run with steps
      3-5 inside utils.profiling.device_trace: the device-busy share of the
      traced window, the share of the H2D copy time under a kernel and the
-     longest idle gap; then at f32 with TF32 and dropout off, 6 steps of
+     longest idle gap; then at f32 with TF32 and dropout off, 4 steps of
      each loop: every parameter bit-equal;
   29. the per-video paths on phase 18's val split and weights: eval_split
-     greedy with val losses and beam 4 decode-only after a warm-up of 4
+     over its first 32 usable videos, greedy with val losses and beam 4
+     decode-only, each after a warm-up of 4
      videos (kernel 1 once a decode step and 29 times a val-loss call,
      kernel 2 once a greedy step; eval videos/s), eval_split_batched's rate
      beside it, python -m echr_tpu_torch.cli.eval without --batch_videos in
-     a child process (exit 0, eval_split ran); at f32 with phase 5's
+     a child process over 16 val videos (exit 0, eval_split ran); at f32
+     with phase 5's
      weights and the window sort off, eval_split against
      eval_split_batched (phase 27's near-tie rule, val losses within 1e-5
      relative); 3 SCST steps of train() at batch_size 1 at f32 (the
@@ -269,9 +273,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      of 128 rows, as in phases 11-12;
   30. data parallel: engine.train.train at train_cfg()'s width (B=32,
      N=64, tap_cg), f32, TF32 off, dropout off, 4 steps with the gate at 4
-     over 32 val videos (the cg pass), in turns without a group and inside
-     a one-rank NCCL group on a local TCP store (no group, group, group,
-     no group), the group destroyed after each run: parameters bit-equal
+     over 32 val videos (the cg pass), without a group and then inside
+     a one-rank NCCL group on a local TCP store (no group, group), the
+     group destroyed after the run: parameters bit-equal
      (a world-1 all-reduce and a division by 1.0 change no bit), best
      scores and the gate's predictions JSON equal; ms/step of both from
      device step events, the gradient all-reduce's own device ms (CUDA
@@ -327,21 +331,50 @@ Phases, in order; any failure raises and the script exits non-zero:
      train_cfg()'s split through make_batch with the C++ grid and under
      native.force_numpy(): every field bit-equal; iou_grid alone on their
      grids (T <= 256, K = 256), C++ against numpy in turns; (b) phase 6's
-     slice captioned (on, off, off, on) x 2: the same captions, captions/s,
+     slice captioned (on, off, off, on): the same captions, captions/s,
      render_captions' calls; a chunk's 4096 captions rendered alone in
      turns; (c) phase 18's greedy eval with val losses, unscored, (on,
-     off, off, on) x 2: the same predictions JSON and val losses, eval
+     off, off, on): the same predictions JSON and val losses, eval
      videos/s, the host calls; one pass with NMS 0.8 keeping its score grids, and
      nms_temporal on them in turns (the same picks); (d) phase 27's corpus
      and external proposals, the SOTA_TEP eval from disk with NMS 0.8,
      every external_proposals_nms call in turns (the same picks); (e)
-     phase 28's two loops, 6 steps a run, each on, off, off, on: ms/step,
+     phase 28's two loops, 3 steps a run, each on, off, off, on: ms/step,
      the loader and collate seconds, and the C++ grid's calls (above zero
      on).  Host times carry the card's name and power limit and the host
-     CPU's model.
+     CPU's model;
+  34. the trained path: (a) the recipe's four stages
+     (echr_tpu_torch/experiments/recipe.py: train_SST.sh, train_ECHR.sh,
+     finetune.sh and soak_synthetic.sh's SCST stage, with its synthetic
+     learnable SYN flags) through recipe.run_stage at the scripts' flags
+     (the flagship width, batch_size 1, bf16), each cut to RECIPE_CAPS
+     steps and gated once at its last step (--save_checkpoint_every its
+     cap, --min_epoch_when_save 0), each warm-started from the previous
+     stage's model-best.ckpt: the leaves each first step starts from equal
+     the checkpoint's (or train()'s seeded init, for a model the stage
+     does not take) bit for bit, finite losses, stage 2's caption loss
+     lower over its last 10 steps than its first 10, stage 4's SCST steps
+     with the reward pool; each stage's losses at its first and last step,
+     gate score and ms/step; then python -m echr_tpu_torch.cli.eval on
+     stage 4's model-best.ckpt over CLI_VIDEOS val videos in a child
+     process (exit 0, captions in its
+     predictions file).  (b) bench.py's bench_trained_eval: train_cfg()
+     (e2e_train_cfg) trained TRAINED_UPDATES updates (kernels 3 and 4 29
+     times a step), then on phase 18's val split greedy and beam 4 scored
+     (kernel 1 once a decode step, kernel 2 once a greedy one; scores x100
+     with the stemmer named, the mean caption length, the decode steps,
+     eval videos/s), greedy with the batch-wide exit on and off in turns
+     (experiments/probe_trained_e2e.compare: the same predictions JSON in
+     every pass, the exit fails the phase if every caption ended before
+     L - 1 tokens and it still ran all L steps), and the per-video
+     eval_split with its exit on over TRAINED_PERVIDEO videos
+     (captions/s).  (c) kernel 1 at the trained greedy and beam-4 decode
+     steps, kernels 3 and 4 at one training step of the trained weights,
+     each held against its plain version and timed; kernels 5 and 6 at the
+     two decode steps, held and timed in turns with the kernel-1 route.
 
-The lines before the last are the host library's JSON record and then the
-kernels'; the last line is
+The lines before the last are the host library's JSON record, phase 34's
+and then the kernels'; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
@@ -1575,7 +1608,7 @@ def phase_train(card):
             kernel4_timing(card, "the training step's own cotangents", raws, tag="9"))
 
 
-def training_step_inputs(out):
+def training_step_inputs(out, dev="cuda"):
     """One more gradient step of train()'s state ``out`` on a batch of the
     training data, with wrappers on kernels 3 and 4 that keep the inputs
     of each of their calls: ([(pre, q, w, b, mask), ...],
@@ -1591,14 +1624,14 @@ def training_step_inputs(out):
     ix = ds.split_ix["train"][:TRAIN_B]
     batch = steps.batch_to_device(_collate([
         make_batch(ds.get_example(i), cfg, np.random.RandomState(i), w1=ds.w1)[0] for i in ix]),
-        "cuda")
+        dev)
     fwd, bwd = [], []
 
     def keeper(kept):
         def keep(*args):
             kept.append(tuple(x.detach().clone() for x in args))
         return keep
-    gen = torch.Generator(device="cuda").manual_seed(cfg.train.seed + 2)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed + 2)
     with wrapped(kernel_attention, "attention_scores_dense", keeper(fwd)), \
             wrapped(kernel_attention, "attention_scores_bwd", keeper(bwd)):
         steps.grad_step(out["state"], batch, gen, cfg, "tap_cg")
@@ -2742,7 +2775,7 @@ def cold_sampling():
              "the argmax at another rate than the tempered softmax gives")
 
 
-FAMILY_B, FAMILY_XE_STEPS, FAMILY_SCST_STEPS = 8, 3, 2  # phase 26: videos a step; steps (1 warm-up)
+FAMILY_B, FAMILY_XE_STEPS, FAMILY_SCST_STEPS = 8, 2, 2  # phase 26: videos a step; steps (1 warm-up)
 FAMILY_SHARPEN = 8.0  # phase 5's logit weight scale
 
 
@@ -2904,7 +2937,7 @@ def _moved(model, out, what):
 
 
 def family_train(card, model, folder):
-    """engine.train.train, XE: 1 warm-up and 2 timed steps of 8 videos
+    """engine.train.train, XE: 1 warm-up and 1 timed step of 8 videos
     (train_cfg(): cotrain / tap_cg, bf16, dropout on).  Kernels 3 and 4
     launch once a teacher-forced step where the attention is live, never
     for all_img."""
@@ -3421,9 +3454,9 @@ def pth_round_trip(card, folder, vocab, dev="cuda"):
 
 def serve_cli(card, ckpt, feats_dir, dur_json, refs_json, out, beam, dev="cuda"):
     """python -m echr_tpu_torch.cli.serve over the val .npy files in a
-    child process whose exit code is checked (SERVE_CHILD), then cli/score
-    on its JSON against the val annotations.  Returns kernels 1 and 2's
-    launches in the child."""
+    child process whose exit code is checked (SERVE_CHILD), then for
+    greedy cli/score on its JSON against the val annotations.  Returns
+    kernels 1 and 2's launches in the child."""
     from echr_tpu_torch.cli import score as score_cli
 
     argv = ["--checkpoint", ckpt, "--features_dir", feats_dir, "--output", out,
@@ -3457,24 +3490,24 @@ def serve_cli(card, ckpt, feats_dir, dur_json, refs_json, out, beam, dev="cuda")
     steps = counts["greedy_steps"] if beam == 1 else counts["beam_steps"]
     if not (steps > 0 and k1 == steps and k2 == (steps if beam == 1 else 0)):
         fail(f"serve CLI (beam {beam}): launches {counts}")
-    t0 = time.time()
-    logging.disable(logging.INFO)  # the CLI's per-tIoU lines; the means are printed below
-    try:
-        scores = score_cli.main(["-s", out, "-r", refs_json, "-v"])
-    finally:
-        logging.disable(logging.NOTSET)
-    score_s = time.time() - t0
-    metrics = ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "Recall", "Precision")
-    if not all(np.shape(scores.get(m)) == (4,) and np.isfinite(scores[m]).all()
-               for m in metrics):
-        fail(f"serve CLI (beam {beam}): scores {scores}")
     n_caps = sum(len(c) for c in res.values())
     print(f"[27] serve CLI, beam {beam}: {len(res)} videos, {n_caps} captions, {steps} "
           f"{'decode' if beam == 1 else 'beam'} steps, kernel 1 launches {k1}, kernel 2 {k2}; "
           f"{rate.group(4) if rate else 'no rate logged'} captions/s as the CLI logs it "
           f"(chunks of 32 videos, first chunk included), child process {wall:.1f} s [{card}]")
-    print(f"[27] serve CLI, beam {beam}: cli/score {score_s:.2f} s: "
-          f"{ {m: round(float(np.mean(scores[m])), 4) for m in metrics} } (mean over tIoUs)")
+    if beam == 1:
+        t0 = time.time()
+        logging.disable(logging.INFO)  # the CLI's per-tIoU lines; the means are printed below
+        try:
+            scores = score_cli.main(["-s", out, "-r", refs_json, "-v"])
+        finally:
+            logging.disable(logging.NOTSET)
+        metrics = ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "Recall", "Precision")
+        if not all(np.shape(scores.get(m)) == (4,) and np.isfinite(scores[m]).all()
+                   for m in metrics):
+            fail(f"serve CLI (beam {beam}): scores {scores}")
+        print(f"[27] serve CLI, beam {beam}: cli/score {time.time() - t0:.2f} s: "
+              f"{ {m: round(float(np.mean(scores[m])), 4) for m in metrics} } (mean over tIoUs)")
     return {"attention_scores_masked": k1, "greedy_head": k2}
 
 
@@ -3551,11 +3584,13 @@ def phase_real_data(card):
     return launches, k1_rec, k2_rec, steps_rec
 
 
-PIPE_STEPS, PIPE_PARITY_STEPS = 6, 6  # phase 28: steps a run; steps of the f32 parity runs
+PIPE_STEPS, PIPE_PARITY_STEPS = 4, 4  # phase 28: steps a run; steps of the f32 parity runs
 PIPE_ROUNDS = 1  # phase 28: rounds of (sync, pipelined, pipelined, sync)
 TRACE_FROM, TRACE_STEPS = 3, 3  # phase 28: the traced run's first traced step, traced steps
 HEAD_ROWS = (64, 128, 256, 1024)  # phase 29: kernel 2 at per-video decode rows
 PV_SCST_STEPS = 3  # phase 29: SCST steps at batch_size 1
+PV_CLI_VIDEOS = 16  # phase 29: val videos of the eval CLI in its child process
+PV_VIDEOS = 32  # phase 29: val videos of its per-video greedy and beam passes
 
 
 def _step_clock(train_mod):
@@ -3784,16 +3819,17 @@ def phase_pervideo(card, dev="cuda"):
     usable = usable_val_videos(cfg, ds)
     durations = {ds.get_example(ix).vid: ds.get_example(ix).duration for ix in ds.split_ix["val"]}
     base = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": False}
+    per_video = dict(base, num_vids_eval=PV_VIDEOS)
     paths, kept = {}, []
     try:
         with tempfile.TemporaryDirectory() as tmp:
             paths["eval_per_video_greedy"], rate = pervideo_eval(
-                card, "greedy", (tap, cg, loader, cfg), dict(base, get_eval_loss=True), usable,
-                durations, f"{tmp}/g.json", kept, dev)
+                card, "greedy", (tap, cg, loader, cfg), dict(per_video, get_eval_loss=True),
+                usable[:PV_VIDEOS], durations, f"{tmp}/g.json", kept, dev)
             paths["eval_per_video_beam"], _ = pervideo_eval(
                 card, f"beam {BEAM}", (tap, cg, loader, cfg),
-                dict(base, get_eval_loss=False, beam_size=BEAM), usable, durations,
-                f"{tmp}/b.json", kept, dev)
+                dict(per_video, get_eval_loss=False, beam_size=BEAM), usable[:PV_VIDEOS],
+                durations, f"{tmp}/b.json", kept, dev)
             t0 = time.time()
             preds, _, _ = eval_split_batched(tap, cg, loader, cfg, f"{tmp}/B.json",
                                              dict(base, get_eval_loss=True),
@@ -3837,8 +3873,9 @@ def phase_pervideo(card, dev="cuda"):
 
 def eval_cli_child(card, tap, cg, cfg, ds, tmp, dev="cuda"):
     """python -m echr_tpu_torch.cli.eval with no --batch_videos, on a
-    checkpoint of phase 18's weights, in a child process: exit code 0, the
-    per-video eval_split ran, and its predictions file."""
+    checkpoint of phase 18's weights, over PV_CLI_VIDEOS val videos in a
+    child process: exit code 0, the per-video eval_split ran, and its
+    predictions file."""
     from echr_tpu_torch.engine import checkpoint, steps
 
     state = steps.init_train_state(cfg, tap, cg)
@@ -3847,7 +3884,8 @@ def eval_cli_child(card, tap, cg, cfg, ds, tmp, dev="cuda"):
     t0 = time.time()
     res = subprocess.run([sys.executable, "-m", "echr_tpu_torch.cli.eval", "--folder_id", "PV",
                           "--checkpoint_path", tmp, "--flag_eval_what", "tap_cg", "--topN",
-                          str(TOP_N), "--no_language_eval", "--device", dev],
+                          str(TOP_N), "--num_vids_eval", str(PV_CLI_VIDEOS),
+                          "--no_language_eval", "--device", dev],
                          capture_output=True, text=True, timeout=600)
     log_text = res.stdout + res.stderr
     ran = re.search(r"eval wall ([\d.]+)s \(([\d.]+) videos/s, eval_split\)", log_text)
@@ -3993,7 +4031,7 @@ def pervideo_scst(card, dev="cuda"):
 
 
 DP_STEPS = 4  # phase 30: steps a run, the gate at the last
-DP_RUNS = (False, True, True, False)  # phase 30: runs in turns, in a one-rank NCCL group or not
+DP_RUNS = (False, True)  # phase 30: runs in turns, in a one-rank NCCL group or not
 DP_TWO_B, DP_TWO_STEPS = 8, 2  # phase 30: two gloo ranks on the one card
 DP_TIMEOUT_S = 300  # phase 30: a collective's and a child's longest wait
 DP_CHILD = """
@@ -4917,9 +4955,9 @@ def phase_single_process(card, dev="cuda"):
     return {"scst_resident": resident, "decode_switches": switches}, grouped
 
 
-HOST_STEPS = PIPE_STEPS  # phase 33: steps a train run, each loop with the host library on and off
+HOST_STEPS = 3  # phase 33: steps a train run, each loop with the host library on and off
 HOST_NMS = 0.8  # phase 33: the NMS overlap of its eval passes (gettop1000_nms's default)
-HOST_ROUNDS = 2  # phase 33: rounds of (on, off, off, on) of its serving and eval passes
+HOST_ROUNDS = 1  # phase 33: rounds of (on, off, off, on) of its serving and eval passes
 
 
 def host_mode(mode):
@@ -5249,6 +5287,459 @@ def phase_host_native(card, dev="cuda"):
     return rec, launches
 
 
+# phase 34(a): steps of recipe stages 1-4, each gated at its last; at 100
+# steps stage 2's captioner still emitted the end token first
+RECIPE_CAPS = (10, 200, 10, 6)
+CLI_VIDEOS = 8  # phase 34(a): val videos of the eval CLI on stage 4's checkpoint
+TRAINED_UPDATES = 60  # phase 34(b): bench.py's E2E_TRAIN_ITERS
+TRAINED_PERVIDEO = 8  # phase 34(b): val videos of the per-video eval_split
+TRAINED_WINDOWS = 1  # phase 34(b): rounds of the exit on / off passes in turns
+
+
+def tree_leaves(tree, path=""):
+    """(path, array) of every leaf of a JAX-layout tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}/{i}")
+    else:
+        yield path, np.asarray(tree)
+
+
+def first_difference(got, want):
+    """The first leaf where two JAX-layout trees differ in structure, shape
+    or any bit, or None."""
+    g, w = list(tree_leaves(got)), list(tree_leaves(want))
+    if [p for p, _ in g] != [p for p, _ in w]:
+        return "the tree structure"
+    for (p, a), (_, b) in zip(g, w):
+        if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(a, b):
+            return p
+    return None
+
+
+def seeded_init_trees(cfg):
+    """train()'s seeded init for the run config ``cfg``, in the JAX layout."""
+    from echr_tpu_torch import bridge
+    from echr_tpu_torch.models.registry import init_captioner, init_tap
+
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    tap = init_tap(gen, cfg)
+    return bridge.tap_to_jax(tap), bridge.captioner_to_jax(init_captioner(gen, cfg), cfg)
+
+
+@contextlib.contextmanager
+def stage_hooks(box):
+    """Within the block, engine.train's loop records in box["losses"] the
+    metrics of every step, and at a run's first step (its train_step or
+    SCST step, state.step 0) compares the leaves that step starts from with
+    box["want"], (tap tree, cg tree) where None stands for train()'s seeded
+    init: box["warm"] holds each model's first differing leaf, or None."""
+    from echr_tpu_torch import bridge
+    from echr_tpu_torch.config import Config
+    from echr_tpu_torch.engine import steps
+    from echr_tpu_torch.engine import train as train_mod
+
+    def first_step(fn):
+        @functools.wraps(fn)
+        def step(state, *args, **kw):
+            if state.step == 0 and "warm" not in box:
+                cfg = next(a for a in args if isinstance(a, Config))
+                want = box["want"]
+                seeded = seeded_init_trees(cfg) if None in want else (None, None)
+                got = (bridge.tap_to_jax(state.tap), bridge.captioner_to_jax(state.cg, cfg))
+                box["warm"] = {name: first_difference(g, s if w is None else w)
+                               for name, g, w, s in zip(("tap", "cg"), got, want, seeded)}
+            return fn(state, *args, **kw)
+        return step
+
+    def fetch(*metrics):
+        out = steps.fetch_metrics(*metrics)
+        if any(isinstance(v, torch.Tensor) for m in metrics for v in m.values()):
+            box.setdefault("losses", []).extend(out)  # not the SCST step's floats again
+        return out
+
+    names = ("train_step", "_self_critical_step", "_self_critical_step_batched")
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(patched(train_mod, name, first_step(getattr(train_mod, name))))
+        stack.enter_context(patched(train_mod, "fetch_metrics", fetch))
+        yield box
+
+
+def _kernel_counts():
+    from echr_tpu_torch.ops.kernel_attention import (
+        attention_scores_bwd,
+        attention_scores_dense,
+        attention_scores_masked,
+    )
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    return (attention_scores_masked, greedy_head, attention_scores_dense, attention_scores_bwd)
+
+
+def reset_launches():
+    for fn in _kernel_counts():
+        fn.launches = 0
+
+
+def read_launches():
+    return {fn.__name__: fn.launches for fn in _kernel_counts()}
+
+
+def trained_chain(card, root, dev="cuda"):
+    """Phase 34(a): the recipe's four stages through recipe.run_stage at
+    their scripts' flags, each cut to RECIPE_CAPS steps and gated once at
+    its last step (--save_checkpoint_every the cap, --min_epoch_when_save
+    0), on the flagship vocab (--synthetic_vocab_size VOCAB; the corpus's
+    default is 3000), each from the previous stage's model-best.ckpt; then the eval CLI
+    on stage 4's checkpoint in a child process.  Returns (the stages'
+    records, kernels 1-4's launches over the chain)."""
+    from echr_tpu_torch.engine import checkpoint
+    from echr_tpu_torch.engine.rl import close_default_reward_pool
+    from echr_tpu_torch.experiments import recipe
+
+    names = ("pre_tap", "pre_cg", "cotrain", "scst")
+    records, prev = [], None
+    reset_launches()
+    try:
+        for i, (argv, cap) in enumerate(zip(recipe.stage_argvs("P34"), RECIPE_CAPS)):
+            argv = argv + ["--checkpoint_path", root, "--save_checkpoint_every", str(cap),
+                           "--min_epoch_when_save", "0", "--synthetic_vocab_size", str(VOCAB)]
+            want = (None, None)
+            if prev is not None:
+                path = recipe.warm_start_path(prev, capped=True)
+                if not path.endswith("model-best.ckpt"):
+                    fail(f"[34] stage {i} ended without its gate: no {path}")
+                argv = recipe.with_pretrain_path(argv, path)
+                warm = checkpoint.load_params_only(path, argv[argv.index("--pretrain") + 1])
+                want = (warm.get("tap_params"), warm.get("cg_params"))
+            box, timing = {"want": want}, {}
+            t0 = time.time()
+            with stage_hooks(box):
+                out = recipe.run_stage(argv, dev, max_iterations=cap, timing_out=timing)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            wall = time.time() - t0
+            rec = trained_stage_record(card, i + 1, names[i], out, box, timing, want, wall, cap)
+            prev = out["save_folder"]
+            del out
+            records.append(rec)
+    finally:
+        close_default_reward_pool()
+    launches = read_launches()
+    records.append(trained_eval_cli(card, root, "P34_RL", dev))
+    return records, launches
+
+
+def trained_stage_record(card, n, name, out, box, timing, want, wall, cap):
+    """One stage of phase 34(a) checked and printed: its cap of steps, the
+    warm start bit-exact (or the seeded init), finite losses, one gate with
+    a model-best.ckpt, stage 2's caption loss falling, stage 4's SCST steps.
+    Returns its record."""
+    losses = box.get("losses", [])
+    cfg = out["config"]
+    if out["iteration"] != cap or len(losses) != cap:
+        fail(f"[34] stage {n}: {out['iteration']} steps, {len(losses)} step metrics, want {cap}")
+    if box.get("warm") is None or any(box["warm"].values()):
+        fail(f"[34] stage {n}: the first step's leaves differ from the warm start or the seeded "
+             f"init at {box.get('warm')}")
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        fail(f"[34] stage {n}: non-finite losses {losses[0]} ... {losses[-1]}")
+    best = os.path.join(out["save_folder"], "model-best.ckpt")
+    if [it for it, _ in timing["ckpt"]] != [cap] or not os.path.exists(best):
+        fail(f"[34] stage {n}: gates at {timing['ckpt']}, model-best.ckpt {os.path.exists(best)}")
+    t = dict(timing["iters"])
+    ms = 1000 * (t[cap] - t[1]) / (cap - 1)
+    key = "tap_loss" if name == "pre_tap" else ("cg_loss" if name == "pre_cg" else "loss")
+    head = float(np.mean([m[key] for m in losses[:10]]))
+    tail = float(np.mean([m[key] for m in losses[-10:]]))
+    if name == "pre_cg" and not tail < head:
+        fail(f"[34] stage 2: the caption loss did not fall: mean of the first 10 steps {head:.4f}, "
+             f"of the last 10 {tail:.4f}")
+    warm = ("seeded init" if want == (None, None) else
+            f"{cfg.save.pretrain} from {os.path.basename(os.path.dirname(cfg.save.pretrain_path))}"
+            f"/{os.path.basename(cfg.save.pretrain_path)}; "
+            + ", ".join(f"{m} {'bit-equal to it' if w is not None else 'the seeded init'}"
+                        for m, w in zip(("tap", "cg"), want)))
+    rec = {"stage": n, "mode": name, "caption_model": cfg.decoder.caption_model,
+           "steps": cap, "ms_per_step": ms, "wall_s": wall, "gate_score": out["best_val_score"],
+           "gate_s": timing["ckpt"][0][1], "warm_start": warm, "first_losses": losses[0],
+           "last_losses": losses[-1], f"{key}_mean_first10": head, f"{key}_mean_last10": tail,
+           "lr": cfg.train.lr}
+    if timing["scst"]:
+        sc = timing["scst"]
+        rec["scst"] = {k: float(np.mean([s[k] for s in sc]))
+                       for k in ("rollout", "reward", "update", "sample_steps", "greedy_steps",
+                                 "reward_rows", "avg_reward")}
+        rec["scst"]["pool_workers"] = sc[0]["pool_workers"]
+        rec["scst"]["greedy_steps_each"] = [s["greedy_steps"] for s in sc]
+    rnd = {k: round(v, 4) for k, v in losses[0].items()}, {k: round(v, 4)
+                                                            for k, v in losses[-1].items()}
+    print(f"[34] stage {n} ({name}, {cfg.decoder.caption_model} x{cfg.decoder.CG_num_layers}, "
+          f"batch_size {cfg.train.batch_size}, bf16, lr {cfg.train.lr:g}): {cap} steps, "
+          f"{ms:.1f} ms/step over steps 2-{cap}, stage wall {wall:.1f} s; warm start: {warm}; "
+          f"losses at step 1 {rnd[0]}, at step {cap} {rnd[1]}; {key} mean of the first 10 steps "
+          f"{head:.4f}, of the last 10 {tail:.4f}; gate at {cap}: score "
+          f"{out['best_val_score']:.4f} in {rec['gate_s']:.1f} s [{card}]")
+    if "scst" in rec:
+        s = rec["scst"]
+        print(f"[34] stage {n} SCST a step: rollouts {1000 * s['rollout']:.1f} ms, reward "
+              f"{1000 * s['reward']:.1f} ms ({s['reward_rows']:.0f} rows, {s['pool_workers']} "
+              f"workers, stemmer {stemmer_name()}), update {1000 * s['update']:.1f} ms; decode "
+              f"steps sampled {s['sample_steps']:.1f}, greedy baseline {s['greedy_steps_each']} "
+              f"of {SEQ_LEN}; avg_reward {s['avg_reward']:.4f} [{card}]")
+    return rec
+
+
+def trained_eval_cli(card, root, run_id, dev="cuda"):
+    """python -m echr_tpu_torch.cli.eval on a stage's model-best.ckpt
+    (tap_cg, top-128, CLI_VIDEOS val videos, 8 a group, scored) in a
+    child process: exit code 0 and a non-empty predictions file."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "echr_tpu_torch.cli.eval", "--folder_id", run_id,
+                          "--checkpoint_path", root, "--which", "best", "--flag_eval_what",
+                          "tap_cg", "--topN", str(TOP_N), "--num_vids_eval", str(CLI_VIDEOS),
+                          "--batch_videos", "8", "--device", dev],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    text = res.stdout + res.stderr
+    m = re.search(r"predictions: (\d+) videos -> (\S+)", text)
+    preds = {}
+    if res.returncode == 0 and m and os.path.exists(m.group(2)):
+        with open(m.group(2)) as f:
+            preds = json.load(f).get("results", {})
+    n_caps = sum(len(v) for v in preds.values())
+    if res.returncode != 0 or not n_caps:
+        fail(f"[34] cli.eval on {run_id}: exit {res.returncode}, {n_caps} captions\n"
+             f"{text[-3000:]}")
+    scores = re.search(r"avg scores: (.*)", text)
+    print(f"[34] cli.eval --flag_eval_what tap_cg on {run_id}/model-best.ckpt: exit 0, "
+          f"{len(preds)} videos, {n_caps} captions; {scores.group(1) if scores else ''}; child "
+          f"wall {time.time() - t0:.1f} s [{card}]")
+    return {"eval_cli": run_id, "videos": len(preds), "captions": n_caps,
+            "child_wall_s": time.time() - t0}
+
+
+def trained_pass(card, name, beam, args, usable, durations, json_path, dev="cuda"):
+    """One scored pass of phase 34(b) (tap_cg, top-128, 32 videos a group,
+    decode only, every metric) on the trained weights, keeping the first
+    kernel-1 call (the first decode step's: N, or N * beam rows).  Kernel 1 launches once a
+    decode step, kernel 2 once a greedy one.  Returns (record, the kept
+    call (pre, q, w, b, mask, feats))."""
+    from echr_tpu_torch.engine.evaluate import eval_split_batched
+    from echr_tpu_torch.models.beam import beam_search_batched
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+    from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
+    from echr_tpu_torch.ops.kernel_head import greedy_head
+
+    tap, cg, loader, cfg = args
+    kw = {"topN": TOP_N, "num_vids_eval": 0, "language_eval": True, "val_all_metrics": True,
+          "get_eval_loss": False, "beam_size": beam}
+    fn = decoder_sample_batched if beam == 1 else beam_search_batched
+    fn.steps = fn.host_syncs = 0
+    k1_0, k2_0 = attention_scores_masked.launches, greedy_head.launches
+    timing, score_s, kept = {}, [], []
+    t0 = time.time()
+    with timed_scoring(score_s), kept_attention_calls(kept, lambda a: not kept):
+        preds, score, _ = eval_split_batched(tap, cg, loader, cfg, json_path,
+                                             dict(kw, timing_out=timing),
+                                             flag_eval_what="tap_cg", batch_videos=EVAL_B,
+                                             device=dev)
+    wall = time.time() - t0
+    k1 = attention_scores_masked.launches - k1_0
+    k2 = greedy_head.launches - k2_0
+    steps = fn.steps
+    if not set(preds) <= set(usable):
+        fail(f"[34] {name}: predictions for videos outside the usable val split")
+    check_predictions(preds, [v for v in usable if v in preds], loader.dataset.ix_to_word,
+                      durations)
+    if not (steps > 0 and k1 == steps and k2 == (steps if beam == 1 else 0)) or not kept:
+        fail(f"[34] {name}: kernel 1 launched {k1} times, kernel 2 {k2}, in {steps} decode "
+             f"steps; kept calls {len(kept)}")
+    lengths = [len(c["sentence"].split()) for v in preds.values() for c in v]
+    run = wall - sum(score_s)
+    metrics = ("METEOR", "CIDEr", "Bleu_4", "ROUGE_L")
+    rec = {"videos": len(preds), "captions": len(lengths),
+           "mean_caption_len": float(np.mean(lengths)) if lengths else 0.0,
+           "max_caption_len": max(lengths, default=0),
+           "captions_ended_early": int(sum(n < SEQ_LEN for n in lengths)),
+           "decode_steps": steps, "groups": timing["groups"], "exit_syncs": fn.host_syncs,
+           "eval_videos_per_s": len(preds) / run, "eval_score_s": sum(score_s),
+           "stemmer": stemmer_name(), "launches": {"attention_scores_masked": k1,
+                                                   "greedy_head": k2},
+           "scores_x100": {m: 100.0 * float(np.mean(score[m])) for m in metrics if m in score}}
+    print(f"[34] {name} on the trained weights: {len(preds)} videos (of {len(usable)} usable), "
+          f"{len(lengths)} captions, mean length {rec['mean_caption_len']:.2f} of L={SEQ_LEN} "
+          f"({rec['captions_ended_early']} end before step {SEQ_LEN}), {steps} decode steps in "
+          f"{timing['groups']} groups, {fn.host_syncs} early-exit syncs; {rec['eval_videos_per_s']:.2f}"
+          f" eval videos/s over {run:.3f} s without scoring; scores x100 "
+          f"{ {m: round(v, 4) for m, v in rec['scores_x100'].items()} } (mean over 4 tIoUs; "
+          f"eval_score {sum(score_s):.2f} s, stemmer: {rec['stemmer']}) [{card}]")
+    return rec, kept[0]
+
+
+def trained_eval(card, root, dev="cuda"):
+    """Phase 34(b): e2e_train_cfg's training (train_cfg(): B=32, cotrain,
+    learnable, bf16, dropout on, seeded) for TRAINED_UPDATES updates, then
+    on its weights over phase 18's val split: greedy and beam 4 scored,
+    greedy with the batch-wide exit on and off in turns
+    (experiments/probe_trained_e2e.compare), and the per-video eval_split
+    with its exit live.  Returns (record, launches by path, kernels 3 and
+    4's inputs on one more training step, the kept greedy and beam
+    kernel-1 calls)."""
+    from echr_tpu_torch.data.dataset import build_dataset
+    from echr_tpu_torch.data.loader import Loader
+    from echr_tpu_torch.engine.evaluate import eval_split
+    from echr_tpu_torch.engine.train import train
+    from echr_tpu_torch.experiments import probe_trained_e2e as probe
+    from echr_tpu_torch.models.decoder import decoder_sample_batched
+
+    cfg = train_cfg().replace_in("save", checkpoint_path=root).replace(run_id="P34_E2E")
+    reset_launches()
+    timing = {}
+    t0 = time.time()
+    out = train(cfg, max_iterations=TRAINED_UPDATES, device=dev, timing_out=timing)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    train_launches = read_launches()
+    tf_steps = SEQ_LEN - 1
+    want = tf_steps * TRAINED_UPDATES
+    if (out["iteration"] != TRAINED_UPDATES
+            or train_launches["attention_scores_dense"] != want
+            or train_launches["attention_scores_bwd"] != want
+            or not all(np.isfinite(v) for v in out["losses"].values())):
+        fail(f"[34] training: {out['iteration']} updates, launches {train_launches} (want "
+             f"{want} of kernels 3-4), last losses {out['losses']}")
+    t = dict(timing["iters"])
+    ms = 1000 * (t[TRAINED_UPDATES] - t[1]) / (TRAINED_UPDATES - 1)
+    rec = {"train": {"updates": TRAINED_UPDATES, "ms_per_step": ms, "wall_s": time.time() - t0,
+                     "last_losses": out["losses"]}}
+    print(f"[34] (b) training at e2e_train_cfg: {TRAINED_UPDATES} updates of {TRAIN_B} videos "
+          f"(cotrain, learnable, bf16, dropout on, seed {cfg.train.seed}), {ms:.1f} ms/step over "
+          f"steps 2-{TRAINED_UPDATES}; last losses "
+          f"{ {k: round(v, 4) for k, v in out['losses'].items()} }; launches {train_launches} "
+          f"[{card}]")
+    fwd, raws = training_step_inputs(out, dev)
+    tap, cg = out["state"].tap, out["state"].cg
+    del out
+
+    ecfg = eval_cfg()
+    ds = build_dataset(ecfg)
+    loader = Loader(ds, ecfg, process_index=0, process_count=1, seed=0)
+    usable = usable_val_videos(ecfg, ds)
+    durations = {ds.get_example(ix).vid: ds.get_example(ix).duration for ix in ds.split_ix["val"]}
+    reset_launches()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            args = (tap, cg, loader, ecfg)
+            rec["greedy"], kept_greedy = trained_pass(card, "greedy", 1, args, usable, durations,
+                                                      f"{tmp}/greedy.json", dev)
+            rec["beam4"], kept_beam = trained_pass(card, "beam 4", BEAM, args, usable, durations,
+                                                   f"{tmp}/beam.json", dev)
+            turns = probe.compare(tap, cg, loader, ecfg, beam=1, batch_videos=EVAL_B,
+                                  windows=TRAINED_WINDOWS, topN=TOP_N, device=dev)
+            decoder_sample_batched.steps = decoder_sample_batched.host_syncs = 0
+            pv_cfg = ecfg.replace_in("runtime", decode_early_exit=True)
+            t0 = time.time()
+            preds, _, _ = eval_split(tap, cg, loader, pv_cfg, f"{tmp}/pervideo.json",
+                                     {"topN": TOP_N, "num_vids_eval": TRAINED_PERVIDEO,
+                                      "language_eval": False, "get_eval_loss": False},
+                                     flag_eval_what="tap_cg", device=dev)
+            pv_wall = time.time() - t0
+            pv_steps, pv_syncs = decoder_sample_batched.steps, decoder_sample_batched.host_syncs
+    finally:
+        loader.load_state(loader.state())  # stops and joins the prefetch threads
+    eval_launches = read_launches()
+    ex, scan = turns["exit"], turns["scan"]
+    if not ex["same_json"] or ex["captions"] != scan["captions"]:
+        fail(f"[34] the batch-wide exit on and off wrote different predictions JSON")
+    if not ex["host_syncs"] or scan["host_syncs"] or scan["steps"] != SEQ_LEN * scan[
+            "timing"]["groups"]:
+        fail(f"[34] exit syncs {ex['host_syncs']} on, {scan['host_syncs']} off; "
+             f"{scan['steps']} steps off")
+    # a group's exit fires after the step where its last caption ended:
+    # with every caption shorter than L - 1 tokens (or none kept: a video
+    # whose captions all end at the first token keeps none) no group may
+    # run all L steps
+    g = rec["greedy"]
+    if g["max_caption_len"] < SEQ_LEN - 1 and ex["steps"] >= scan["steps"]:
+        fail(f"[34] every caption ended before step {SEQ_LEN - 1}, yet the exit ran "
+             f"{ex['steps']} steps of {scan['steps']}")
+    if g["captions"] and not g["captions_ended_early"]:
+        print(f"[34] no caption ends before step {SEQ_LEN}: the exit cannot fire here")
+    if not g["captions"]:
+        print(f"[34] every greedy caption ends at its first token (no video keeps one): the "
+              f"exit stops each group after {ex['steps'] / scan['timing']['groups']:.1f} steps")
+    for form, r in turns.items():
+        print(f"[34] greedy, batch-wide exit {'on' if form == 'exit' else 'off'} "
+              f"({form}): {r['videos_per_s']:.2f} eval videos/s (least of "
+              f"{TRAINED_WINDOWS} passes in turns, {r['s']:.3f} s, unscored), {r['steps']} "
+              f"decode steps, {r['host_syncs']} exit syncs, mean caption length "
+              f"{r['mean_len']:.2f} of {SEQ_LEN}, {r['captions']} captions; predictions JSON the "
+              f"same in every pass: {r['same_json']}; timing_out "
+              f"{ {k: round(v, 3) for k, v in r['timing'].items() if isinstance(v, float)} } "
+              f"[{card}]")
+    n_pv = sum(len(v) for v in preds.values())
+    rec["exit_on_off"] = {form: {k: r[k] for k in ("videos_per_s", "s", "steps", "host_syncs",
+                                                   "mean_len", "captions", "same_json")}
+                          for form, r in turns.items()}
+    rec["per_video"] = {"videos": len(preds), "captions": n_pv, "captions_per_s": n_pv / pv_wall,
+                        "decode_steps": pv_steps, "exit_syncs": pv_syncs}
+    print(f"[34] per-video eval_split, runtime.decode_early_exit on: {len(preds)} videos, {n_pv} "
+          f"captions in {pv_wall:.2f} s: {n_pv / pv_wall:.1f} captions/s, "
+          f"{len(preds) / pv_wall:.2f} videos/s; {pv_steps} decode steps ({pv_syncs} exit syncs, "
+          f"{len(preds) * SEQ_LEN} without the exit) [{card}]")
+    rec["beam4_minus_greedy_METEOR_x100"] = (rec["beam4"]["scores_x100"].get("METEOR", 0.0)
+                                             - rec["greedy"]["scores_x100"].get("METEOR", 0.0))
+    launches = {"trained_train": train_launches, "trained_eval": eval_launches}
+    return rec, launches, (fwd, raws), (kept_greedy, kept_beam)
+
+
+def trained_kernels(card, train_inputs, kept):
+    """Phase 34(c): kernel 1 at the trained greedy and beam-4 decode steps,
+    kernels 3 and 4 at one training step of the trained weights, each held
+    against its plain version and timed; kernels 5 and 6 at the two decode
+    steps, held and timed in turns with the kernel-1 route.  Returns the
+    records by kernel."""
+    (fwd, raws), (greedy, beam) = train_inputs, kept
+    if not fwd or not raws:
+        fail(f"[34] the training step called kernel 3 {len(fwd)} and kernel 4 {len(raws)} times")
+    density = sum(int(r[4].ne(0).sum()) for r in fwd) / sum(r[4].numel() for r in fwd)
+    share = sum(int(r[3].ne(0).sum()) for r in raws) / sum(r[3].numel() for r in raws)
+    print(f"[34] (c) one more training step on the trained weights: kernel 3 saw {len(fwd)} "
+          f"window masks, {density:.4f} of their entries live; kernel 4 saw {len(raws)} "
+          f"cotangents, {share:.4f} nonzero")
+    out = {"attention_scores_masked": {
+        "trained_greedy_step": kernel1_timing(card, "phase 34's trained greedy step", greedy[:5]),
+        "trained_beam_step": kernel1_timing(card, "phase 34's trained beam-4 step", beam[:5])},
+        "attention_scores_dense": kernel3_timing(card, "the trained step's masks", fwd, tag="34"),
+        "attention_scores_bwd": kernel4_timing(card, "the trained step's cotangents", raws,
+                                               tag="34")}
+    for name, label, args in (("trained_greedy_step", "phase 34's trained greedy step", greedy),
+                              ("trained_beam_step", "phase 34's trained beam-4 step", beam)):
+        for k, r in step_records(card, "34", label, step_inputs(args)).items():
+            out.setdefault(k, {})[name] = r
+    return out
+
+
+def phase_trained(card, dev="cuda"):
+    """Phase 34: the recipe's chain (a), the trained eval (b) and the kernels
+    at trained inputs (c).  Returns (its record, the launches by path, the
+    kernel records)."""
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        chain, chain_launches = trained_chain(card, root, dev)
+        rec, launches, train_inputs, kept = trained_eval(card, root, dev)
+    launches["recipe_chain"] = chain_launches
+    kernels = trained_kernels(card, train_inputs, kept)
+    rec = {"card": card, "chain": chain, **rec, "phase_wall_s": time.time() - t_phase}
+    print(f"[34] phase wall {rec['phase_wall_s']:.1f} s [{card}]")
+    return rec, launches, kernels
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -5314,6 +5805,13 @@ def main():
     tp_launches, head["vocab_block"] = phase_tensor_parallel(card)
     single, windowed["grouped_attention_by_input"] = phase_single_process(card)
     host_native, host_launches = phase_host_native(card)
+    trained, trained_launches, trained_k = phase_trained(card)
+    k1_inputs.update(trained_k["attention_scores_masked"])
+    dense["trained_masks"] = trained_k["attention_scores_dense"]
+    bwd["trained_g"] = trained_k["attention_scores_bwd"]
+    for rec, name in ((fused, "attention_fused"), (windowed, "windowed_attention")):
+        rec["by_input"].update(trained_k[name])
+        rec["max_abs_err"] = max(r["max_abs_err"] for r in rec["by_input"].values())
     scores.update(by_input=k1_inputs, beam_chunk_profile=beam_launches["kernel1_profile"])
     for rec in (scores, dense, bwd, fused, windowed, *overlap.values()):
         add_tanh_floor(rec, scores["tanh_per_ms"], "kernel 1 with every entry live (phase 2)")
@@ -5322,7 +5820,8 @@ def main():
               f"{rec['tanh_floor_ms']:.4f} ms, live-work bound {rec['bound_ms']:.4f} ms [{card}]")
     for name, rec in (("every entry live", dense), ("windows in random order",
                                                     dense["windows"]),
-                      ("the training step's masks", dense["training_masks"])):
+                      ("the training step's masks", dense["training_masks"]),
+                      ("the trained step's masks (phase 34)", dense["trained_masks"])):
         print(f"[7] kernel 3, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
               f"{rec['tanh_floor_ms']:.4f} ms, live-work bound {rec['bound_ms']:.4f} ms [{card}]")
     for k, rec in ((5, fused), (6, windowed)):
@@ -5334,7 +5833,8 @@ def main():
                   f"tanh-rate floor {r['tanh_floor_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
                   f"{host} [{card}]")
     for name, rec in (("dense g", bwd), ("windowed g", bwd["windowed_g"]),
-                      ("the training step's g", bwd["training_g"])):
+                      ("the training step's g", bwd["training_g"]),
+                      ("the trained step's g (phase 34)", bwd["trained_g"])):
         print(f"[8] kernel 4, {name}: {rec['ms']:.4f} ms, tanh-rate floor "
               f"{rec['tanh_floor_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms [{card}]")
     k1_paths = {"greedy": launches["attention_scores_masked"],
@@ -5347,7 +5847,9 @@ def main():
                 **{name: n["attention_scores_masked"] for name, n in real.items()},
                 **{name: n["attention_scores_masked"] for name, n in pervideo.items()},
                 "data_parallel": dp["data_parallel"]["attention_scores_masked"],
-                "decode_switches": single["decode_switches"]["attention_scores_masked"]}
+                "decode_switches": single["decode_switches"]["attention_scores_masked"],
+                **{name: trained_launches[name]["attention_scores_masked"]
+                   for name in ("recipe_chain", "trained_eval")}}
     k2_paths = {"greedy": launches["greedy_head"], "eval_greedy": evals["eval_greedy"]["greedy_head"],
                 "checkpointed_train": ckpt_launches["greedy_head"],
                 "scst_train": scst_launches["greedy_head"],
@@ -5356,7 +5858,9 @@ def main():
                 **{name: n["greedy_head"] for name, n in pervideo.items()},
                 "data_parallel": dp["data_parallel"]["greedy_head"],
                 "tensor_parallel_baseline": tp_launches["greedy_head"],
-                "decode_switches": single["decode_switches"]["greedy_head"]}
+                "decode_switches": single["decode_switches"]["greedy_head"],
+                **{name: trained_launches[name]["greedy_head"]
+                   for name in ("recipe_chain", "trained_eval")}}
     k3_paths, k4_paths = ({"train": launches[k], "checkpointed_train": ckpt_launches[k],
                            "scst_train": scst_launches[k], "decoder_family": family[k],
                            "train_sync_and_pipelined": pipe_launches[k],
@@ -5364,7 +5868,9 @@ def main():
                            **{name: n[k] for name, n in dp.items()},
                            "tensor_parallel": tp_launches[k],
                            "scst_resident_and_replay": single["scst_resident"][k],
-                           "host_native_train_loops": host_launches[k]}
+                           "host_native_train_loops": host_launches[k],
+                           **{name: trained_launches[name][k]
+                              for name in ("recipe_chain", "trained_train")}}
                           for k in ("attention_scores_dense", "attention_scores_bwd"))
     kernels = [
         {"name": "attention_scores_masked", "route": "cuda",
@@ -5409,6 +5915,7 @@ def main():
     if foreign:
         fail(f"imported {foreign[:5]}")
     print(json.dumps({"host_native": host_native}))
+    print(json.dumps({"trained": trained}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

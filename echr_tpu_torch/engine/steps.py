@@ -238,24 +238,40 @@ def _batch_losses(models: nn.ModuleDict, cfg: Config, batch: VideoBatch, phase: 
 
 
 def grad_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generator],
-              cfg: Config, phase: str, ss_prob: float = 0.0
+              cfg: Config, phase: str, ss_prob: float = 0.0, updated_only: bool = False
               ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, torch.Tensor]]:
     """Gradients of the phase loss (the mean over the batch's videos) for
     every parameter of both models, and the metrics as 0-d tensors on the
     device (``fetch_metrics`` makes them floats).  Dropout and scheduled
-    sampling draw from ``gen``; ``gen=None`` turns both off."""
-    return _phase_grads(state, cfg, phase, _batch_losses, batch, phase, gen, ss_prob)
+    sampling draw from ``gen``; ``gen=None`` turns both off.
+    ``updated_only``: gradients only for the models the phase updates,
+    zeros for the other, whose forward builds no graph (phase 'cg' runs no
+    SST backward), as echr_tpu's jitted train_step, whose compiler drops
+    the gradients it never applies."""
+    return _phase_grads(state, cfg, phase, _batch_losses, batch, phase, gen, ss_prob,
+                        updated_only=updated_only)
 
 
-def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args
+def _phase_grads(state: TrainState, cfg: Config, phase: str, losses_fn, *args,
+                 updated_only: bool = False
                  ) -> Tuple[Tuple[List[torch.Tensor], List[torch.Tensor]], Dict[str, torch.Tensor]]:
     """Gradients of the phase loss of losses_fn(models, cfg, *args), a dict
     of batch-mean losses computed with the weights in the compute dtype,
     for every parameter of both models; and the metrics as detached 0-d
-    tensors on the device, so that no metric makes the host wait."""
+    tensors on the device, so that no metric makes the host wait.
+    ``updated_only``: a model the phase does not update runs its forward
+    with its parameters out of the graph, and gets zero gradients."""
     models = nn.ModuleDict({"tap": state.tap, "cg": state.cg})  # one cast for both
-    metrics = call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
-                                    losses_fn, cfg, *args)
+    frozen = [m for m, phases in ((state.tap, UPDATES_TAP), (state.cg, UPDATES_CG))
+              if updated_only and phase not in phases]
+    for m in frozen:
+        m.requires_grad_(False)
+    try:
+        metrics = call_in_compute_dtype(models, compute_dtype(cfg.runtime.compute_dtype),
+                                        losses_fn, cfg, *args)
+    finally:
+        for m in frozen:
+            m.requires_grad_(True)
     return _grads_of(state, metrics, phase)
 
 
@@ -311,7 +327,8 @@ def train_step(state: TrainState, batch: VideoBatch, gen: Optional[torch.Generat
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One training step over a [B]-video batch of tensors on the models'
     device (``batch_to_device``); the metrics stay on the device."""
-    (tap_g, cg_g), metrics = grad_step(state, batch, gen, cfg, phase, ss_prob)
+    (tap_g, cg_g), metrics = grad_step(state, batch, gen, cfg, phase, ss_prob,
+                                       updated_only=True)
     return apply_grads(state, tap_g, cg_g, cfg, phase), metrics
 
 

@@ -892,7 +892,7 @@ def _train(cfg: Config, dataset, loader: Loader, eval_loader: Loader, save_folde
                 t0 = tic()
                 grads, step_metrics = grad_step(
                     state, batch_to_device(_stack_batch(batch), device), gen, cfg, phase,
-                    ss_prob)
+                    ss_prob, updated_only=True)
                 acc_grads = grads if acc_grads is None else tuple(
                     [a + g for a, g in zip(acc, new)] for acc, new in zip(acc_grads, grads))
                 if (iteration + 1) % cfg.train.m_batch == 0:

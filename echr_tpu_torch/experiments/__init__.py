@@ -8,6 +8,8 @@ shapes:
   probe_streaming_head2  — kernel 8's tile sweep against X0 and XM
   probe_mxu_vpu_overlap  — kernels 9 and 10: does tensor-core work hide
                            under the tanh work?
+  probe_trained_e2e      — the batched eval of a trained checkpoint with the
+                           batch-wide early exit on and off
 
 and two probes of the port's own, with no JAX original:
 
@@ -17,10 +19,15 @@ and two probes of the port's own, with no JAX original:
   probe_scst_replay      — SCST's replay against its rollout: the first
                            product that differs (ROADMAP.md C.2)
 
-Each has ``run(device="cuda", ...)``, which prints the probe's table and
-returns its record, and runs as ``python -m echr_tpu_torch.experiments.<name>``.
-Importing a probe runs nothing.  The JAX probes under experiments/ stay
-the reference.
+Each has ``run(device="cuda", ...)`` (probe_trained_e2e: ``load`` and
+``compare``), which prints the probe's table and returns its record, and
+runs as ``python -m echr_tpu_torch.experiments.<name>``.  Importing a
+probe runs nothing.  The JAX probes under experiments/ stay the
+reference.
+
+``recipe`` is the counterpart of the shell scripts under experiments/:
+the published 3-stage recipe and its SCST stage as command lines,
+``run_stage`` and ``soak`` (``python -m echr_tpu_torch.experiments.recipe``).
 """
 from __future__ import annotations
 

@@ -96,6 +96,8 @@ def test_port_sources_stay_off_jax_and_library_kernels():
     assert FOREIGN_IMPORT.search("from experiments import probe_greedy_head\n")
     assert not FOREIGN_IMPORT.search("from echr_tpu_torch.experiments import probe_device\n")
     assert PKG / "experiments" / "probe_mxu_vpu_overlap.py" in sources
+    assert {PKG / "experiments" / "recipe.py",
+            PKG / "experiments" / "probe_trained_e2e.py"} <= set(sources)
 
 
 _CHILD = textwrap.dedent("""
@@ -183,4 +185,6 @@ def test_port_runs_without_jax(tmp_path):
     assert "echr_tpu_torch.experiments.probe_streaming_head2" in _all_modules()
     assert {"echr_tpu_torch.engine.checkpoint", "echr_tpu_torch.utils.tb",
             "echr_tpu_torch.cli.train", "echr_tpu_torch.cli.eval",
-            "echr_tpu_torch.cli.score", "echr_tpu_torch.native"} <= set(_all_modules())
+            "echr_tpu_torch.cli.score", "echr_tpu_torch.native",
+            "echr_tpu_torch.experiments.recipe",
+            "echr_tpu_torch.experiments.probe_trained_e2e"} <= set(_all_modules())
