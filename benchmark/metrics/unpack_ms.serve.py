@@ -1,0 +1,14 @@
+"""unpack_ms.serve: the selection's Python (serve.unpack_selections: each
+video's unpack_topk_selection, the proposal arrays and their copies to
+the card), in ms a chunk: the change of the port's counter
+unpack_selections.host_ns over each chunk (the host's clock, no device
+barrier), the mean over the chunks outside the profiled stretch."""
+
+KEY = "unpack_selections.host_ns"
+
+
+def read(rec):
+    cs = [c for c in rec["chunks"] if not c["profiled"]]
+    if not cs or any(KEY not in c["counters"] for c in cs):
+        return None
+    return 1e-6 * sum(c["counters"][KEY] for c in cs) / len(cs)

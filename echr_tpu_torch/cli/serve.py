@@ -11,10 +11,17 @@ predictions layout, so ``echr_tpu_torch.cli.score`` scores it.
 Example:
   python -m echr_tpu_torch.cli.serve --checkpoint save/RUN/model-best.ckpt \\
       --features_dir /data/c3d --output captions.json --beam_size 4
+
+With ``--trace_dir DIR`` the whole corpus runs under torch.profiler
+(``utils/profiling.device_trace``), which writes ``DIR/trace.json``: one
+Chrome trace with the serving path's spans (``serve.caption``,
+``serve.pad``, ``sst.encode``, ``select.*``, ``decode.*``,
+``serve.render``, ``gc.gen<N>``) and the card's kernels on one clock.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import logging
@@ -26,6 +33,7 @@ import numpy as np
 
 from echr_tpu_torch.data.dataset import C3D_MEAN, C3D_VAR
 from echr_tpu_torch.serve import CaptionRequest, from_checkpoint
+from echr_tpu_torch.utils.profiling import TRACE_FILE, device_trace
 
 log = logging.getLogger("echr_tpu_torch.serve_cli")
 
@@ -54,6 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "pipeline applies to raw on-disk C3D features "
                         "(reference: dataloader.py:49-51)")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="run the corpus under torch.profiler and write one Chrome "
+                        "trace of the program's spans and the card's kernels to "
+                        f"<trace_dir>/{TRACE_FILE}")
     return p
 
 
@@ -78,17 +90,20 @@ def main(argv=None) -> dict:
     # features, not the directory
     results = {}
     t0 = time.time()
-    for i0 in range(0, len(files), ns.batch_videos):
-        requests = []
-        for path in files[i0:i0 + ns.batch_videos]:
-            vid = os.path.splitext(os.path.basename(path))[0]
-            feats = np.load(path).astype(np.float32)
-            if not ns.pre_normalized:
-                feats = (feats - C3D_MEAN) / np.sqrt(C3D_VAR)
-            dur = float(durations.get(vid, feats.shape[0] * ns.feature_seconds))
-            requests.append(CaptionRequest(vid=vid, feats=feats, duration=dur))
-        results.update(service.caption(requests))
+    with device_trace(ns.trace_dir) if ns.trace_dir else contextlib.nullcontext():
+        for i0 in range(0, len(files), ns.batch_videos):
+            requests = []
+            for path in files[i0:i0 + ns.batch_videos]:
+                vid = os.path.splitext(os.path.basename(path))[0]
+                feats = np.load(path).astype(np.float32)
+                if not ns.pre_normalized:
+                    feats = (feats - C3D_MEAN) / np.sqrt(C3D_VAR)
+                dur = float(durations.get(vid, feats.shape[0] * ns.feature_seconds))
+                requests.append(CaptionRequest(vid=vid, feats=feats, duration=dur))
+            results.update(service.caption(requests))
     dt = time.time() - t0
+    if ns.trace_dir:
+        log.info("wrote %s", os.path.join(ns.trace_dir, TRACE_FILE))
     n_caps = sum(len(v) for v in results.values())
     log.info("captioned %d videos (%d captions) in %.2fs (%.1f captions/s)",
              len(results), n_caps, dt, n_caps / max(dt, 1e-9))

@@ -79,6 +79,7 @@ from echr_tpu_torch.models.decoder import decoder_sample_batched
 from echr_tpu_torch.models.sst import SST, sst_forward_batched
 from echr_tpu_torch.ops.core import call_in_compute_dtype, compute_dtype
 from echr_tpu_torch.parallel import mesh
+from echr_tpu_torch.utils.profiling import span
 
 UPDATES_TAP = ("tap", "tap_cg", "gt_tap_cg")
 UPDATES_CG = ("cg", "gt_tap_cg", "tap_cg", "LP_cg")
@@ -496,8 +497,14 @@ def val_loss_step_batched(tap: SST, cg: Captioner, batch: VideoBatch, cfg: Confi
 @torch.inference_mode()
 def encode_step_batched(sst: SST, feats: torch.Tensor, cfg: Config
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval-mode SST over [B, T, D] -> (tap_feats [B, T, H], scores [B, T, K])."""
-    return sst_forward_batched(sst, feats, compute_dtype(cfg.runtime.compute_dtype))
+    """Eval-mode SST over [B, T, D] -> (tap_feats [B, T, H], scores [B, T, K]).
+    ``encode_step_batched.host_ns``: the host's time issuing it (the LSTM's
+    launches frame by frame); the card runs behind."""
+    with span("sst.encode", encode_step_batched):
+        return sst_forward_batched(sst, feats, compute_dtype(cfg.runtime.compute_dtype))
+
+
+encode_step_batched.host_ns = 0
 
 
 @torch.inference_mode()
@@ -511,29 +518,30 @@ def select_topk_batched(pred_props: torch.Tensor, n_frames: torch.Tensor, topN: 
 
     pred_props [B, T, K], n_frames [B] -> (flat_idx [B, nb] int32 into the
     [T, K] grid with fill T*K, count [B] int32, confidence [B, nb])."""
-    B, T, K = pred_props.shape
-    dev = pred_props.device
-    t = torch.arange(T, device=dev)[:, None]
-    k = torch.arange(K, device=dev)[None, :]
-    amask = (k < torch.clamp(t, max=K)).to(pred_props.dtype)  # anchor_mask
-    valid_t = (torch.arange(T, device=dev)[None, :] < n_frames[:, None])[:, :, None]
-    masked = pred_props * amask * valid_t
-    flat = masked.reshape(B, T * K)
-    # frames past n_frames are zero and scores are >= 0, so the topN-th
-    # largest over T*K equals the host's over n_frames*K
-    thr = torch.topk(flat, min(topN, T * K), dim=1).values[:, -1]
-    thr = torch.clamp(thr, min=val_score_thres)
-    sel = (masked >= thr[:, None, None]) & (t >= k) & valid_t
-    sel = sel.reshape(B, T * K)
-    pos = torch.arange(T * K, device=dev).expand(B, T * K)
-    key = torch.where(sel, pos, T * K)
-    idx = torch.sort(key, dim=1).values[:, :nb]
-    if idx.shape[1] < nb:
-        idx = torch.cat([idx, torch.full((B, nb - idx.shape[1]), T * K, device=dev,
-                                         dtype=idx.dtype)], dim=1)
-    conf = torch.where(idx < T * K, torch.gather(flat, 1, torch.clamp(idx, max=T * K - 1)),
-                       torch.zeros((), device=dev, dtype=flat.dtype))
-    return idx.to(torch.int32), sel.sum(dim=1).to(torch.int32), conf
+    with span("select.topk"):
+        B, T, K = pred_props.shape
+        dev = pred_props.device
+        t = torch.arange(T, device=dev)[:, None]
+        k = torch.arange(K, device=dev)[None, :]
+        amask = (k < torch.clamp(t, max=K)).to(pred_props.dtype)  # anchor_mask
+        valid_t = (torch.arange(T, device=dev)[None, :] < n_frames[:, None])[:, :, None]
+        masked = pred_props * amask * valid_t
+        flat = masked.reshape(B, T * K)
+        # frames past n_frames are zero and scores are >= 0, so the topN-th
+        # largest over T*K equals the host's over n_frames*K
+        thr = torch.topk(flat, min(topN, T * K), dim=1).values[:, -1]
+        thr = torch.clamp(thr, min=val_score_thres)
+        sel = (masked >= thr[:, None, None]) & (t >= k) & valid_t
+        sel = sel.reshape(B, T * K)
+        pos = torch.arange(T * K, device=dev).expand(B, T * K)
+        key = torch.where(sel, pos, T * K)
+        idx = torch.sort(key, dim=1).values[:, :nb]
+        if idx.shape[1] < nb:
+            idx = torch.cat([idx, torch.full((B, nb - idx.shape[1]), T * K, device=dev,
+                                             dtype=idx.dtype)], dim=1)
+        conf = torch.where(idx < T * K, torch.gather(flat, 1, torch.clamp(idx, max=T * K - 1)),
+                           torch.zeros((), device=dev, dtype=flat.dtype))
+        return idx.to(torch.int32), sel.sum(dim=1).to(torch.int32), conf
 
 
 def unpack_topk_selection(idx_row, count, nb: int, K: int, n_frames: int,

@@ -40,6 +40,7 @@ from echr_tpu_torch.models.decoder import (
     sort_gate,
     step_logprobs,
 )
+from echr_tpu_torch.utils.profiling import span
 
 _NEG_INF = -1e30
 
@@ -119,62 +120,69 @@ def beam_search_batched(dec: Decoder, cfg: Config, ctxs: Contexts, beam_size: in
     Bucket-padding proposals (prop_mask 0) come back as zeros.  Every
     decode step (the <bos> step included) adds one to
     ``beam_search_batched.steps``."""
-    B, N = ctxs.prop_mask.shape
-    k = beam_size
-    L = cfg.decoder.CG_seq_length
-    dev = ctxs.prop_mask.device
+    with span("decode.loop", beam_search_batched):
+        B, N = ctxs.prop_mask.shape
+        k = beam_size
+        L = cfg.decoder.CG_seq_length
+        dev = ctxs.prop_mask.device
 
-    inv = None
-    if sort_gate(cfg, ctxs):
-        ctxs, inv = sort_ctxs_by_window(ctxs)
-    bctx = _expand_ctxs(ctxs, k)
-    pre = precompute_attention(dec, cfg, bctx, dtype)
-    state = init_state(dec, cfg, bctx, N * k, dtype)
-    it = torch.zeros(B, N * k, dtype=torch.int32, device=dev)  # <bos> == 0
-    logprobs, state = step_logprobs(dec, cfg, it, bctx, pre, state, dtype)
-    beam_search_batched.steps += 1
-
-    # only beam 0 is live at first, so identical first-step beams do not
-    # duplicate candidates
-    scores = torch.full((B, N, k), _NEG_INF, device=dev)
-    scores[..., 0] = 0.0
-    finished = torch.zeros(B, N, k, dtype=torch.bool, device=dev)
-    tokens = torch.zeros(B, N, k, L, dtype=torch.int32, device=dev)
-    pad = ctxs.prop_mask <= 0  # [B, N], sorted order
-
-    for t in range(L):
-        finished, scores, tokens, emit, flat_src = _beam_step(finished, scores, tokens,
-                                                              logprobs, t)
-        if t == L - 1:
-            break
-        if early_exit:
-            beam_search_batched.host_syncs += 1
-            if bool((finished | pad[..., None]).all()):
-                break
-        logprobs, state = step_logprobs(dec, cfg, emit.reshape(B, N * k), bctx, pre,
-                                        _reorder(state, flat_src), dtype)
+        inv = None
+        if sort_gate(cfg, ctxs):
+            ctxs, inv = sort_ctxs_by_window(ctxs)
+        bctx = _expand_ctxs(ctxs, k)
+        pre = precompute_attention(dec, cfg, bctx, dtype)
+        state = init_state(dec, cfg, bctx, N * k, dtype)
+        it = torch.zeros(B, N * k, dtype=torch.int32, device=dev)  # <bos> == 0
+        logprobs, state = step_logprobs(dec, cfg, it, bctx, pre, state, dtype)
         beam_search_batched.steps += 1
 
-    # padding proposals decode garbage from their [0, 1) window: zero them
-    tokens = torch.where(pad[..., None, None], torch.zeros_like(tokens), tokens)
-    scores = torch.where(pad[..., None], torch.zeros_like(scores), scores)
-    ranked = scores
-    if length_alpha > 0.0:
-        lengths = (tokens != 0).sum(dim=3).float() + 1.0
-        ranked = scores / torch.pow((5.0 + lengths) / 6.0, length_alpha)
-    order = torch.argsort(-ranked, dim=2, stable=True)
-    all_seqs = torch.gather(tokens, 2, order[..., None].expand(tokens.shape))
-    all_scores = torch.gather(scores, 2, order)
-    if inv is not None:  # undo the window sort
-        all_seqs = torch.gather(all_seqs, 1, inv[:, :, None, None].expand(all_seqs.shape))
-        all_scores = torch.gather(all_scores, 1, inv[:, :, None].expand(all_scores.shape))
-    return BeamResult(all_seqs[:, :, 0], all_scores[:, :, 0], all_seqs, all_scores)
+        # only beam 0 is live at first, so identical first-step beams do not
+        # duplicate candidates
+        scores = torch.full((B, N, k), _NEG_INF, device=dev)
+        scores[..., 0] = 0.0
+        finished = torch.zeros(B, N, k, dtype=torch.bool, device=dev)
+        tokens = torch.zeros(B, N, k, L, dtype=torch.int32, device=dev)
+        pad = ctxs.prop_mask <= 0  # [B, N], sorted order
+
+        for t in range(L):
+            with span("decode.step"):
+                finished, scores, tokens, emit, flat_src = _beam_step(finished, scores, tokens,
+                                                                      logprobs, t)
+                if t == L - 1:
+                    break
+                if early_exit:
+                    beam_search_batched.host_syncs += 1
+                    with span("decode.sync", beam_search_batched, "sync_wait_ns"):
+                        done = bool((finished | pad[..., None]).all())
+                    if done:
+                        break
+                logprobs, state = step_logprobs(dec, cfg, emit.reshape(B, N * k), bctx, pre,
+                                                _reorder(state, flat_src), dtype)
+                beam_search_batched.steps += 1
+
+        # padding proposals decode garbage from their [0, 1) window: zero them
+        tokens = torch.where(pad[..., None, None], torch.zeros_like(tokens), tokens)
+        scores = torch.where(pad[..., None], torch.zeros_like(scores), scores)
+        ranked = scores
+        if length_alpha > 0.0:
+            lengths = (tokens != 0).sum(dim=3).float() + 1.0
+            ranked = scores / torch.pow((5.0 + lengths) / 6.0, length_alpha)
+        order = torch.argsort(-ranked, dim=2, stable=True)
+        all_seqs = torch.gather(tokens, 2, order[..., None].expand(tokens.shape))
+        all_scores = torch.gather(scores, 2, order)
+        if inv is not None:  # undo the window sort
+            all_seqs = torch.gather(all_seqs, 1, inv[:, :, None, None].expand(all_seqs.shape))
+            all_scores = torch.gather(all_scores, 1, inv[:, :, None].expand(all_scores.shape))
+        return BeamResult(all_seqs[:, :, 0], all_scores[:, :, 0], all_seqs, all_scores)
 
 
 # decode steps run (the <bos> step included) and early-exit host syncs
-# taken, by all calls
+# taken, by all calls; the host's ns in the calls, and of them in the
+# early exit's syncs
 beam_search_batched.steps = 0
 beam_search_batched.host_syncs = 0
+beam_search_batched.host_ns = 0
+beam_search_batched.sync_wait_ns = 0
 
 
 def beam_search(dec: Decoder, cfg: Config, ctxs: Contexts, beam_size: int,

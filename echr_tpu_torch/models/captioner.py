@@ -20,6 +20,7 @@ from echr_tpu_torch.models.decoder import (
     teacher_forced_nll,
 )
 from echr_tpu_torch.models.tsrm import TSRM
+from echr_tpu_torch.utils.profiling import span
 
 
 class ProposalBatch(NamedTuple):
@@ -51,9 +52,16 @@ def make_contexts(
     train: bool = False,
     gen: Optional[torch.Generator] = None,
 ) -> Contexts:
-    return build_contexts(cg.fusion, cfg, tap_feats, c3d_feats, lda_feats,
-                          props.ind_select, props.soi, props.prop_mask,
-                          frame_mask=frame_mask, dtype=dtype, train=train, gen=gen)
+    """The decoder's contexts (TSRM over the events where the config routes
+    them through it); ``make_contexts.host_ns``: the host's time issuing
+    them."""
+    with span("decode.contexts", make_contexts):
+        return build_contexts(cg.fusion, cfg, tap_feats, c3d_feats, lda_feats,
+                              props.ind_select, props.soi, props.prop_mask,
+                              frame_mask=frame_mask, dtype=dtype, train=train, gen=gen)
+
+
+make_contexts.host_ns = 0
 
 
 def captioner_train_forward(

@@ -88,6 +88,7 @@ from echr_tpu_torch.parallel.tensor import (
     vocab_logp,
     vocab_nll,
 )
+from echr_tpu_torch.utils.profiling import span
 
 
 class DecoderState(NamedTuple):
@@ -845,76 +846,83 @@ def decoder_sample_batched(dec: Decoder, cfg: Config, ctxs: Contexts,
     if forced is None and not greedy and sample_gen is None:
         raise ValueError("decoder_sample_batched(greedy=False) needs sample_gen for the "
                          "categorical draws")
-    B, N = ctxs.prop_mask.shape
-    L = cfg.decoder.CG_seq_length
-    dev = ctxs.prop_mask.device
-    if early_exit is None:
-        early_exit = bool(cfg.runtime.decode_early_exit_batched)
-    tp = shard_of(dec)
+    with span("decode.loop", decoder_sample_batched):
+        B, N = ctxs.prop_mask.shape
+        L = cfg.decoder.CG_seq_length
+        dev = ctxs.prop_mask.device
+        if early_exit is None:
+            early_exit = bool(cfg.runtime.decode_early_exit_batched)
+        tp = shard_of(dec)
 
-    greedy_eval = greedy and not train and forced is None
-    stream_head = greedy_eval and bool(cfg.runtime.use_pallas_head)
-    inv = None
-    if greedy_eval and sort_gate(cfg, ctxs):
-        ctxs, inv = sort_ctxs_by_window(ctxs)
-    pre_att = precompute_attention(dec, cfg, ctxs, dtype)
-    state = init_state(dec, cfg, ctxs, N, dtype)
-    if stream_head:
-        # once, outside the loop; on a vocab-sharded decoder the rank's block
-        head_w, head_b = prepare_head(dec.logit, dtype)
-
-    it = torch.zeros(B, N, dtype=torch.int32, device=dev)  # <bos> == 0
-    out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype, train, gen)
-    real = ctxs.prop_mask > 0
-    unfinished = torch.ones(B, N, dtype=torch.bool, device=dev)
-    seq = torch.zeros(B, N, L, dtype=torch.int32, device=dev)
-    logps = torch.zeros(B, N, L, dtype=torch.float32, device=dev)
-    active_buf = torch.zeros(B, L, dtype=torch.bool, device=dev)
-    for t in range(L):
+        greedy_eval = greedy and not train and forced is None
+        stream_head = greedy_eval and bool(cfg.runtime.use_pallas_head)
+        inv = None
+        if greedy_eval and sort_gate(cfg, ctxs):
+            ctxs, inv = sort_ctxs_by_window(ctxs)
+        pre_att = precompute_attention(dec, cfg, ctxs, dtype)
+        state = init_state(dec, cfg, ctxs, N, dtype)
         if stream_head:
-            tok, mx, lse = greedy_head(out.reshape(B * N, -1), head_w, head_b)
-            if tp is not None:
-                tok, mx, lse = combine_heads(tok, mx, lse, tp, head_w.shape[0])
-            logp = mx - lse
-        elif forced is not None and tp is not None:
-            # the replay's logps without gathering the logits
-            tok = forced[:, :, t].reshape(B * N).long()
-            logp = vocab_logp(local_logits(dec, out, dtype).reshape(B * N, -1), tok, tp)
-        else:
-            logits = whole_logits(dec, out, dtype).reshape(B * N, -1)
-            lse = torch.logsumexp(logits, dim=-1)
-            if forced is not None:
-                tok = forced[:, :, t].reshape(B * N).long()
-            elif greedy:
-                tok = logits.argmax(dim=-1)
-            else:
-                tok = _categorical(logits, temperature, sample_gen)
-            logp = torch.gather(logits, 1, tok[:, None])[:, 0] - lse
-        it = tok.reshape(B, N).int()
-        unfinished = unfinished & (it > 0)
-        active = (unfinished & real).any(dim=1)  # [B]
-        # a finished video keeps writing zeros while others run
-        seq[:, :, t] = it * unfinished * active[:, None]
-        logps[:, :, t] = logp.reshape(B, N) * active[:, None]
-        active_buf[:, t] = active
-        decoder_sample_batched.steps += 1
-        if t == L - 1:
-            break
-        if forced is None and early_exit:
-            decoder_sample_batched.host_syncs += 1
-            if not bool(active.any()):
-                break
+            # once, outside the loop; on a vocab-sharded decoder the rank's block
+            head_w, head_b = prepare_head(dec.logit, dtype)
+
+        it = torch.zeros(B, N, dtype=torch.int32, device=dev)  # <bos> == 0
         out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype, train, gen)
-    if inv is not None:
-        idx = inv[:, :, None].expand(B, N, L)
-        seq = torch.gather(seq, 1, idx)
-        logps = torch.gather(logps, 1, idx)
-    return seq, logps, active_buf
+        real = ctxs.prop_mask > 0
+        unfinished = torch.ones(B, N, dtype=torch.bool, device=dev)
+        seq = torch.zeros(B, N, L, dtype=torch.int32, device=dev)
+        logps = torch.zeros(B, N, L, dtype=torch.float32, device=dev)
+        active_buf = torch.zeros(B, L, dtype=torch.bool, device=dev)
+        for t in range(L):
+            with span("decode.step"):
+                if stream_head:
+                    tok, mx, lse = greedy_head(out.reshape(B * N, -1), head_w, head_b)
+                    if tp is not None:
+                        tok, mx, lse = combine_heads(tok, mx, lse, tp, head_w.shape[0])
+                    logp = mx - lse
+                elif forced is not None and tp is not None:
+                    # the replay's logps without gathering the logits
+                    tok = forced[:, :, t].reshape(B * N).long()
+                    logp = vocab_logp(local_logits(dec, out, dtype).reshape(B * N, -1), tok, tp)
+                else:
+                    logits = whole_logits(dec, out, dtype).reshape(B * N, -1)
+                    lse = torch.logsumexp(logits, dim=-1)
+                    if forced is not None:
+                        tok = forced[:, :, t].reshape(B * N).long()
+                    elif greedy:
+                        tok = logits.argmax(dim=-1)
+                    else:
+                        tok = _categorical(logits, temperature, sample_gen)
+                    logp = torch.gather(logits, 1, tok[:, None])[:, 0] - lse
+                it = tok.reshape(B, N).int()
+                unfinished = unfinished & (it > 0)
+                active = (unfinished & real).any(dim=1)  # [B]
+                # a finished video keeps writing zeros while others run
+                seq[:, :, t] = it * unfinished * active[:, None]
+                logps[:, :, t] = logp.reshape(B, N) * active[:, None]
+                active_buf[:, t] = active
+                decoder_sample_batched.steps += 1
+                if t == L - 1:
+                    break
+                if forced is None and early_exit:
+                    decoder_sample_batched.host_syncs += 1
+                    with span("decode.sync", decoder_sample_batched, "sync_wait_ns"):
+                        done = not bool(active.any())
+                    if done:
+                        break
+                out, state = step_core_out(dec, cfg, it, ctxs, pre_att, state, dtype, train, gen)
+        if inv is not None:
+            idx = inv[:, :, None].expand(B, N, L)
+            seq = torch.gather(seq, 1, idx)
+            logps = torch.gather(logps, 1, idx)
+        return seq, logps, active_buf
 
 
-# token selections run, and early-exit host syncs taken, by all calls
+# token selections run, and early-exit host syncs taken, by all calls;
+# the host's ns in the calls, and of them in the early exit's syncs
 decoder_sample_batched.steps = 0
 decoder_sample_batched.host_syncs = 0
+decoder_sample_batched.host_ns = 0
+decoder_sample_batched.sync_wait_ns = 0
 
 
 def one_video_ctxs(ctxs: Contexts) -> Contexts:

@@ -25,6 +25,7 @@ from echr_tpu_torch.config import Config
 from echr_tpu_torch.ops.core import Dense, dense, dropout, parameter, round_to, uniform_
 from echr_tpu_torch.ops.masked import masked_softmax
 from echr_tpu_torch.parallel.tensor import copy_to_tp, gather_from_tp, shard_of
+from echr_tpu_torch.utils.profiling import span
 
 
 class GroupedProjection(nn.Module):
@@ -95,53 +96,54 @@ def tsrm_forward(p: TSRM, feats: torch.Tensor, soi: torch.Tensor, prop_mask: tor
     """feats [..., N, in], soi [..., N, 2], prop_mask [..., N] -> [..., N, d_o].
     Rows with prop_mask == 0 are padding; their outputs are unspecified.
     At train time with a generator, dropout 0.3 on the relation weights."""
-    f = cfg.fusion
-    N = feats.shape[-2]
-    lead = feats.shape[:-2]
-    g = f.n_head
-    dg = f.d_feats // g  # floor division, as the reference
+    with span("decode.tsrm"):
+        f = cfg.fusion
+        N = feats.shape[-2]
+        lead = feats.shape[:-2]
+        g = f.n_head
+        dg = f.d_feats // g  # floor division, as the reference
 
-    soi_feats = dense(p.event_emb, feats, dtype)  # [..., N, d]
-    q = dense(p.query, soi_feats, dtype).reshape(*lead, N, g, dg)
-    k = dense(p.key, soi_feats, dtype).reshape(*lead, N, g, dg)
-    aff_scale = torch.einsum("...qgd,...kgd->...qgk", round_to(q, dtype),
-                             round_to(k, dtype)) * (1.0 / math.sqrt(dg))
+        soi_feats = dense(p.event_emb, feats, dtype)  # [..., N, d]
+        q = dense(p.query, soi_feats, dtype).reshape(*lead, N, g, dg)
+        k = dense(p.key, soi_feats, dtype).reshape(*lead, N, g, dg)
+        aff_scale = torch.einsum("...qgd,...kgd->...qgk", round_to(q, dtype),
+                                 round_to(k, dtype)) * (1.0 / math.sqrt(dg))
 
-    if f.use_posit:
-        pos_emb = position_embedding(position_matrix(soi), f.d_feats)
-        pos1 = dense(p.pair_pos_fc1, pos_emb, dtype)
-        aff_weight = dense(p.pair_pos_fc2, torch.tanh(pos1), dtype)
-        aff_weight = aff_weight.transpose(-1, -2)  # [..., N(q), g, N(k)]
-        if f.fST_type == "fST0":
-            weighted = aff_weight * aff_scale
-        elif f.fST_type == "fST1":
-            weighted = aff_weight + aff_scale
-        elif f.fST_type == "fST2":
-            weighted = torch.log(torch.clamp(aff_weight, min=1e-6)) + aff_scale
-        elif f.fST_type == "fST3":
-            weighted = aff_weight
+        if f.use_posit:
+            pos_emb = position_embedding(position_matrix(soi), f.d_feats)
+            pos1 = dense(p.pair_pos_fc1, pos_emb, dtype)
+            aff_weight = dense(p.pair_pos_fc2, torch.tanh(pos1), dtype)
+            aff_weight = aff_weight.transpose(-1, -2)  # [..., N(q), g, N(k)]
+            if f.fST_type == "fST0":
+                weighted = aff_weight * aff_scale
+            elif f.fST_type == "fST1":
+                weighted = aff_weight + aff_scale
+            elif f.fST_type == "fST2":
+                weighted = torch.log(torch.clamp(aff_weight, min=1e-6)) + aff_scale
+            elif f.fST_type == "fST3":
+                weighted = aff_weight
+            else:
+                raise ValueError(f"unknown fST_type {f.fST_type!r}")
         else:
-            raise ValueError(f"unknown fST_type {f.fST_type!r}")
-    else:
-        weighted = aff_scale
+            weighted = aff_scale
 
-    key_mask = prop_mask[..., None, None, :].expand(weighted.shape)
-    att = masked_softmax(weighted, key_mask, dim=-1)
-    att = dropout(att, 0.3, gen, train)
+        key_mask = prop_mask[..., None, None, :].expand(weighted.shape)
+        att = masked_softmax(weighted, key_mask, dim=-1)
+        att = dropout(att, 0.3, gen, train)
 
-    tp = shard_of(p)
-    if tp is not None:
-        # the rank's heads: their relation weights and values take their
-        # gradient summed over the tp group
-        g = g // tp.tp
-        att = copy_to_tp(att, tp)[..., tp.m * g:(tp.m + 1) * g, :]
-        soi_feats = copy_to_tp(soi_feats, tp)
-    # heads attend over the raw embedded values (no V projection)
-    head_out = torch.einsum("...qgk,...kd->...qgd", round_to(att, dtype),
-                            round_to(soi_feats, dtype))  # [..., N, g, d]
-    w = p.out.weight.reshape(g, f.d_o // f.n_head, f.d_feats)
-    out = torch.einsum("...qgd,god->...qgo", round_to(head_out, dtype), w)
-    out = out.reshape(*lead, N, g * (f.d_o // f.n_head))
-    if tp is not None:
-        out = gather_from_tp(out, tp, -1)
-    return out + p.out.bias
+        tp = shard_of(p)
+        if tp is not None:
+            # the rank's heads: their relation weights and values take their
+            # gradient summed over the tp group
+            g = g // tp.tp
+            att = copy_to_tp(att, tp)[..., tp.m * g:(tp.m + 1) * g, :]
+            soi_feats = copy_to_tp(soi_feats, tp)
+        # heads attend over the raw embedded values (no V projection)
+        head_out = torch.einsum("...qgk,...kd->...qgd", round_to(att, dtype),
+                                round_to(soi_feats, dtype))  # [..., N, g, d]
+        w = p.out.weight.reshape(g, f.d_o // f.n_head, f.d_feats)
+        out = torch.einsum("...qgd,god->...qgo", round_to(head_out, dtype), w)
+        out = out.reshape(*lead, N, g * (f.d_o // f.n_head))
+        if tp is not None:
+            out = gather_from_tp(out, tp, -1)
+        return out + p.out.bias

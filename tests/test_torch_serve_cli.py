@@ -22,6 +22,7 @@ from echr_tpu.cli.serve import main as jax_serve_cli
 from echr_tpu_torch import bridge
 from echr_tpu_torch.cli import serve as cli_serve
 from echr_tpu_torch.engine import checkpoint, steps
+from echr_tpu_torch.utils.profiling import TRACE_FILE
 
 TOL = 5e-4
 
@@ -82,3 +83,20 @@ def test_serve_cli_needs_cuda_by_default(served, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_serve.main(["--checkpoint", str(ckpt), "--features_dir", str(fd),
                         "--output", str(tmp / "x.json")])
+
+
+def test_serve_cli_trace_dir_writes_the_spans(served):
+    """--trace_dir runs the corpus under the profiler: the same captions,
+    and one trace whose annotations hold the serving path's spans."""
+    from benchmark.arith import timeline
+
+    tmp, ckpt, fd = served
+    argv = ["--checkpoint", str(ckpt), "--features_dir", str(fd), "--batch_videos", "2",
+            "--topN", "6", "--device", "cpu"]
+    plain = cli_serve.main(argv + ["--output", str(tmp / "plain.json")])
+    traced = cli_serve.main(argv + ["--output", str(tmp / "traced.json"),
+                                    "--trace_dir", str(tmp / "trace")])
+    assert traced == plain
+    notes = [n for n, _, _ in timeline.read(str(tmp / "trace" / TRACE_FILE))["notes"]]
+    assert notes.count("serve.caption") == 3  # 5 videos, 2 a request
+    assert {"serve.pad", "sst.encode", "select.unpack", "decode.loop", "serve.render"} <= set(notes)
