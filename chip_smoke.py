@@ -36,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. the greedy slice: CaptionService at the flagship width (vocab 6000,
      30 steps) from the port's seeded init captions 64 requests of 256 x
      500 C3D features (two chunks of 32 videos, top-128 proposals: 4096
-     decode rows); both kernels' launch counts must equal the decode steps;
+     decode rows); both kernels' launch counts must equal the decode steps,
+     and kernel 11's (the SST's recurrence) one a chunk and SST layer;
   5. greedy parity: at f32 with TF32 off and sharpened logit weights, the
      slice with the kernels and under force_plain() gives the same tokens
      and logps within 5e-4;
@@ -168,7 +169,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      on; nothing cut): 1 warm-up and 4 timed steps.  Finite losses,
      avg_reward logged, moved parameters; kernel 1 launches once a greedy
      baseline decode step, kernel 2 too (R = B*N = 2048), kernel 3 once a
-     sampled decode step and 30 times a replay, kernel 4 30 times a step.
+     sampled decode step and 30 times a replay, kernel 4 30 times a step,
+     kernel 11 once a step and SST layer (the greedy baseline's eval-mode
+     encode; the sampled rollout's train-mode encode runs the loop).
      ms/step split into the rollouts (sampled + greedy baseline), the host
      METEOR reward (pool size, stemmer) and the update; the steps each
      rollout's early exit ran; peak device memory.  The reward pool's
@@ -181,7 +184,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels and under force_plain(); kernels 1 and 2 on copies of the
      baseline's first call, kernels 3 and 4 on copies of each of the
      replay's calls, against their plain versions within 5e-4 (kernel 4's
-     d_w within 1e-4 of its largest entry);
+     d_w within 1e-4 of its largest entry).  Then at bf16, train()'s first
+     SCST step at the flagship training width (batch_size 4): the
+     update's replay gives the rollout's tokens and exactly its logps (the
+     rollout's train-mode encode and the replay's both run the loop), and
+     kernel 11 launches once a layer, for the greedy baseline;
   25. multinomial eval: eval_split_batched with sample_max 0, temperature
      1, sample_seed 7 over phase 18's val split (tap_cg, top-128, batch 32,
      decode-only, every metric) after a warm-up group: well-formed
@@ -371,7 +378,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      (captions/s).  (c) kernel 1 at the trained greedy and beam-4 decode
      steps, kernels 3 and 4 at one training step of the trained weights,
      each held against its plain version and timed; kernels 5 and 6 at the
-     two decode steps, held and timed in turns with the kernel-1 route.
+     two decode steps, held and timed in turns with the kernel-1 route;
+  35. kernel 11 (the LSTM recurrence of the SST, one launch a layer)
+     against its plain loop under force_plain() at (B, T, H) = (128, 256,
+     512), (32, 256, 512) and (1, 256, 512), from zeros and from a given
+     (h0, c0), each on REC_SEEDS' inputs: every step from the loop's own
+     (h, c) within 1e-4 (hs and c), and the whole sequence (hs, hT, cT)
+     within 1e-3, printed beside the loop against itself with its product
+     summed in two k halves (bf16 rounding edges make any order of the sums
+     drift by ~1e-4); its ms a layer against the loop's (card and host) and
+     the bytes bound.  Its launches by path are counted over the whole run:
+     the kernel runs wherever the SST encodes in eval mode on the card in
+     bf16 with grad off.
 
 The lines before the last are the host library's JSON record, phase 34's
 and then the kernels'; the last line is
@@ -872,13 +890,15 @@ def phase_slice(card):
     from echr_tpu_torch.models.registry import init_captioner, init_tap
     from echr_tpu_torch.ops.kernel_attention import attention_scores_masked
     from echr_tpu_torch.ops.kernel_head import greedy_head
+    from echr_tpu_torch.ops.kernel_recurrence import lstm_recurrence
     from echr_tpu_torch.serve import CaptionService
 
     cfg = flagship_cfg()
     gen = torch.Generator().manual_seed(0)
     tap, cg = init_tap(gen, cfg), init_captioner(gen, cfg)
     vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
-    svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=32, topN=TOP_N)
+    chunk = 32
+    svc = CaptionService(cfg, tap, cg, vocab, device="cuda", batch_videos=chunk, topN=TOP_N)
     reqs = requests(64, seed=2)
     # warm-up (cuBLAS handles, allocator), keeping kernel 1's inputs of one step
     step_args = first_scores_args(svc, reqs[:32])
@@ -887,6 +907,7 @@ def phase_slice(card):
     greedy_head.launches = 0
     decoder_sample_batched.steps = 0
     decoder_sample_batched.host_syncs = 0
+    k11_before = lstm_recurrence.launches
     t0 = time.time()
     res = svc.caption(reqs)
     torch.cuda.synchronize()
@@ -894,6 +915,10 @@ def phase_slice(card):
     launches = {"attention_scores_masked": attention_scores_masked.launches,
                 "greedy_head": greedy_head.launches}
     steps = decoder_sample_batched.steps
+    k11 = lstm_recurrence.launches - k11_before
+    if k11 != cfg.tap.rnn_num_layers * -(-len(reqs) // chunk):
+        fail(f"kernel 11 launched {k11} times for {len(reqs)} videos in chunks of {chunk}: "
+             f"not once a chunk and SST layer")
 
     n_caps = sum(len(c) for c in res.values())
     check_captions(res, reqs)
@@ -901,7 +926,8 @@ def phase_slice(card):
             and launches["greedy_head"] == steps):
         fail(f"kernel launches {launches} do not match the {steps} decode steps run")
     print(f"[4] slice: {len(res)} videos, {n_caps} captions, {steps} decode steps, "
-          f"{decoder_sample_batched.host_syncs} early-exit syncs, launches {launches}; "
+          f"{decoder_sample_batched.host_syncs} early-exit syncs, launches {launches}, "
+          f"kernel 11 {k11}; "
           f"e.g. {res['v0'][0]}")
     print(f"[6] slice {n_caps / dt:.1f} captions/s ({len(reqs)} videos x {TOP_N} proposals "
           f"in {dt:.3f} s, bf16 compute, batch 32) [{card}]")
@@ -1266,7 +1292,9 @@ def phase_beam(card, svc):
     launches = attention_scores_masked.launches
     steps, syncs = beam_search_batched.steps, beam_search_batched.host_syncs
     peak = torch.cuda.max_memory_allocated()
-    check_captions(res, reqs)
+    # seeded init leaves many proposal scores near 0.5, so one can tie the
+    # TOP_N-th exactly; the tie is kept, as in echr_tpu
+    check_captions(res, reqs, ties=True)
     if not (steps > 0 and launches == steps):
         fail(f"kernel 1 launched {launches} times in {steps} beam steps")
     n_caps = sum(len(c) for c in res.values())
@@ -2433,6 +2461,8 @@ def phase_scst_train(card):
                                                      attention_scores_masked)
     from echr_tpu_torch.ops.kernel_head import greedy_head
 
+    from echr_tpu_torch.ops.kernel_recurrence import lstm_recurrence
+
     kernels = (attention_scores_masked, greedy_head, attention_scores_dense,
                attention_scores_bwd)
     cfg = scst_cfg()
@@ -2440,6 +2470,7 @@ def phase_scst_train(card):
     for fn in kernels:
         fn.launches = 0
     decoder_sample_batched.steps = 0
+    k11_before = lstm_recurrence.launches  # main() counts kernel 11 over the run
     torch.cuda.reset_peak_memory_stats()
     try:
         out = train(cfg, max_iterations=SCST_STEPS, device="cuda", timing_out=timing)
@@ -2447,6 +2478,7 @@ def phase_scst_train(card):
     finally:
         rl.close_default_reward_pool()  # joins the reward workers
     launches = {fn.__name__: fn.launches for fn in kernels}
+    k11 = lstm_recurrence.launches - k11_before
     peak = torch.cuda.max_memory_allocated()
     sc = timing["scst"]
     if out["iteration"] != SCST_STEPS or len(sc) != SCST_STEPS:
@@ -2463,12 +2495,16 @@ def phase_scst_train(card):
     if launches != want or decoder_sample_batched.steps != decoded:
         fail(f"SCST: launches {launches}, want {want} ({sampled} sampled and {greedy} greedy "
              f"decode steps; the decoder counted {decoder_sample_batched.steps})")
+    if k11 != cfg.tap.rnn_num_layers * SCST_STEPS:
+        fail(f"SCST: kernel 11 launched {k11} times in {SCST_STEPS} steps: not once a step "
+             f"and SST layer (the greedy baseline's encode only)")
     t = dict(timing["iters"])
     dt = (t[SCST_STEPS] - t[1]) / (SCST_STEPS - 1)
     part = {k: 1000 * np.mean([s[k] for s in sc[1:]]) for k in ("rollout", "reward", "update")}
     print(f"[23] SCST: {out['iteration']} steps of {TRAIN_B} videos (cotrain/tap_cg, vocab "
           f"{VOCAB}, L={SEQ_LEN}, T={T_BUCKET}, N={cfg.tap.prop_sample_num}, bf16, dropout on, "
-          f"self_critical_after 0; nothing cut); launches {launches}; sampled decode steps "
+          f"self_critical_after 0; nothing cut); launches {launches}, kernel 11 {k11} (the "
+          f"greedy baselines'); sampled decode steps "
           f"{[s['sample_steps'] for s in sc]}, greedy baseline steps "
           f"{[s['greedy_steps'] for s in sc]}; avg_reward a step "
           f"{[round(s['avg_reward'], 5) for s in sc]}; last losses "
@@ -2649,6 +2685,38 @@ def phase_scst_parity():
           f"{len(seen1)} shape) {worst1:.3e}, kernel 2 (R={B * N}) {worst2:.3e}, kernel 3 "
           f"({L} replay calls, mask density {density:.4f}) {worst3:.3e}, kernel 4 ({L} calls) "
           f"{worst4:.3e}")
+    scst_bf16_replay()
+
+
+# phase 24: train()'s batch_size for the bf16 replay check.  With kernel 11 on
+# the rollout's train-mode encode the replay read 3.0e-04 (batch_size 1) and
+# 7.6e-04 (4) off the rollout; with the loop on both, 0 at each (H100 80GB
+# HBM3, 700 W).  batch_size 1 runs the same batched step
+SCST_BF16_BATCHES = (4,)
+
+
+def scst_bf16_replay():
+    """Phase 24 at bf16: train()'s first SCST step at the flagship training
+    width (probe_scst_replay.train_pass).  The sampled rollout's train-mode
+    encode runs without grad and the update replays it under autograd: both
+    run the SST's loop (kernel 11 takes eval-mode encodes only), so the
+    replay's tokens and logps are exactly the rollout's (ROADMAP C.2), and
+    kernel 11 launches once a layer, for the greedy baseline's encode."""
+    from echr_tpu_torch.experiments import probe_scst_replay
+    from echr_tpu_torch.ops.kernel_recurrence import lstm_recurrence
+
+    layers = probe_scst_replay.flagship_train_cfg("bfloat16").tap.rnn_num_layers
+    for b in SCST_BF16_BATCHES:
+        n0 = lstm_recurrence.launches
+        r = probe_scst_replay.train_pass("cuda", batch_size=b)
+        k11 = lstm_recurrence.launches - n0
+        if not (r["tokens_equal"] and r["logps_max_abs_d"] == 0.0 and k11 == layers):
+            fail(f"[24] bf16 SCST at batch_size {b}: tokens equal {r['tokens_equal']}, replay "
+                 f"logps max|d| {r['logps_max_abs_d']:.3e} (want 0), kernel 11 launched {k11} "
+                 f"times (want {layers}, the greedy baseline's)")
+        print(f"[24] bf16 SCST in train() at batch_size {b}: the replay's logps equal the "
+              f"rollout's exactly (max|d| {r['logps_max_abs_d']:.1e}); kernel 11 launched {k11} "
+              f"times, once a layer for the greedy baseline")
 
 
 def phase_sample_eval(card):
@@ -5740,6 +5808,120 @@ def phase_trained(card, dev="cuda"):
     return rec, launches, kernels
 
 
+REC_SHAPES = ((128, 256, 512), (32, 256, 512), (1, 256, 512))  # phase 35: (B, T, H)
+REC_SEEDS = (0, 1, 2)  # phase 35: inputs at each shape and start
+REC_TOL = 1e-4  # phase 35: a step from the loop's own (h, c), kernel against loop
+# phase 35: the whole sequence.  A 1-ulp difference in a sum that lands on a
+# bf16 rounding edge of h moves that operand by 2^-8 relative, and the
+# recurrence carries it on.  Over 12 seeds at each shape and start (72
+# sequences, H100 80GB HBM3, 700 W) the kernel read up to 2.3e-04 and the
+# loop against itself with its product summed in two k halves up to 2.2e-04;
+# the loop with one block's 4 units of h stale (h_{t-3}) at one step of 256
+# reads 5.1e-03 (B = 1) to 2.6e-02 (B = 128).  The gate lies between: 4x
+# above the largest reading, 5x below the smallest fault
+REC_SEQ_TOL = 1e-3
+
+
+def recurrence_inputs(B, T, H, carry, seed=0, dev="cuda"):
+    """Seeded pre_x [T, B, 4H] at the SST's scale (std 0.7), w_hh [4H, H]
+    from the SST's init U(-1/sqrt(H), 1/sqrt(H)) rounded to bf16, and (h0,
+    c0) [B, H] or None."""
+    rng = np.random.RandomState(B * 7919 + T + H + carry + 104729 * seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    pre_x = t(rng.randn(T, B, 4 * H) * 0.7)
+    w = t(rng.uniform(-1, 1, (4 * H, H)) / np.sqrt(H)).bfloat16().float()
+    if not carry:
+        return pre_x, w, None, None
+    return pre_x, w, t(rng.randn(B, H) * 0.5), t(rng.randn(B, H))
+
+
+def loop_reordered(pre_x, w, h0, c0):
+    """The plain loop with its product summed in two k halves: the same
+    arithmetic in another order of the sums (phase 35's control)."""
+    from echr_tpu_torch.ops.core import matmul, round_to
+    from echr_tpu_torch.ops.kernel_recurrence import lstm_update
+
+    T, B, H4 = pre_x.shape
+    H, k = H4 // 4, H4 // 8
+    h = torch.zeros(B, H, device=pre_x.device) if h0 is None else h0
+    c = torch.zeros(B, H, device=pre_x.device) if c0 is None else c0
+    wt, hs = w.t(), []
+    for t in range(T):
+        hb = round_to(h, torch.bfloat16)
+        prod = (matmul(hb[:, :k], wt[:k], torch.bfloat16)
+                + matmul(hb[:, k:], wt[k:], torch.bfloat16))
+        h, c = lstm_update(pre_x[t] + prod, c, H)
+        hs.append(h)
+    return torch.stack(hs), (h, c)
+
+
+def phase_recurrence(card):
+    """Phase 35: kernel 11 (the LSTM recurrence) against its plain loop
+    (force_plain()) at REC_SHAPES, from zeros and from a given (h0, c0), on
+    each of REC_SEEDS' inputs: the whole sequence (hs, hT, cT) beside the
+    loop against itself summed in another order, and every step from the
+    loop's own (h, c); then the kernel's ms a layer against the loop's
+    (card and host) and the bound."""
+    from echr_tpu_torch.ops import force_plain
+    from echr_tpu_torch.ops.kernel_recurrence import lstm_recurrence, lstm_recurrence_plain
+
+    recs = {}
+    for B, T, H in REC_SHAPES:
+        rec = {}
+        for carry in (False, True):
+            tag = "from_h0_c0" if carry else "from_zeros"
+            steps, seqs, ctls = [], [], []
+            for seed in REC_SEEDS:
+                pre_x, w, h0, c0 = recurrence_inputs(B, T, H, carry, seed)
+                with torch.inference_mode():
+                    hs, (hT, cT) = lstm_recurrence(pre_x, w, h0, c0)
+                    with force_plain():
+                        want, (want_h, want_c) = lstm_recurrence(pre_x, w, h0, c0)
+                    ctl, (ctl_h, ctl_c) = loop_reordered(pre_x, w, h0, c0)
+                    step = 0.0
+                    h, c = h0, c0
+                    for t in range(T):
+                        k_hs, (_, k_c) = lstm_recurrence(pre_x[t:t + 1], w, h, c)
+                        _, (h, c) = lstm_recurrence_plain(pre_x[t:t + 1], w, h, c)
+                        step = max(step, float((k_hs[0] - h).abs().max()),
+                                   float((k_c - c).abs().max()))
+                if not torch.equal(h, want_h):
+                    fail(f"phase 35: the loop run step by step is not the loop at B={B}")
+                errs = {name: float((got - ref).abs().max()) for name, got, ref in
+                        (("hs", hs, want), ("hT", hT, want_h), ("cT", cT, want_c))}
+                ctl_err = max(float((ctl - want).abs().max()),
+                              float((ctl_c - want_c).abs().max()))
+                print(f"[35] kernel 11 B={B} T={T} H={H} {tag} seed {seed}: a step max|d| "
+                      f"{step:.3e} (gate {REC_TOL:g}); the sequence hs {errs['hs']:.3e}, hT "
+                      f"{errs['hT']:.3e}, cT {errs['cT']:.3e} against the loop reordered "
+                      f"{ctl_err:.3e} (gate {REC_SEQ_TOL:g})")
+                if step > REC_TOL or max(errs.values()) > REC_SEQ_TOL:
+                    fail(f"phase 35: kernel 11 off its loop at B={B} {tag} seed {seed}: a step "
+                         f"{step:.3e}, the sequence {errs}")
+                steps.append(step)
+                seqs.append(max(errs.values()))
+                ctls.append(ctl_err)
+            rec[tag] = {"max_abs_err": max(steps), "sequence_max_abs_err": max(seqs),
+                        "sequence_max_abs_err_by_seed": seqs,
+                        "loop_reordered_max_abs_err": max(ctls),
+                        "loop_reordered_max_abs_err_by_seed": ctls}
+        pre_x, w, _, _ = recurrence_inputs(B, T, H, False)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: lstm_recurrence(pre_x, w))
+            with force_plain():
+                plain_ms = cuda_ms(lambda: lstm_recurrence(pre_x, w), iters=3, warmup=1)
+                plain_host_ms = host_us(lambda: lstm_recurrence(pre_x, w), calls=3) / 1e3
+        rec.update(ms=ms, plain_ms=plain_ms, plain_host_ms=plain_host_ms,
+                   **bound(nbytes(pre_x) + T * B * H * 4, bf16=2 * T * B * H * 4 * H))
+        rec["max_abs_err"] = max(r["max_abs_err"] for r in (rec["from_zeros"], rec["from_h0_c0"]))
+        print(f"[35] kernel 11 B={B} T={T} H={H}: {ms:.4f} ms a layer against the loop's "
+              f"{plain_ms:.4f} ms on the card, {plain_host_ms:.4f} ms of host; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
+        recs[f"B{B}_T{T}_H{H}"] = rec
+        del pre_x, w
+    return {"max_abs_err": max(r["max_abs_err"] for r in recs.values()), "by_input": recs}
+
+
 def add_tanh_floor(rec, tanh_per_ms, rate_of):
     """tanh_floor_ms = tanh_needed over ``tanh_per_ms``, the measured rate
     of the kernel's own tanh (``rate_of`` names where it was measured), in
@@ -5752,21 +5934,33 @@ def add_tanh_floor(rec, tanh_per_ms, rate_of):
 
 
 def main():
+    from echr_tpu_torch.ops.kernel_recurrence import lstm_recurrence
+
+    k11_paths, k11_seen = {}, [lstm_recurrence.launches]
+
+    def k11_path(name):
+        """Kernel 11's launches since the previous call, under ``name``."""
+        k11_paths[name] = lstm_recurrence.launches - k11_seen[0]
+        k11_seen[0] = lstm_recurrence.launches
+
     card = phase_device()
     scores = phase_scores(card)
     head = phase_head(card)
     launches, tap, cg, vocab, greedy_args = phase_slice(card)
+    k11_path("greedy")
     k1_inputs = {"phase2_synthetic": {k: v for k, v in scores.items()
                                       if k not in ("max_abs_err", "tanh_max_abs_err", "plain_ms",
                                                    "all_live_ms", "tanh_per_ms")}}
     k1_inputs["greedy_slice"] = kernel1_timing(card, "one greedy step of phase 4", greedy_args)
     del greedy_args
     phase_parity(tap, cg, vocab)
+    k11_path("greedy_parity_f32")
     dense = phase_scores_dense(card)
     bwd = phase_scores_bwd(card)
     train_launches, dense["training_masks"], bwd["training_g"] = phase_train(card)
     launches.update(train_launches)
     phase_train_parity()
+    k11_path("train")
     svc = caption_service()
     step = beam_step_tensors(svc)
     keys = ("pre", "q", "w", "b", "mask")
@@ -5781,31 +5975,48 @@ def main():
     del step
     beam_launches = phase_beam(card, svc)
     del svc
+    k11_path("beam")
     phase_beam_parity(tap, cg, vocab)
     probe_head = phase_probe_head(card)
     probe_sweep = phase_probe_sweep(card)
     overlap = phase_probe_overlap(card)
+    k11_path("beam_parity_f32")
     evals = phase_eval(card)
+    k11_path("eval")
     phase_eval_parity()
     ckpt_launches = phase_ckpt_train(card)
+    k11_path("checkpointed_train")
     phase_preempt()
     phase_resume_parity()
     scst_launches = phase_scst_train(card)
+    k11_path("scst_train")
     phase_scst_parity()
     sample_k1 = phase_sample_eval(card)
+    k11_path("eval_sampled")
     family, head["by_width"] = phase_family(card)
+    k11_path("decoder_family")
     real, k1_inputs["sota_eval"], head["sota_eval"], sota_steps = phase_real_data(card)
+    k11_path("real_data")
     pipe_launches = phase_pipeline(card)
+    k11_path("train_sync_and_pipelined")
     pervideo, k1_pervideo, head["per_video_rows"], pervideo_steps = phase_pervideo(card)
+    k11_path("per_video")
     k1_inputs.update(k1_pervideo)
     for rec, name in ((fused, "attention_fused"), (windowed, "windowed_attention")):
         rec["by_input"].update(sota_eval=sota_steps[name], per_video=pervideo_steps[name])
         rec["max_abs_err"] = max(r["max_abs_err"] for r in rec["by_input"].values())
     dp = phase_data_parallel(card)
+    k11_path("data_parallel")
     tp_launches, head["vocab_block"] = phase_tensor_parallel(card)
+    k11_path("tensor_parallel")
     single, windowed["grouped_attention_by_input"] = phase_single_process(card)
+    k11_path("single_process")
     host_native, host_launches = phase_host_native(card)
+    k11_path("host_native")
     trained, trained_launches, trained_k = phase_trained(card)
+    k11_path("trained")
+    recurrence = phase_recurrence(card)
+    k11_path("kernel_check_phase35")
     k1_inputs.update(trained_k["attention_scores_masked"])
     dense["trained_masks"] = trained_k["attention_scores_dense"]
     bwd["trained_g"] = trained_k["attention_scores_bwd"]
@@ -5908,6 +6119,10 @@ def main():
          "source": "echr_tpu_torch/csrc/probe_score_overlap.cu",
          "replaces": "experiments/probe_mxu_vpu_overlap.py:62",
          **overlap["probe_scores_plus_dot"]},
+        {"name": "lstm_recurrence", "route": "cuda",
+         "source": "echr_tpu_torch/csrc/lstm_recurrence.cu",
+         "replaces": None, "jax_side": "echr_tpu/ops/recurrent.py:139 (lax.scan)",
+         "launches": sum(k11_paths.values()), "launches_by_path": k11_paths, **recurrence},
     ]
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "echr_tpu", "experiments")

@@ -1,6 +1,6 @@
 // cp.async (sm_80+) for the kernels that stage tiles in shared memory
-// without TMA: kernels 5, 6, 9 and 10 (attention_fused.cu,
-// windowed_attention.cu, probe_score_overlap.cu).  A copy whose source is
+// without TMA: kernels 5, 6, 9, 10 and 11 (attention_fused.cu,
+// windowed_attention.cu, probe_score_overlap.cu, lstm_recurrence.cu).  A copy whose source is
 // not valid reads nothing and writes zeros, so a ragged edge needs no
 // other masking.
 #pragma once

@@ -15,7 +15,8 @@ and 4 take their tanh from csrc/tanh.cuh, held within 2.4e-7 of float64
 kernels 7-8 and kernel 10 take their TMA, mbarrier and wgmma pieces from
 csrc/hopper.cuh and find the CUDA driver library's cuTensorMapEncodeTiled
 through the runtime (cudaGetDriverEntryPoint), so the library needs no
--lcuda.
+-lcuda.  Kernel 11 (csrc/lstm_recurrence.cu) takes CUDA's accurate expf and
+tanhf, as torch.sigmoid and torch.tanh do, and is launched cooperatively.
 """
 from __future__ import annotations
 
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "echr_probe_stream_head": [_P] * 3 + [_I] * 5 + [_P] * 3 + [_P],
     # pre, q, w, wd, s, dot, B, N, T, H, KD, scores, stream
     "echr_probe_scores": [_P] * 6 + [_I] * 6 + [_P],
+    # pre_x, w_hh, h0, c0, hs, c_out, xbuf, count, T, B, H, stream
+    "echr_lstm_recurrence": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

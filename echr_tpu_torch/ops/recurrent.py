@@ -1,10 +1,14 @@
 """LSTM primitives (echr_tpu/ops/recurrent.py).
 
-torch LSTMCell layout and math (gate order i, f, g, o; two bias vectors),
-written as a plain loop over T in the JAX form: h and c stay f32, the
-matmul operands are rounded to the compute dtype, and x @ W_ih of a whole
-sequence is one matmul hoisted out of the loop.  cuDNN's nn.LSTM is a
-later performance question.
+torch LSTMCell layout and math (gate order i, f, g, o; two bias vectors)
+in the JAX form: h and c stay f32, the matmul operands are rounded to the
+compute dtype, and x @ W_ih of a whole sequence is one matmul hoisted out
+of the recurrence.  The recurrence over T is kernel 11
+(ops/kernel_recurrence.py) where an eval-mode layer runs on CUDA in bf16
+with grad off (serving, eval, SCST's greedy baseline), and otherwise its
+plain loop: training under autograd, the train-mode encodes (SCST's
+sampled rollout runs without grad but its replay with it, and the two
+must sum alike), the f32 parity runs, the CPU.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import torch
 from torch import nn
 
 from echr_tpu_torch.ops.core import dropout, parameter, matmul, round_to, uniform_
+from echr_tpu_torch.ops.kernel_recurrence import (lstm_recurrence, lstm_recurrence_plain,
+                                                  lstm_update)
 
 
 class LSTMCell(nn.Module):
@@ -37,16 +43,6 @@ class LSTMCell(nn.Module):
         return self
 
 
-def _update(pre: torch.Tensor, c: torch.Tensor, H: int):
-    """Gates i, f, g, o of pre [..., 4H] -> (h', c'); one sigmoid over all
-    four gates (g's is unused) keeps the launches per step few."""
-    sig = torch.sigmoid(pre)
-    i, f, o = sig[..., :H], sig[..., H:2 * H], sig[..., 3 * H:]
-    g = torch.tanh(pre[..., 2 * H:3 * H])
-    c_new = f * c + i * g
-    return o * torch.tanh(c_new), c_new
-
-
 def lstm_cell(p: LSTMCell, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step; x [..., in], h/c [..., H] -> (h', c')."""
@@ -54,14 +50,14 @@ def lstm_cell(p: LSTMCell, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     pre = pre + matmul(round_to(h, dtype), p.weight_hh.t(), dtype)
     if p.bias_ih is not None:
         pre = pre + p.bias_ih + p.bias_hh
-    return _update(pre, c, p.hidden_dim)
+    return lstm_update(pre, c, p.hidden_dim)
 
 
 def lstm_cell_pre(p: LSTMCell, pre_x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                   dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step from a precomputed input projection (x @ W_ih.T + biases)."""
     pre = pre_x + matmul(round_to(h, dtype), p.weight_hh.t(), dtype)
-    return _update(pre, c, p.hidden_dim)
+    return lstm_update(pre, c, p.hidden_dim)
 
 
 def lstm_input_proj(p: LSTMCell, x: torch.Tensor, col_start: int = 0,
@@ -74,22 +70,24 @@ def lstm_input_proj(p: LSTMCell, x: torch.Tensor, col_start: int = 0,
     return out
 
 
+def takes_kernel(xs: torch.Tensor, dtype: torch.dtype, train: bool = False) -> bool:
+    """Whether lstm_layer runs its recurrence as kernel 11: xs on CUDA,
+    bf16 products, grad off, eval mode.  Training needs the loop's
+    autograd; a train-mode forward without grad (SCST's rollout) needs the
+    loop too, so that its replay under autograd sums alike; the f32 runs
+    need their f32 products."""
+    return (xs.device.type == "cuda" and dtype == torch.bfloat16 and not train
+            and not torch.is_grad_enabled())
+
+
 def lstm_layer(p: LSTMCell, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
-               c0: Optional[torch.Tensor] = None, dtype: torch.dtype = torch.float32
-               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+               c0: Optional[torch.Tensor] = None, dtype: torch.dtype = torch.float32,
+               train: bool = False) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One layer over xs [T, B, in] -> ([T, B, H], (hT, cT))."""
-    T, B, _ = xs.shape
-    H = p.hidden_dim
-    h = torch.zeros(B, H, device=xs.device) if h0 is None else h0
-    c = torch.zeros(B, H, device=xs.device) if c0 is None else c0
     pre_x = lstm_input_proj(p, xs, dtype=dtype, with_bias=True)
-    w_hh_t = p.weight_hh.t()
-    hs = []
-    for t in range(T):
-        pre = pre_x[t] + matmul(round_to(h, dtype), w_hh_t, dtype)
-        h, c = _update(pre, c, H)
-        hs.append(h)
-    return torch.stack(hs), (h, c)
+    if takes_kernel(xs, dtype, train):
+        return lstm_recurrence(pre_x, p.weight_hh, h0, c0)
+    return lstm_recurrence_plain(pre_x, p.weight_hh, h0, c0, dtype)
 
 
 def lstm_stack(layers: Sequence[LSTMCell], xs: torch.Tensor,
@@ -101,7 +99,7 @@ def lstm_stack(layers: Sequence[LSTMCell], xs: torch.Tensor,
     finals = []
     h = xs
     for l, p in enumerate(layers):
-        h, hc = lstm_layer(p, h, dtype=dtype)
+        h, hc = lstm_layer(p, h, dtype=dtype, train=train)
         finals.append(hc)
         if l < len(layers) - 1:
             h = dropout(h, dropout_rate, gen, train)
